@@ -1,0 +1,58 @@
+"""Carry the reference package's state across into the port.
+
+Both functions take plain numpy arrays — the fields the reference's
+``IVFIndex`` and ``EmbeddingLayout`` hold, under the names its ``.npz``
+artifacts use — so a mapping from ``np.load`` of a saved ``index.npz`` /
+``layout.npz`` works as well as a dict built in memory.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.ivf import IVFIndex
+from repro_torch.storage.layout import EmbeddingLayout
+
+
+def _optional(a) -> np.ndarray | None:
+    """``None`` and empty arrays both mean "absent" (npz stores an empty
+    placeholder for a missing optional array)."""
+    if a is None:
+        return None
+    a = np.asarray(a)
+    return a if a.size else None
+
+
+def ivf_index_from_numpy(arrays, device) -> IVFIndex:
+    """IVF index from ``centroids``, ``cell_ids``, ``cell_vecs``,
+    ``cell_scale``, ``cell_sizes``, ``n_docs`` and ``quant``, with its
+    tensors copied to ``device``."""
+    scale = _optional(arrays["cell_scale"])
+    return IVFIndex(
+        centroids=torch.tensor(np.asarray(arrays["centroids"], np.float32),
+                               device=device),
+        cell_ids=torch.tensor(np.asarray(arrays["cell_ids"], np.int32),
+                              device=device),
+        cell_vecs=torch.tensor(np.asarray(arrays["cell_vecs"]),
+                               device=device),
+        cell_scale=(torch.tensor(scale.astype(np.float32), device=device)
+                    if scale is not None else None),
+        cell_sizes=np.asarray(arrays["cell_sizes"]),
+        n_docs=int(arrays["n_docs"]), quant=str(arrays["quant"]))
+
+
+def layout_from_numpy(arrays) -> EmbeddingLayout:
+    """Ragged embedding layout from ``blob``, ``offsets``, ``n_tokens``,
+    ``d_cls``, ``d_bow``, ``dtype``, ``scales`` and ``block``. The layout
+    stays a host blob, as the storage tier reads it."""
+    mode = str(arrays["mode"]) if "mode" in arrays else "ragged"
+    if mode != "ragged":
+        raise NotImplementedError(f"layout mode {mode!r} is not ported yet")
+    return EmbeddingLayout(
+        blob=np.asarray(arrays["blob"], np.uint8),
+        offsets=np.asarray(arrays["offsets"], np.int64),
+        n_tokens=np.asarray(arrays["n_tokens"], np.int32),
+        d_cls=int(arrays["d_cls"]), d_bow=int(arrays["d_bow"]),
+        dtype=np.dtype(str(arrays["dtype"])),
+        scales=_optional(arrays["scales"]),
+        block=int(arrays["block"]))

@@ -1,0 +1,86 @@
+"""Shared types of the ESPN query path (paper Fig 4): the configuration, the
+simulated compute clock, the per-stage latency breakdown and the response.
+
+Every stage contributes to a per-query latency breakdown on the simulated
+device clock, reproducing the paper's Tables 4/5 and Figures 8-10. The
+per-mode query paths live in ``repro_torch.pipeline.backends``.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+from repro_torch.core.rerank import RerankOutput
+
+
+@dataclass(frozen=True)
+class ComputeModel:
+    """Compute clock of the simulation. The constants are the simulation's
+    clock parameters, kept equal to the reference's for parity: the
+    breakdown it bills is the paper's model, not a measurement of the card
+    the port runs on."""
+    maxsim_flops_s: float = 30e12
+    encode_base_s: float = 2.2e-3
+    encode_flops_s: float = 60e12
+    encoder_gflops: float = 4.4        # distilBERT fwd @ 32 tokens
+
+    def encode_time(self, batch: int) -> float:
+        return self.encode_base_s + batch * self.encoder_gflops * 1e9 / self.encode_flops_s
+
+    def maxsim_time(self, n_docs: int, q_len: int, mean_tokens: float,
+                    d_bow: int) -> float:
+        flops = 2.0 * n_docs * q_len * mean_tokens * d_bow
+        return 0.3e-3 + flops / self.maxsim_flops_s
+
+
+@dataclass(frozen=True)
+class ESPNConfig:
+    mode: str = "espn"                 # any registered backend name
+    nprobe: int = 128
+    k_candidates: int = 1000
+    prefetch_step: float = 0.10
+    rerank_count: int | None = None    # None = exact (re-rank all candidates)
+    alpha: float = 1.0                 # CLS/BOW aggregation weight
+
+
+@dataclass
+class LatencyBreakdown:
+    """The reference's breakdown, field for field. The fault, hedging and
+    degraded-mode counters belong to layers not ported yet and stay 0."""
+    encode_s: float = 0.0
+    ann_s: float = 0.0
+    hidden_s: float = 0.0              # overlapped prefetch+early-rerank work
+    critical_io_s: float = 0.0
+    rerank_s: float = 0.0
+    total_s: float = 0.0
+    hit_rate: float = 1.0
+    bytes_read: int = 0                # unique bytes billed for the batch
+    dedup_bytes_saved: int = 0         # duplicate-request bytes billed once
+    hedge_bytes_read: int = 0
+    retries: int = 0
+    checksum_failures: int = 0
+    repair_bytes: int = 0
+    faults_injected: int = 0
+    degraded_queries: int = 0
+
+    def ms(self) -> dict:
+        return {k: round(v * 1e3, 3) for k, v in self.__dict__.items()
+                if k.endswith("_s")} | {"hit_rate": round(self.hit_rate, 4)}
+
+    def as_dict(self) -> dict:
+        """COMPLETE breakdown: every field, ``_s`` stages converted to
+        milliseconds (``*_ms`` keys) and the counters passed through."""
+        out: dict = {}
+        for k, v in self.__dict__.items():
+            if k.endswith("_s"):
+                out[k[:-2] + "_ms"] = round(v * 1e3, 6)
+            elif k == "hit_rate":
+                out[k] = round(v, 6)
+            else:
+                out[k] = int(v)
+        return out
+
+
+@dataclass
+class RetrievalResponse:
+    ranked: list[RerankOutput]
+    breakdown: LatencyBreakdown

@@ -1,0 +1,162 @@
+"""ESPN's ANN-guided software prefetcher (paper §4.2).
+
+After δ of η probes the partial top-K is snapshotted and its documents are
+read from the storage tier *while* the remaining λ = η − δ probes run; only
+the misses (final∖prefetched) are fetched in the critical path. Equations
+(2)–(3) of the paper:
+
+    PrefetchBudget ≅ ANNTime(η) − ANNTime(δ)
+    PrefetchStep   = δ/η
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+
+from repro_torch.core.ivf import (ANNCostModel, IVFIndex, search_two_phase,
+                                  valid_candidates)
+from repro_torch.storage.io_engine import StorageTier
+
+
+@dataclass
+class PrefetchStats:
+    hit_rate: float
+    n_prefetched: int
+    n_hits: int
+    n_misses: int
+    budget_s: float
+    prefetch_io_s: float
+    leaked_s: float               # prefetch time exceeding the budget
+    miss_io_s: float
+    ann_s: float
+
+
+@dataclass
+class QueryResult:
+    doc_ids: np.ndarray           # final candidate ids (k,)
+    cand_scores: np.ndarray       # candidate-generation (CLS) scores
+    hit_mask: np.ndarray          # True where the doc was prefetched
+    stats: PrefetchStats
+    prefetched: dict = field(default_factory=dict)   # id -> row in buffers
+    buffers: tuple | None = None  # (cls, bow, lens) of prefetched docs
+    miss_buffers: tuple | None = None
+    miss_rows: dict | None = None  # id -> row in miss_buffers (batch arena)
+    wait_io: object | None = None  # callable: block until this query's async
+                                   # batch-I/O runs landed (rerank calls it)
+
+    @classmethod
+    def from_batch_view(cls, doc_ids: np.ndarray, cand_scores: np.ndarray,
+                        batch, b: int, *, ann_s: float) -> "QueryResult":
+        """Result whose buffers are query ``b``'s zero-copy view into a
+        ``BatchReadResult`` arena: the shared buffers plus an id->row map.
+        I/O is billed in the critical path with the query's first-owner
+        attribution share; ``wait_io`` defers the arrival barrier to the
+        re-rank, so reads of later queries overlap this query's scoring.
+        """
+        buffers, row_map, io_s = batch.view(b)
+        stats = PrefetchStats(hit_rate=0.0, n_prefetched=0, n_hits=0,
+                              n_misses=len(batch.plan.lists[b]), budget_s=0.0,
+                              prefetch_io_s=0.0, leaked_s=0.0,
+                              miss_io_s=io_s, ann_s=ann_s)
+        return cls(doc_ids=doc_ids, cand_scores=cand_scores,
+                   hit_mask=np.zeros(len(doc_ids), bool), stats=stats,
+                   prefetched=row_map, buffers=buffers,
+                   wait_io=(lambda: batch.ensure_query(b)))
+
+
+class ANNPrefetcher:
+    """Two-phase IVF search + overlapped storage prefetch."""
+
+    def __init__(self, index: IVFIndex, tier: StorageTier, *,
+                 prefetch_step: float = 0.10,
+                 cost_model: ANNCostModel | None = None):
+        self.index = index
+        self.tier = tier
+        self.prefetch_step = prefetch_step
+        self.cost = cost_model or ANNCostModel()
+
+    def delta(self, nprobe: int) -> int:
+        return max(1, int(round(self.prefetch_step * nprobe)))
+
+    def run_batch(self, q: np.ndarray, *, nprobe: int,
+                  k: int) -> list[QueryResult]:
+        """q: (B, d). Returns one QueryResult per query.
+
+        The IVF compute is batched (on the index's device) and so is the
+        I/O: all queries' prefetch lists go to the storage tier as ONE
+        coalesced ``read_batch``, and the misses as a second. In coalesced
+        mode a miss that any query already prefetched is served from the
+        shared prefetch arena instead of re-read. The accounting stays
+        per-query via first-owner attribution shares, which sum exactly to
+        the batch totals.
+        """
+        delta = self.delta(nprobe)
+        approx, final, _ = search_two_phase(self.index, q, nprobe, k, delta)
+        a_ids = approx[1].cpu().numpy()
+        f_scores, f_ids = (t.cpu().numpy() for t in final)
+
+        budget = self.cost.prefetch_budget(self.index, nprobe, delta)
+        ann_total = self.cost.time(self.index, nprobe)
+
+        B = q.shape[0]
+        pref_lists, fins, hit_masks, miss_lists = [], [], [], []
+        for b in range(B):
+            pref_ids = a_ids[b][a_ids[b] >= 0]
+            fin_ids, fin_scores = valid_candidates(f_ids[b], f_scores[b])
+            hit_mask = np.isin(fin_ids, pref_ids, assume_unique=False)
+            pref_lists.append(pref_ids)
+            fins.append((fin_ids, fin_scores))
+            hit_masks.append(hit_mask)
+            miss_lists.append(fin_ids[~hit_mask])
+
+        fetch_lists = miss_lists
+        served_masks = None
+        pref_batch = self.tier.read_batch(pref_lists, skip_empty=True)
+        if pref_batch.coalesced:
+            # cross-query reuse: misses already in the batch's prefetch
+            # arena are served from memory, not re-read from storage
+            served_masks = [pref_batch.plan.contains(m) for m in miss_lists]
+            fetch_lists = [m[~mask]
+                           for m, mask in zip(miss_lists, served_masks)]
+        miss_batch = self.tier.read_batch(fetch_lists, skip_empty=True)
+
+        results = []
+        for b in range(B):
+            fin_ids, fin_scores = fins[b]
+            hit_mask = hit_masks[b]
+            buffers, pref_rows, pref_io = pref_batch.view(b)
+            miss_buffers, miss_rows, miss_io = miss_batch.view(b)
+            wait_io = None
+            if pref_batch.coalesced:
+                served_rows = np.empty(0, np.int64)
+                served = miss_lists[b][served_masks[b]] if served_masks \
+                    else miss_lists[b][:0]
+                if len(served):
+                    served_rows = pref_batch.plan.rows_of(served)
+                    pref_rows = dict(pref_rows)
+                    pref_rows.update(zip(served.tolist(),
+                                         served_rows.tolist()))
+                # barrier covers this query's own runs AND the prefetch-arena
+                # runs it borrows served misses from (owned by other queries)
+                wait_io = (lambda b=b, rows=served_rows: (
+                    pref_batch.ensure_query(b),
+                    pref_batch.ensure_rows(rows),
+                    miss_batch.ensure_query(b)))
+            stats = PrefetchStats(
+                hit_rate=float(hit_mask.mean()) if len(fin_ids) else 1.0,
+                n_prefetched=len(pref_lists[b]),
+                n_hits=int(hit_mask.sum()),
+                n_misses=len(miss_lists[b]),
+                budget_s=budget,
+                prefetch_io_s=pref_io,
+                leaked_s=max(0.0, pref_io - budget),
+                miss_io_s=miss_io,
+                ann_s=ann_total,
+            )
+            results.append(QueryResult(
+                doc_ids=fin_ids, cand_scores=fin_scores,
+                hit_mask=hit_mask, stats=stats, prefetched=pref_rows,
+                buffers=buffers, miss_buffers=miss_buffers,
+                miss_rows=miss_rows, wait_io=wait_io))
+        return results

@@ -1,0 +1,59 @@
+"""The port stands alone: no module of ``repro_torch`` (and not
+``chip_smoke.py``) imports ``jax`` or anything of the reference package
+``repro``, at import time or lazily inside a function."""
+import os
+import pkgutil
+import re
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SRC = os.path.join(REPO, "src")
+PORT = os.path.join(SRC, "repro_torch")
+
+_BLOCKED_IMPORT = r"""
+import importlib, pkgutil, sys
+
+class Refuse:
+    def find_spec(self, name, path=None, target=None):
+        top = name.split(".")[0]
+        if top in ("jax", "jaxlib", "repro"):
+            raise ImportError(f"the port must not import {name}")
+        return None
+
+sys.meta_path.insert(0, Refuse())
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+assert not leaked, leaked
+print(len(names))
+"""
+
+
+def test_every_module_imports_with_jax_and_repro_blocked():
+    out = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT],
+                         capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": SRC})
+    assert out.returncode == 0, out.stderr
+    modules = {m.name for m in pkgutil.walk_packages([PORT], "repro_torch.")}
+    assert int(out.stdout.split()[-1]) == len(modules) >= 20
+
+
+def test_sources_name_no_jax_or_reference_import():
+    pattern = re.compile(r"^\s*(import\s+(jax|repro)\b(?!_torch)"
+                         r"|from\s+(jax|repro)(\.|\s)(?!_torch))", re.M)
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(PORT):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    hits = []
+    for path in files:
+        with open(path) as f:
+            text = f.read()
+        hits += [f"{path}: {m.group(0).strip()}"
+                 for m in pattern.finditer(text)]
+    assert not hits, hits
+    assert len(files) > 20
