@@ -6,17 +6,22 @@
 Phases, each of which must pass:
 
 1. card: the ``nvidia-smi`` name and power limit; no CUDA device -> exit 2;
-2. build: both CUDA kernels from the checkout's sources, in parallel;
+2. build: the four CUDA kernels from the checkout's sources, in parallel;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the query path's shapes and at ragged edges, with its time (CUDA events,
    median of 50 after warm-up), the plain version's time, a one-call PyTorch
    yardstick where there is one, and the least time the card could take;
 4. main path: ``Pipeline.build`` at the ColBERTer widths on a 1M-doc corpus,
-   4 batches of 64 queries through ``espn`` and one through ``gds``, with
-   every kernel's launch count read around each run, quality, the simulated
-   latency breakdown, and the wall time per batch split by stage;
+   4 batches of 64 queries through ``espn`` and one through ``gds``, then,
+   through ``Pipeline.from_artifacts`` on the same corpus, index and layout,
+   one batch each through ``bitvec``, ``fde`` and ``cascade`` (their bit and
+   FDE tables built once, with size and build time); every kernel's launch
+   count read around each mode's run, quality, the simulated latency
+   breakdown, and the wall time per batch split by stage;
 5. agreement: on a small corpus, at the main path's retrieval settings,
-   the card path ranks, scores and bills as the CPU path does.
+   the card path ranks, scores and bills as the CPU path does in every
+   mode (``fde`` in both branches), and the card builds the FDE table the
+   CPU builds.
 
 It then prints the card line, the ``{"kernels": [...]}`` line and, last,
 the ``{"ok": ...}`` line. Any failed phase exits non-zero without them.
@@ -47,6 +52,10 @@ KERNELS = {
                "replaces": "src/repro/kernels/maxsim/maxsim.py:44"},
     "ivf_scan": {"source": "src/repro_torch/kernels/ivf_scan/csrc/ivf_scan.cu",
                  "replaces": "src/repro/kernels/ivf_scan/ivf_scan.py:34"},
+    "bitsim": {"source": "src/repro_torch/kernels/bitsim/csrc/bitsim.cu",
+               "replaces": "src/repro/kernels/bitsim/bitsim.py:54"},
+    "fdescan": {"source": "src/repro_torch/kernels/fdescan/csrc/fdescan.cu",
+                "replaces": "src/repro/kernels/fdescan/fdescan.py:33"},
 }
 REL_TOL = 1e-5      # fp32 FMA sums taken in another order than the plain
                     # version's cuBLAS product: |err| <= 1e-5 * max(1, |ref|)
@@ -194,6 +203,115 @@ def check_ivf_scan(dev, rng, failures) -> dict:
     return row
 
 
+def check_bitsim(dev, rng, failures) -> dict:
+    import torch
+
+    from repro_torch.core.quantize import binary_pack, to_uint32_lanes
+    from repro_torch.kernels.bitsim.ops import bitsim
+    from repro_torch.kernels.bitsim.ref import bitsim_ref
+    T = 180
+    cases = [  # name, K, Lq, D, lens, lane dtype, query mask
+        ("slice K=1000 W=1 D=32 Lq=24", 1000, 24, 32,
+         np.clip((rng.pareto(2.5, 1000) + 1) * 36, 8, T), "uint32", False),
+        ("K=37 lens 0..T masked", 37, 24, 32,
+         np.r_[0, T, rng.integers(0, T + 1, 35)], "uint32", True),
+        ("K=333 W=2 D=40 Lq=7", 333, 7, 40, rng.integers(0, T + 1, 333),
+         "uint32", True),
+        ("K=1000 uint8 lanes re-viewed", 1000, 24, 32,
+         rng.integers(0, T + 1, 1000), "uint8", False),
+    ]
+    row = None
+    worst = 0.0
+    for name, K, lq, D, lens, lanes, masked in cases:
+        q = torch.tensor(unit(rng.standard_normal((lq, D))), device=dev)
+        qm = torch.tensor((rng.random(lq) > 0.2) if masked else np.ones(lq),
+                          dtype=torch.float32, device=dev)
+        packed = to_uint32_lanes(binary_pack(
+            rng.standard_normal((K, T, D)).astype(np.float32), dtype=lanes))
+        docs = torch.tensor(packed.view(np.int32), device=dev)
+        lens_t = torch.tensor(np.asarray(lens, np.int32), device=dev)
+        out = bitsim(q, qm, docs, lens_t)
+        ref = bitsim_ref(q, qm, docs, lens_t)
+        torch.cuda.synchronize()
+        live = lens_t > 0
+        err = float((out[live] - ref[live]).abs().max()) if live.any() else 0.0
+        tol = REL_TOL * max(1.0, float(ref[live].abs().max()))
+        empty_ok = bool(torch.allclose(out[~live], ref[~live], rtol=1e-6,
+                                       atol=0))
+        ok = err <= tol and empty_ok and out.shape == (K,)
+        worst = max(worst, err)
+        log(f"  bitsim {name}: max_abs_err={err:.3g} tol={tol:.3g} "
+            f"zero-length docs {'match' if empty_ok else 'DIFFER'} "
+            f"-> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"bitsim {name}")
+        if row is None:                       # the bit filter's own shape
+            W = docs.shape[2]
+            n_tok = float(lens_t.clamp(0, T).sum())
+            ms = time_ms(lambda: bitsim(q, qm, docs, lens_t))
+            plain = time_ms(lambda: bitsim_ref(q, qm, docs, lens_t))
+            n_bytes = 4 * (lq * D + lq + 2 * K) + 4 * W * n_tok
+            n_ops = 2 * lq * D * n_tok + lq * n_tok + 2 * K * lq
+            b_ms, by = bound_ms(n_bytes, n_ops)
+            row = {"ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+                   "bound_by": by, "library_ms": None}
+            log(f"  bitsim timing (K={K}, T={T}, W={W}, D={D}, Lq={lq}, "
+                f"{int(n_tok)} valid tokens): kernel {ms:.4f} ms, plain "
+                f"{plain:.4f} ms, bound {b_ms:.4f} ms ({by})")
+    row["max_abs_err"] = worst
+    return row
+
+
+def check_fdescan(dev, rng, failures) -> dict:
+    import torch
+
+    from repro_torch.kernels.fdescan.ops import fdescan
+    from repro_torch.kernels.fdescan.ref import fdescan_ref
+    cases = [("slice B=64 N=1,000,000 D=256 fp16", 64, N_DOCS, 256, True),
+             ("B=1 N=1000 D=256 fp16", 1, 1000, 256, True),
+             ("B=33 N=1037 D=128 fp16", 33, 1037, 128, True),
+             ("B=70 N=3001 D=256 fp16", 70, 3001, 256, True),
+             ("B=8 N=300 D=100 fp32", 8, 300, 100, False)]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    row = None
+    worst = 0.0
+    for name, B, N, D, fp16 in cases:
+        q = torch.tensor(rng.standard_normal((B, D)).astype(np.float32),
+                         device=dev)
+        docs = 0.1 * torch.randn(N, D, device=dev, generator=gen)
+        if fp16:
+            docs = docs.half()
+        out = fdescan(q, docs)
+        ref = fdescan_ref(q, docs)
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        tol = REL_TOL * max(1.0, float(ref.abs().max()))
+        ok = err <= tol and out.shape == (B, N)
+        worst = max(worst, err)
+        log(f"  fdescan {name}: max_abs_err={err:.3g} tol={tol:.3g} "
+            f"-> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"fdescan {name}")
+        if row is None:
+            ms = time_ms(lambda: fdescan(q, docs))
+            plain = time_ms(lambda: fdescan_ref(q, docs))
+            docs32 = docs.float()
+            lib = time_ms(lambda: torch.matmul(q, docs32.T))
+            del docs32
+            b_ms, by = bound_ms(4 * B * D + docs.element_size() * N * D
+                                + 4 * B * N, 2 * B * N * D)
+            row = {"ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+                   "bound_by": by, "library_ms": lib}
+            log(f"  fdescan timing (B={B}, N={N}, D={D}, fp16 table): "
+                f"kernel {ms:.4f} ms, plain {plain:.4f} ms, torch.matmul "
+                f"on an fp32 copy {lib:.4f} ms, bound {b_ms:.4f} ms ({by})")
+        del q, docs, out, ref
+    torch.cuda.empty_cache()
+    row["max_abs_err"] = worst
+    return row
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
@@ -226,9 +344,22 @@ class StageClock:
 
     def install(self):
         from repro_torch.core import prefetcher, rerank
-        from repro_torch.pipeline import backends
+        from repro_torch.core.fde import FDEEncoder
+        from repro_torch.pipeline import backends, pipeline
         from repro_torch.storage.batch_io import BatchReadPlan, BatchReadResult
         from repro_torch.storage.io_engine import StorageTier
+        # the resident tables the new modes build from the blob
+        self.wrap(pipeline, "bits_from_layout", "bit_table_build")
+        self.wrap(pipeline, "fde_from_layout", "fde_table_build", sync=True)
+        # fde/cascade candidate generation, split into disjoint parts
+        self.wrap(backends.FDEBackend, "_fde_candidates", "fde_candidates",
+                  sync=True)
+        self.wrap(FDEEncoder, "encode_queries", "fde_encode", sync=True)
+        self.wrap(backends, "fdescan", "fdescan_kernel", sync=True)
+        self.wrap(backends, "topk_stable", "fde_topk", sync=True)
+        # bitvec/cascade bit filter: the host gather and the kernel
+        self.wrap(StorageTier, "read_bits", "read_bits")
+        self.wrap(backends, "bitsim", "bitsim_kernel", sync=True)
         self.wrap(prefetcher.ANNPrefetcher, "run_batch", "prefetch_total")
         # run_batch's two np.isin uses: the per-query hit mask and the
         # cross-query reuse check (``contains``, itself one np.isin), which
@@ -263,6 +394,19 @@ class StageClock:
             "prefetch_host_other_s": (s["prefetch_total"] - s["candidate_gen"]
                                       - s["io_plan_submit"] - s["isin_total"]
                                       if s["prefetch_total"] else 0.0),
+            # fde/cascade: the FDE query encode, the scan, the stable top-k
+            # over (B, N), and the rest of candidate generation (the D2H
+            # of the candidates)
+            "fde_encode_s": s["fde_encode"],
+            "fdescan_kernel_s": s["fdescan_kernel"],
+            "fde_topk_s": s["fde_topk"],
+            "fde_candidates_other_s": (s["fde_candidates"] - s["fde_encode"]
+                                       - s["fdescan_kernel"] - s["fde_topk"]),
+            # bitvec/cascade: the bit-lane gather from the resident table and
+            # the bitsim launches (their H2D and the host survivor selection
+            # stay in unattributed)
+            "read_bits_s": s["read_bits"],
+            "bitsim_kernel_s": s["bitsim_kernel"],
         }
         out["unattributed_s"] = wall - sum(
             v for k, v in out.items() if not k.endswith("_cpu_s"))
@@ -270,9 +414,19 @@ class StageClock:
 
 
 def counters():
+    from repro_torch.kernels.bitsim.ops import bitsim
+    from repro_torch.kernels.fdescan.ops import fdescan
     from repro_torch.kernels.ivf_scan.ops import centroid_scores
     from repro_torch.kernels.maxsim.ops import maxsim
-    return {"maxsim": maxsim, "ivf_scan": centroid_scores}
+    return {"maxsim": maxsim, "ivf_scan": centroid_scores, "bitsim": bitsim,
+            "fdescan": fdescan}
+
+
+# the kernels each mode of the main path must launch
+PATH_KERNELS = {"espn": ("ivf_scan", "maxsim"), "gds": ("ivf_scan", "maxsim"),
+                "bitvec": ("ivf_scan", "bitsim", "maxsim"),
+                "fde": ("fdescan", "maxsim"),
+                "cascade": ("fdescan", "bitsim", "maxsim")}
 
 
 def reset_counts():
@@ -309,14 +463,18 @@ def run_batches(pipe, corpus, batches, bs, clock, failures, what):
         check_ranked(resp, corpus.n_docs, failures, f"{what} batch {i}")
         ranked += [r.doc_ids for r in resp.ranked]
         hits.append(resp.breakdown.hit_rate)
-        split = {k: round(v, 4) for k, v in clock.split(wall).items()}
+        split = {k: round(v, 4) for k, v in clock.split(wall).items() if v}
         log(f"  {what} batch {i}: wall {wall:.3f} s {json.dumps(split)}")
         log(f"  {what} batch {i}: simulated breakdown "
             f"{json.dumps(resp.breakdown.as_dict())}")
     qrels = corpus.qrels[:batches * bs]
     return {"mrr@10": mrr_at_k(ranked, qrels, 10),
             "recall@100": recall_at_k(ranked, qrels, 100),
-            "mean_hit_rate": float(np.mean(hits))}
+            "mean_hit_rate": float(np.mean(hits)),
+            # the first batch alone, the queries every mode answers
+            "batch0": {"mrr@10": mrr_at_k(ranked[:bs], qrels[:bs], 10),
+                       "recall@100": recall_at_k(ranked[:bs], qrels[:bs],
+                                                 100)}}
 
 
 def profile_batch(pipe, corpus, bs):
@@ -341,6 +499,52 @@ def profile_batch(pipe, corpus, bs):
             log("    " + ln[:160])
 
 
+def tf32_off(failures, when):
+    """The FDE encoder's sign tests and the plain products must run in full
+    fp32: TF32 keeps about three decimal digits."""
+    import torch
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        failures.append(f"TF32 is on for fp32 products ({when})")
+
+
+def side_mode(cfg, mode, idx, pipe, corpus, dev, clock, failures, out,
+              tables):
+    """One batch through ``mode`` on the espn pipeline's corpus, index and
+    layout, via ``Pipeline.from_artifacts``; a side table another mode built
+    already is handed down, one not built yet is built by the entry point
+    (its build time read from the clock)."""
+    import dataclasses
+
+    from repro_torch.pipeline import Pipeline
+    mcfg = dataclasses.replace(cfg, retrieval=dataclasses.replace(
+        cfg.retrieval, mode=mode))
+    clock.s.clear()
+    t0 = time.perf_counter()
+    with Pipeline.from_artifacts(mcfg, index=idx, layout=pipe.layout,
+                                 corpus=corpus, device=dev, **tables) as p:
+        for name, attr, key in (("bits", "bits", "bit_table_build"),
+                                ("fde", "fde", "fde_table_build")):
+            table = getattr(p.tier, attr)
+            if table is not None and name not in tables:
+                tables[name] = table
+                where = (table.vecs.device if name == "fde" else "the host")
+                log(f"  {name} table: {table.nbytes / 2**20:.1f} MiB on "
+                    f"{where}, built in {clock.s[key]:.2f} s "
+                    f"(CPU {clock.s[key + '_cpu']:.2f} s)")
+                out[f"{name}_table"] = {"bytes": table.nbytes,
+                                        "build_s": clock.s[key]}
+        log(f"  {mode} pipeline assembled in "
+            f"{time.perf_counter() - t0:.2f} s")
+        reset_counts()
+        out[mode] = run_batches(p, corpus, 1, BATCH_SIZE, clock, failures,
+                                mode)
+        out[mode]["launches"] = read_counts()
+        if mode in ("fde", "cascade"):
+            out[mode]["candidate_gen_bytes"] = p.backend.candidate_gen_bytes()
+        out[mode]["memory_resident_bytes"] = p.tier.memory_resident_bytes()
+
+
 def main_path(dev, failures, profile=False) -> dict:
     import torch
 
@@ -348,7 +552,11 @@ def main_path(dev, failures, profile=False) -> dict:
     from repro_torch.pipeline import (CorpusConfig, Pipeline, PipelineConfig,
                                       RetrievalConfig, StorageConfig)
     batches, bs = BATCHES, BATCH_SIZE
-    # ColBERTer widths; retrieval at the paper's ESPNConfig defaults
+    # ColBERTer widths; retrieval at the paper's ESPNConfig defaults and the
+    # reference's defaults for the bitvec/fde/cascade knobs, except that the
+    # FDE table is scanned brute force at this size (the default threshold
+    # of 100,000 docs would take the IVF-over-FDEs branch, which runs no
+    # fdescan)
     cfg = PipelineConfig(
         corpus=CorpusConfig(n_docs=N_DOCS, n_queries=batches * bs,
                             d_cls=128, d_bow=32, max_len=180),
@@ -356,7 +564,8 @@ def main_path(dev, failures, profile=False) -> dict:
         retrieval=RetrievalConfig(mode="espn", nprobe=NPROBE,
                                   k_candidates=K_CANDIDATES,
                                   prefetch_step=PREFETCH_STEP,
-                                  rerank_count=None))
+                                  rerank_count=None,
+                                  fde_brute_threshold=N_DOCS))
     c = cfg.corpus
     t0 = time.perf_counter()
     corpus = make_corpus(n_docs=c.n_docs, n_queries=c.n_queries,
@@ -391,18 +600,36 @@ def main_path(dev, failures, profile=False) -> dict:
             out["gds"] = run_batches(gds, corpus, 1, bs, clock, failures,
                                      "gds")
             out["gds"]["launches"] = read_counts()
+        tf32_off(failures, "before the table builds")
+        tables: dict = {}
+        for mode in ("bitvec", "fde", "cascade"):
+            side_mode(cfg, mode, idx, pipe, corpus, dev, clock, failures, out,
+                      tables)
+        if tables.get("fde") is None \
+                or tables["fde"].vecs.device.type != dev.type:
+            failures.append("the FDE table was not built on the card")
+        tf32_off(failures, "after the new modes")
         if profile:
             profile_batch(pipe, corpus, bs)
-    for mode in ("espn", "gds"):
+    base = out["espn"]["batch0"]
+    for mode in PATH_KERNELS:
         r = out[mode]
         log(f"  {mode}: MRR@10={r['mrr@10']:.4f} "
-            f"Recall@100={r['recall@100']:.4f} mean hit rate "
-            f"{r['mean_hit_rate']:.4f} launches {r['launches']}")
-        for name, n in r["launches"].items():
-            if n <= 0:
+            f"Recall@100={r['recall@100']:.4f} (espn on the same 64 queries:"
+            f" {base['mrr@10']:.4f} / {base['recall@100']:.4f}) mean hit "
+            f"rate {r['mean_hit_rate']:.4f} launches {r['launches']}")
+        for name in PATH_KERNELS[mode]:
+            if r["launches"][name] <= 0:
                 failures.append(f"{mode}: kernel {name} was never launched")
-        if r["mrr@10"] <= 0.5:
+        if mode in ("espn", "gds") and r["mrr@10"] <= 0.5:
             failures.append(f"{mode}: MRR@10 {r['mrr@10']:.3f} too low")
+    # the reference's own quality claims, checked there at 2,000 docs
+    # (tests/test_bitvec.py, tests/test_fde.py): findings here, not gates
+    for mode, metric, frac in (("bitvec", "mrr@10", 0.99),
+                               ("fde", "recall@100", 0.95)):
+        got, want = out[mode]["batch0"][metric], frac * base[metric]
+        log(f"  claim {mode} {metric} >= {frac} x espn's: {got:.4f} vs "
+            f"{want:.4f} -> {'met' if got >= want else 'NOT met'}")
     return out
 
 
@@ -410,45 +637,132 @@ def main_path(dev, failures, profile=False) -> dict:
 # phase 5: the card path agrees with the CPU path on a small input
 # ---------------------------------------------------------------------------
 
+def same_ranking(want, got):
+    """(max score diff, ids swapped between near-tied neighbours, other id
+    differences) of two responses to the same queries."""
+    worst, swaps, bad = 0.0, 0, 0
+    for w, g in zip(want.ranked, got.ranked):
+        if w.doc_ids.shape != g.doc_ids.shape:
+            bad += 1
+            continue
+        worst = max(worst, float(np.abs(w.scores - g.scores).max()))
+        for j in np.nonzero(w.doc_ids != g.doc_ids)[0]:
+            # allowed: two candidates within AGREE_TOL trading places
+            swaps += 1
+            bad += not any(0 <= n < len(w.doc_ids)
+                           and w.doc_ids[n] == g.doc_ids[j]
+                           and abs(w.scores[n] - w.scores[j]) <= AGREE_TOL
+                           for n in (j - 1, j + 1))
+    return worst, swaps, bad
+
+
+def cell_of(index) -> np.ndarray:
+    """The cell each doc sits in (-1 for a doc no cell holds)."""
+    ids = index.cell_ids.cpu().numpy()
+    out = np.full(index.n_docs, -1, np.int64)
+    cells = np.broadcast_to(np.arange(ids.shape[0])[:, None], ids.shape)
+    out[ids[ids >= 0]] = cells[ids >= 0]
+    return out
+
+
+def check_fde_table(cpu_table, layout, dev, failures):
+    """The FDE table built on the card against the one built on the CPU
+    from the same layout. A token within rounding of a SimHash hyperplane
+    may fall into another bucket (its sign test sums in another order), so
+    the gate is the reference's own for that case (tests/test_fde.py:
+    cosine > 0.98 per doc); the fp16 ulps are reported beside it."""
+    import torch
+
+    from repro_torch.core.fde import fde_from_layout
+    card = fde_from_layout(layout, cpu_table.cfg,
+                           dtype=str(cpu_table.vecs.dtype).split(".")[-1],
+                           device=dev).vecs.cpu()
+    ref = cpu_table.vecs
+    a, b = card.float(), ref.float()
+    ulp = (card.view(torch.int16).int() - ref.view(torch.int16).int()).abs()
+    cos = (a * b).sum(-1) / (a.norm(dim=-1) * b.norm(dim=-1)).clamp_min(1e-9)
+    rows_off = int((ulp > 1).any(-1).sum())
+    ok = float(cos.min()) > 0.98
+    log(f"  fde table card vs CPU on {ref.shape[0]:,} docs: "
+        f"{int((ulp == 0).sum())} of {ulp.numel()} entries equal, "
+        f"{int((ulp == 1).sum())} 1 ulp apart, {int((ulp > 1).sum())} more "
+        f"(in {rows_off} docs), min cosine {float(cos.min()):.6f} -> "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("fde table built on the card disagrees with the CPU")
+
+
 def agreement(dev, failures):
     """At the main path's retrieval settings, so the chunked probe merge
     (nprobe > probe_chunk) and the full 1000-candidate rerank run on both
-    sides; 512 cells keep nprobe=128 a quarter of the index."""
+    sides; 512 cells keep nprobe=128 a quarter of the index. The corpus,
+    index, layout and side tables are built once on the CPU; the card
+    pipeline gets the same ones, so what is compared is the query path
+    (the card's own FDE table is held to the CPU's apart)."""
+    import dataclasses
+
     from repro_torch.pipeline import Pipeline, PipelineConfig
-    for mode in ("espn", "gds"):
-        cfg = PipelineConfig()
-        cfg.corpus.n_docs, cfg.corpus.n_queries = 20_000, 32
-        cfg.index.ncells = 512
-        cfg.retrieval.mode = mode
-        cfg.retrieval.nprobe = NPROBE
-        cfg.retrieval.k_candidates = K_CANDIDATES
-        cfg.retrieval.prefetch_step = PREFETCH_STEP
-        with Pipeline.build(cfg, device="cpu") as cpu:
+    base = PipelineConfig()
+    base.corpus.n_docs, base.corpus.n_queries = 20_000, 32
+    base.index.ncells = 512
+    base.retrieval.nprobe = NPROBE
+    base.retrieval.k_candidates = K_CANDIDATES
+    base.retrieval.prefetch_step = PREFETCH_STEP
+    with Pipeline.build(base, device="cpu") as built:
+        corpus, index, layout = built.corpus, built.index, built.layout
+    tables: dict = {}
+    cases = [("espn", {}), ("gds", {}), ("bitvec", {}), ("fde", {}),
+             ("cascade", {}), ("fde", {"fde_brute_threshold": 0})]
+    for mode, extra in cases:
+        cfg = dataclasses.replace(base, retrieval=dataclasses.replace(
+            base.retrieval, mode=mode, **extra))
+        what = mode + (" (IVF over FDEs)" if extra else "")
+        with Pipeline.from_artifacts(cfg, index=index, layout=layout,
+                                     corpus=corpus, device="cpu",
+                                     **tables) as cpu:
+            for name in ("bits", "fde"):
+                if getattr(cpu.tier, name) is not None:
+                    tables.setdefault(name, getattr(cpu.tier, name))
             want = cpu.search()
-            with Pipeline.from_artifacts(cfg, index=cpu.index,
-                                         layout=cpu.layout,
-                                         corpus=cpu.corpus,
-                                         device=dev) as card:
+            with Pipeline.from_artifacts(cfg, index=index, layout=layout,
+                                         corpus=corpus, device=dev,
+                                         **tables) as card:
+                if extra:
+                    # k-means sums in no fixed order on the card: report
+                    # how far its own IVF over the FDEs agrees, then hold
+                    # the query path on the CPU's
+                    same = float(np.mean(cell_of(card.backend.fde_index)
+                                         == cell_of(cpu.backend.fde_index)))
+                    log(f"  {what}: the card's k-means puts {same:.4f} of "
+                        f"the docs in the CPU's cell")
+                    card.backend.fde_index = cpu.backend.fde_index.to(dev)
                 got = card.search()
-        worst, swaps, bad = 0.0, 0, 0
-        for w, g in zip(want.ranked, got.ranked):
-            worst = max(worst, float(np.abs(w.scores - g.scores).max()))
-            for j in np.nonzero(w.doc_ids != g.doc_ids)[0]:
-                # allowed: two candidates within AGREE_TOL trading places
-                swaps += 1
-                bad += not any(0 <= n < len(w.doc_ids)
-                               and w.doc_ids[n] == g.doc_ids[j]
-                               and abs(w.scores[n] - w.scores[j]) <= AGREE_TOL
-                               for n in (j - 1, j + 1))
+        worst, swaps, bad = same_ranking(want, got)
         same_bill = want.breakdown.as_dict() == got.breakdown.as_dict()
         ok = worst <= AGREE_TOL and same_bill and bad == 0
-        log(f"  {mode} card vs CPU on 20,000 docs: max score diff "
+        log(f"  {what} card vs CPU on 20,000 docs: max score diff "
             f"{worst:.3g} (tol {AGREE_TOL}), {swaps} ids swapped between "
             f"near-tied neighbours, {bad} other id differences, simulated "
             f"bill {'equal' if same_bill else 'DIFFERS'} -> "
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
-            failures.append(f"{mode}: card path disagrees with CPU path")
+            failures.append(f"{what}: card path disagrees with CPU path")
+    check_fde_table(tables["fde"], layout, dev, failures)
+
+
+def kernel_rows(rows) -> list[dict]:
+    """The ``{"kernels": [...]}`` line's rows. Each kernel's launches are
+    those of the main-path modes that run it, each mode's count read
+    around its own run."""
+    by_path = {name: {mode: rows["path"][mode]["launches"][name]
+                      for mode, names in PATH_KERNELS.items()
+                      if name in names}
+               for name in KERNELS}
+    return [{"name": name, "route": "cuda", **meta,
+             "launches": sum(by_path[name].values()),
+             "launches_by_path": by_path[name], **rows[name],
+             "kernel_ms": rows[name]["ms"]}
+            for name, meta in KERNELS.items()]
 
 
 def main(argv=None) -> int:
@@ -488,7 +802,9 @@ def main(argv=None) -> int:
     rows = {}
     phases = [("kernels", lambda: rows.update(
                   maxsim=check_maxsim(dev, rng, failures),
-                  ivf_scan=check_ivf_scan(dev, rng, failures))),
+                  ivf_scan=check_ivf_scan(dev, rng, failures),
+                  bitsim=check_bitsim(dev, rng, failures),
+                  fdescan=check_fdescan(dev, rng, failures))),
               ("main path", lambda: rows.update(
                   path=main_path(dev, failures, args.profile))),
               ("agreement", lambda: agreement(dev, failures))]
@@ -505,11 +821,7 @@ def main(argv=None) -> int:
     if failures:
         print("chip_smoke.py FAILED: " + "; ".join(failures), file=sys.stderr)
         return 1
-    launches = rows["path"]["espn"]["launches"]
-    kernels = [{"name": name, "route": "cuda", **meta,
-                "launches": launches[name], **rows[name],
-                "kernel_ms": rows[name]["ms"]}
-               for name, meta in KERNELS.items()]
+    kernels = kernel_rows(rows)
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,17 +1,19 @@
 """Carry the reference package's state across into the port.
 
-Both functions take plain numpy arrays — the fields the reference's
-``IVFIndex`` and ``EmbeddingLayout`` hold, under the names its ``.npz``
-artifacts use — so a mapping from ``np.load`` of a saved ``index.npz`` /
-``layout.npz`` works as well as a dict built in memory.
+Every function takes plain numpy arrays — the fields the reference's
+``IVFIndex``, ``EmbeddingLayout``, ``BitTable`` and ``FDETable`` hold, under
+the names its ``.npz`` artifacts use — so a mapping from ``np.load`` of a
+saved ``index.npz`` / ``layout.npz`` / ``bits.npz`` / ``fde.npz`` works as
+well as a dict built in memory.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.core.fde import FDEConfig, FDETable
 from repro_torch.core.ivf import IVFIndex
-from repro_torch.storage.layout import EmbeddingLayout
+from repro_torch.storage.layout import BitTable, EmbeddingLayout
 
 
 def _optional(a) -> np.ndarray | None:
@@ -56,3 +58,24 @@ def layout_from_numpy(arrays) -> EmbeddingLayout:
         dtype=np.dtype(str(arrays["dtype"])),
         scales=_optional(arrays["scales"]),
         block=int(arrays["block"]))
+
+
+def bit_table_from_numpy(arrays) -> BitTable:
+    """Resident sign-bit table from ``packed``, ``starts`` and ``d_bow``
+    (host arrays, as the storage tier gathers them)."""
+    return BitTable(packed=np.asarray(arrays["packed"]),
+                    starts=np.asarray(arrays["starts"], np.int64),
+                    d_bow=int(arrays["d_bow"]))
+
+
+def fde_table_from_numpy(arrays, device) -> FDETable:
+    """Resident FDE table from ``vecs``, ``d_bow``, ``k_sim``, ``r_reps``,
+    ``d_final``, ``fill_empty`` and ``seed``, with ``vecs`` copied to
+    ``device`` in its stored dtype."""
+    cfg = FDEConfig(d_bow=int(arrays["d_bow"]), k_sim=int(arrays["k_sim"]),
+                    r_reps=int(arrays["r_reps"]),
+                    d_final=int(arrays["d_final"]),
+                    fill_empty=bool(arrays["fill_empty"]),
+                    seed=int(arrays["seed"]))
+    return FDETable(vecs=torch.tensor(np.asarray(arrays["vecs"]),
+                                      device=device), cfg=cfg)

@@ -22,6 +22,9 @@ class ComputeModel:
     encode_base_s: float = 2.2e-3
     encode_flops_s: float = 60e12
     encoder_gflops: float = 4.4        # distilBERT fwd @ 32 tokens
+    bitsim_speedup: float = 10.0       # packed-bit MaxSim vs full precision
+                                       # in the simulation (the ratio
+                                       # Nardini et al. 2024 report)
 
     def encode_time(self, batch: int) -> float:
         return self.encode_base_s + batch * self.encoder_gflops * 1e9 / self.encode_flops_s
@@ -30,6 +33,11 @@ class ComputeModel:
                     d_bow: int) -> float:
         flops = 2.0 * n_docs * q_len * mean_tokens * d_bow
         return 0.3e-3 + flops / self.maxsim_flops_s
+
+    def bitsim_time(self, n_docs: int, q_len: int, mean_tokens: float,
+                    d_bow: int) -> float:
+        flops = 2.0 * n_docs * q_len * mean_tokens * d_bow
+        return 0.05e-3 + flops / (self.maxsim_flops_s * self.bitsim_speedup)
 
 
 @dataclass(frozen=True)
@@ -40,6 +48,13 @@ class ESPNConfig:
     prefetch_step: float = 0.10
     rerank_count: int | None = None    # None = exact (re-rank all candidates)
     alpha: float = 1.0                 # CLS/BOW aggregation weight
+    bit_filter: int = 128              # bitvec: full-precision rerank width R
+    fde_brute_threshold: int = 100_000  # fde: brute-scan the FDE table below
+                                        # this corpus size, IVF above
+    cascade_filter: int = 64           # cascade: bit-score survivors that
+                                       # reach the SSD rerank stage
+    cascade_candidates: int = 0        # cascade: FDE candidate width
+                                       # (0 = reuse k_candidates)
 
 
 @dataclass

@@ -45,21 +45,29 @@ def _maxsim_np(q_bow: np.ndarray, q_len: int, d_bow: np.ndarray,
 
 def rerank_query(q_bow, q_len, result, *, alpha: float = 1.0,
                  rerank_count: int | None = None, doc_bytes=None,
+                 select: np.ndarray | None = None,
                  device: torch.device | str = "cpu") -> RerankOutput:
     """Score one QueryResult (from ANNPrefetcher.run_batch).
 
     rerank_count=None -> exact (re-rank every candidate, hits scored early,
     misses in the critical path). rerank_count=R -> partial re-ranking of the
     top-R candidates by CLS score; remaining docs keep alpha*CLS only.
+    select=<positions> -> MaxSim exactly those candidate positions (the
+    bit-filter survivors of the bitvec and cascade backends) instead of the
+    CLS top-R.
     """
     if result.wait_io is not None:
         # batch I/O engine: block until this query's arena runs have landed
         result.wait_io()
     ids = result.doc_ids
     k = len(ids)
-    rr = k if rerank_count is None else min(rerank_count, k)
-    # candidates arrive CLS-sorted (IVF top-k): top-rr get MaxSim
-    sel = np.arange(rr)
+    if select is not None:
+        sel = np.asarray(select, np.int64)
+        rr = len(sel)
+    else:
+        rr = k if rerank_count is None else min(rerank_count, k)
+        # candidates arrive CLS-sorted (IVF top-k): top-rr get MaxSim
+        sel = np.arange(rr)
 
     bow_scores = np.zeros(k, np.float32)
     bytes_read = 0

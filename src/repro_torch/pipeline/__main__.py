@@ -30,6 +30,11 @@ def main(argv: list[str] | None = None) -> None:
               f"{pipe.index.memory_bytes()/2**20:.1f} MB on {pipe.device}; "
               f"blob {pipe.layout.nbytes/2**20:.1f} MB on "
               f"{pipe.backend.storage_stack}")
+        if pipe.tier.bits is not None:
+            print(f"bit table: {pipe.tier.bits.nbytes/2**20:.1f} MB resident")
+        if pipe.tier.fde is not None:
+            print(f"fde table: {pipe.tier.fde.nbytes/2**20:.1f} MB on "
+                  f"{pipe.tier.fde.vecs.device}")
         ev = pipe.evaluate()
         print(f"mode={cfg.retrieval.mode} breakdown (ms): "
               f"{ev['breakdown_ms']}")

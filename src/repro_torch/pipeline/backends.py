@@ -2,24 +2,33 @@
 
 The paper's retrieval stacks (Tables 4/5) as ``RetrievalBackend`` classes:
 ESPN's prefetched GDS path (``espn``), plain GDS (``gds``), the mmap/swap
-O/S baselines, and the all-in-DRAM upper bound. A backend owns the full
-query path: candidate generation, storage reads, re-ranking, and the
-per-stage latency accounting on the simulated device clock. All backends
-return the same ``RetrievalResponse``.
+O/S baselines, and the all-in-DRAM upper bound, joined by the related
+work's bit-vector rerank (``bitvec``, Nardini et al. 2024), MUVERA-style FDE
+candidate generation (``fde``, Dhulipala et al. 2024) and the cascade of
+the two (``cascade``). A backend owns the full query path: candidate
+generation, storage reads, re-ranking, and the per-stage latency accounting
+on the simulated device clock. All backends return the same
+``RetrievalResponse``.
 """
 from __future__ import annotations
 
 import abc
+import dataclasses
 from typing import ClassVar
 
 import numpy as np
+import torch
 
 from repro_torch.core.espn import (ComputeModel, ESPNConfig, LatencyBreakdown,
                                    RetrievalResponse)
-from repro_torch.core.ivf import (ANNCostModel, IVFIndex, search,
+from repro_torch.core.fde import FDEEncoder
+from repro_torch.core.ivf import (ANNCostModel, IVFIndex, build_ivf, search,
                                   valid_candidates)
+from repro_torch.core.maxsim import topk_stable
 from repro_torch.core.prefetcher import ANNPrefetcher, QueryResult
 from repro_torch.core.rerank import RerankOutput, rerank_query
+from repro_torch.kernels.bitsim.ops import bitsim
+from repro_torch.kernels.fdescan.ops import fdescan
 from repro_torch.storage.batch_io import consumption_dedup_saved
 from repro_torch.storage.io_engine import StorageTier
 
@@ -54,11 +63,18 @@ class RetrievalBackend(abc.ABC):
       storage_stack       the ``StorageTier`` software stack to run on
       needs_mem_budget    True for the O/S paths that operate under a page
                           cache budget (mmap / swap)
+      needs_bit_table     True for backends that filter against the resident
+                          sign-bit tier (the tier must carry a BitTable)
+      needs_fde_table     True for backends that candidate-generate against
+                          the resident FDE tier (the tier must carry an
+                          FDETable)
     """
 
     name: ClassVar[str] = ""
     storage_stack: ClassVar[str] = "espn"
     needs_mem_budget: ClassVar[bool] = False
+    needs_bit_table: ClassVar[bool] = False
+    needs_fde_table: ClassVar[bool] = False
 
     def __init__(self, index: IVFIndex, tier: StorageTier, cfg: ESPNConfig,
                  *, cost_model: ANNCostModel | None = None,
@@ -119,6 +135,65 @@ class RetrievalBackend(abc.ABC):
                                device=self.index.device)
             ranked.append(out)
             bd.rerank_s += self._maxsim_time(rr, int(q_lens[b]))
+            bd.bytes_read += out.bow_bytes_read
+        saved = batch.dedup_bytes_saved(self.doc_bytes)
+        bd.bytes_read -= saved
+        bd.dedup_bytes_saved += saved
+        bd.hit_rate = 0.0
+        return ranked
+
+    def _bit_filter_rerank(self, q_bow, q_lens, scores, ids,
+                           bd: LatencyBreakdown,
+                           width: int) -> list[RerankOutput]:
+        """Shared bit-filter + SSD-rerank tail (bitvec, cascade): score ALL
+        candidates against the resident sign-bit tier with the ``bitsim``
+        op on the index's device (zero SSD traffic), keep the top ``width``
+        survivors per query, then ONE coalesced ``read_batch`` of the
+        survivors and full-precision MaxSim as each query's arena rows land.
+        Non-survivors keep their candidate-stage ordering (alpha*CLS for
+        bitvec, FDE score for cascade)."""
+        cfg = self.cfg
+        dev = self.index.device
+        layout = self.tier.layout
+        mean_t = float(layout.n_tokens.mean())
+        # 1) resident bit filter; the survivors are chosen on the host with
+        #    the reference's partial sort (argpartition + stable sort of
+        #    ``width`` elements), so ties exactly at the cutoff may pick
+        #    another equal-score subset than a full stable sort would
+        prep = []
+        for b in range(len(ids)):
+            fin, fin_scores = valid_candidates(ids[b], scores[b])
+            qlen = int(q_lens[b])
+            packed, lens = self.tier.read_bits(fin)
+            q = torch.as_tensor(np.ascontiguousarray(q_bow[b][:qlen],
+                                                     np.float32), device=dev)
+            bit_s = bitsim(q, torch.ones(qlen, dtype=torch.float32,
+                                         device=dev),
+                           torch.from_numpy(packed.view(np.int32)).to(dev),
+                           torch.from_numpy(lens).to(dev)).cpu().numpy()
+            bd.rerank_s += self.compute.bitsim_time(len(fin), qlen, mean_t,
+                                                    layout.d_bow)
+            r = min(width, len(fin))
+            if r < len(fin):
+                part = np.argpartition(-bit_s, r - 1)[:r]
+            else:
+                part = np.arange(len(fin))
+            sel = part[np.argsort(-bit_s[part], kind="stable")]
+            prep.append((fin, fin_scores, sel))
+        # 2) ONE coalesced SSD read for every query's survivors, then
+        #    full-precision MaxSim per query as its arena rows land
+        batch = self.tier.read_batch([fin[sel] for fin, _, sel in prep])
+        bd.critical_io_s += batch.sim_seconds
+        ranked = []
+        for b, (fin, fin_scores, sel) in enumerate(prep):
+            qlen = int(q_lens[b])
+            res = QueryResult.from_batch_view(fin, fin_scores, batch, b,
+                                              ann_s=bd.ann_s)
+            out = rerank_query(q_bow[b], qlen, res, alpha=cfg.alpha,
+                               select=sel, doc_bytes=self.doc_bytes,
+                               device=dev)
+            ranked.append(out)
+            bd.rerank_s += self._maxsim_time(len(sel), qlen)
             bd.bytes_read += out.bow_bytes_read
         saved = batch.dedup_bytes_saved(self.doc_bytes)
         bd.bytes_read -= saved
@@ -218,3 +293,125 @@ class SwapBackend(DirectBackend):
 class DRAMBackend(DirectBackend):
     """Whole index resident in memory: the paper's upper-bound baseline."""
     storage_stack = "dram"
+
+
+@register_backend("bitvec")
+class BitvecBackend(RetrievalBackend):
+    """Bit-vector compressed rerank (Nardini et al. 2024): every candidate is
+    first scored against the *resident* sign-bit table with a packed-bit
+    asymmetric MaxSim (no SSD traffic), then only the top ``bit_filter``
+    survivors are read from storage for full-precision MaxSim. Non-survivors
+    keep their alpha*CLS ordering."""
+
+    storage_stack = "espn"
+    needs_bit_table = True
+
+    def _retrieve(self, q_cls, q_bow, q_lens, bd):
+        cfg = self.cfg
+        if q_cls.shape[0] == 0:
+            bd.hit_rate = 0.0
+            return []
+        scores, ids = search(self.index, q_cls, cfg.nprobe, cfg.k_candidates)
+        scores, ids = scores.cpu().numpy(), ids.cpu().numpy()
+        bd.ann_s = self.cost.time(self.index, cfg.nprobe)
+        return self._bit_filter_rerank(q_bow, q_lens, scores, ids, bd,
+                                       cfg.bit_filter)
+
+
+@register_backend("fde")
+class FDEBackend(RetrievalBackend):
+    """MUVERA-style FDE candidate generation (Dhulipala et al. 2024):
+    candidates come from single-vector search over the *resident* fixed
+    dimensional encodings of the documents instead of the CLS IVF index;
+    only the top candidates are read from storage for full-precision
+    MaxSim re-rank.
+
+    Up to ``cfg.fde_brute_threshold`` documents the table is scanned brute
+    force (the ``fdescan`` op over a device copy of the table, made once);
+    above it an IVF index is built over the doc FDEs and probed like any
+    other single-vector index."""
+
+    storage_stack = "espn"
+    needs_fde_table = True
+
+    def __init__(self, index, tier, cfg, **kw):
+        super().__init__(index, tier, cfg, **kw)
+        if tier.fde is None:
+            raise RuntimeError(
+                "the fde backend needs a StorageTier built with a resident "
+                "FDETable; construct it with fde=build_fde_table(...)")
+        dev = index.device
+        self.encoder = FDEEncoder(tier.fde.cfg, dev)
+        n = tier.fde.n_docs
+        self.fde_index = None
+        self._fde_vecs_dev = None
+        if n > cfg.fde_brute_threshold:
+            self.fde_index = build_ivf(
+                tier.fde.vecs.float().cpu().numpy(),
+                ncells=max(16, n // 270), iters=4, device=dev)
+        else:
+            # the table is immutable for the backend's lifetime: one device
+            # copy (none when it was built there), not one per query batch
+            self._fde_vecs_dev = tier.fde.vecs.to(dev).contiguous()
+
+    def candidate_gen_bytes(self) -> int:
+        """Resident bytes this backend's candidate generation needs: the
+        FDE table plus its IVF wrapper when one was built. The CLS index
+        does not count; this backend never probes it."""
+        return self.tier.fde.nbytes + (self.fde_index.memory_bytes()
+                                       if self.fde_index is not None else 0)
+
+    def _fde_candidates(self, q_bow, q_lens, bd):
+        """Candidate generation against the resident FDE tier: returns host
+        (scores, ids) on MaxSim's scale, ready for any rerank tail."""
+        cfg = self.cfg
+        q_fde = self.encoder.encode_queries(q_bow, q_lens)    # (B, d_fde)
+        n = self.tier.fde.n_docs
+        if self.fde_index is None:
+            scores, ids = topk_stable(fdescan(q_fde, self._fde_vecs_dev),
+                                      min(cfg.k_candidates, n))
+            # brute scan touches every doc FDE: one flat pass, no centroids
+            bd.ann_s = self.cost.t0_s + self.cost.c_cand_s * n
+        else:
+            scores, ids = search(self.fde_index, q_fde, cfg.nprobe,
+                                 cfg.k_candidates)
+            bd.ann_s = self.cost.time(self.fde_index, cfg.nprobe)
+        # the FDE inner product sums r_reps independent Chamfer estimates;
+        # dividing brings candidate scores onto MaxSim's scale
+        scores = scores / float(self.tier.fde.cfg.r_reps)
+        return scores.cpu().numpy(), ids.cpu().numpy()
+
+    def _retrieve(self, q_cls, q_bow, q_lens, bd):
+        if q_cls.shape[0] == 0:
+            bd.hit_rate = 0.0
+            return []
+        scores, ids = self._fde_candidates(q_bow, q_lens, bd)
+        return self._rerank_candidates(q_bow, q_lens, scores, ids, bd)
+
+
+@register_backend("cascade")
+class CascadeBackend(FDEBackend):
+    """Three-stage cascade: resident FDE candidate generation (MUVERA) ->
+    resident sign-bit filter (Nardini) -> SSD full-precision MaxSim of the
+    few survivors. Candidate width is ``cascade_candidates`` (0 =
+    ``k_candidates``); only the top ``cascade_filter`` bit-score survivors
+    pay SSD bytes."""
+
+    storage_stack = "espn"
+    needs_bit_table = True
+    needs_fde_table = True
+
+    def _retrieve(self, q_cls, q_bow, q_lens, bd):
+        cfg = self.cfg
+        if q_cls.shape[0] == 0:
+            bd.hit_rate = 0.0
+            return []
+        width = cfg.cascade_candidates or cfg.k_candidates
+        if width != cfg.k_candidates:
+            self.cfg = dataclasses.replace(cfg, k_candidates=width)
+        try:
+            scores, ids = self._fde_candidates(q_bow, q_lens, bd)
+        finally:
+            self.cfg = cfg
+        return self._bit_filter_rerank(q_bow, q_lens, scores, ids, bd,
+                                       cfg.cascade_filter)

@@ -8,8 +8,11 @@
 
 The retrieval mode is resolved against the backend registry
 (``repro_torch.pipeline.backends``), which also decides the storage-tier
-software stack and whether a page-cache memory budget applies. The IVF
-index lives on ``device``; the packed layout is a host blob.
+software stack, whether a page-cache memory budget applies, and which
+resident side tables the tier carries (the sign-bit table for ``bitvec``/
+``cascade``, the FDE table for ``fde``/``cascade``). The IVF index and the
+FDE table live on ``device``; the packed layout and the bit table are host
+arrays.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.espn import ComputeModel, RetrievalResponse
+from repro_torch.core.fde import FDETable, fde_from_layout
 from repro_torch.core.ivf import ANNCostModel, IVFIndex, build_ivf
 from repro_torch.core.metrics import mrr_at_k, recall_at_k
 from repro_torch.data.synthetic import Corpus, make_corpus
@@ -24,7 +28,8 @@ from repro_torch.device import resolve_device
 from repro_torch.pipeline.backends import RetrievalBackend, get_backend
 from repro_torch.pipeline.config import PipelineConfig
 from repro_torch.storage.io_engine import StorageTier
-from repro_torch.storage.layout import EmbeddingLayout, pack
+from repro_torch.storage.layout import (BitTable, EmbeddingLayout,
+                                        bits_from_layout, pack)
 
 
 class Pipeline:
@@ -78,24 +83,45 @@ class Pipeline:
                        layout: EmbeddingLayout, corpus: Corpus | None = None,
                        cost_model: ANNCostModel | None = None,
                        compute: ComputeModel | None = None,
+                       bits: BitTable | None = None,
+                       fde: FDETable | None = None,
                        device: str | torch.device = "cuda") -> "Pipeline":
         """Assemble a pipeline around prebuilt artifacts (e.g. the reference
-        package's index and layout carried over by ``repro_torch.convert``)
-        — no clustering, no packing. The index is moved to ``device``."""
+        package's index, layout and side tables carried over by
+        ``repro_torch.convert``) — no clustering, no packing. The index is
+        moved to ``device``. A side table the backend needs and the caller
+        did not pass (or an FDE table of another encoding family or dtype)
+        is built from the layout."""
         dev = resolve_device(device)
         _check_ported(cfg)
         return cls._assemble(cfg, corpus, index.to(dev), layout,
-                             cost_model=cost_model, compute=compute)
+                             cost_model=cost_model, compute=compute,
+                             bits=bits, fde=fde)
 
     @classmethod
     def _assemble(cls, cfg: PipelineConfig, corpus: Corpus | None,
                   index: IVFIndex, layout: EmbeddingLayout, *,
-                  cost_model=None, compute=None) -> "Pipeline":
+                  cost_model=None, compute=None, bits: BitTable | None = None,
+                  fde: FDETable | None = None) -> "Pipeline":
         backend_cls = get_backend(cfg.retrieval.mode)
         budget = (int(layout.nbytes * cfg.storage.mem_budget_frac)
                   if backend_cls.needs_mem_budget else None)
+        if backend_cls.needs_bit_table:
+            if bits is None:
+                bits = bits_from_layout(layout, dtype=cfg.storage.bit_dtype)
+        else:
+            bits = None       # don't bill the bit table to other backends
+        if backend_cls.needs_fde_table:
+            want = cfg.retrieval.to_fde_config(layout.d_bow)
+            if fde is None or not fde.matches(want, cfg.storage.fde_dtype):
+                fde = fde_from_layout(layout, want,
+                                      dtype=cfg.storage.fde_dtype,
+                                      device=index.device)
+        else:
+            fde = None        # don't bill the FDE table to other backends
         tier = StorageTier(layout, stack=backend_cls.storage_stack,
                            t_max=cfg.storage.t_max, mem_budget_bytes=budget,
+                           bits=bits, fde=fde,
                            coalesce=cfg.storage.io_coalesce)
         backend = backend_cls(index, tier, cfg.retrieval.to_espn_config(),
                               cost_model=cost_model, compute=compute)

@@ -16,12 +16,13 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from repro_torch.core.fde import FDETable
 from repro_torch.storage import ssd as ssd_lib
 from repro_torch.storage.batch_io import (BatchReadPlan, BatchReadResult,
                                           _exclusive_cumsum, serial_batch)
 from repro_torch.storage.cache import PageCache
-from repro_torch.storage.layout import (EmbeddingLayout, gather_docs,
-                                        gather_docs_into)
+from repro_torch.storage.layout import (BitTable, EmbeddingLayout,
+                                        gather_docs, gather_docs_into)
 
 STACKS = ("espn", "mmap", "swap", "dram")
 
@@ -40,12 +41,15 @@ class StorageTier:
                  spec: ssd_lib.StorageSpec = ssd_lib.PM983_PCIE3,
                  stack: str = "espn", mem_budget_bytes: int | None = None,
                  t_max: int = 180, qd: int = 64, include_h2d: bool = True,
-                 n_io_threads: int = 4, coalesce: bool = True,
+                 n_io_threads: int = 4, bits: BitTable | None = None,
+                 fde: FDETable | None = None, coalesce: bool = True,
                  io_chunk_docs: int | None = None):
         if stack not in STACKS:
             raise ValueError(f"unknown storage stack {stack!r}; "
                              f"expected one of {STACKS}")
         self.layout = layout
+        self.bits = bits              # resident sign-bit tier (bit filter)
+        self.fde = fde                # resident FDE tier (fde candidate gen)
         self._closed = False
         self.spec = spec
         self.stack = stack
@@ -158,6 +162,31 @@ class StorageTier:
         return BatchReadResult(coalesced=True, plan=plan, sim_seconds=sim,
                                n_blocks=n_blocks, arena=arena,
                                futures=futures)
+
+    def read_bits(self, ids, t_max: int | None = None):
+        """Gather packed sign bits for ``ids`` from the *resident* bit tier:
+        no SSD blocks, no simulated device time (the read is a memory
+        access)."""
+        if self.bits is None:
+            raise RuntimeError(
+                "this StorageTier was built without a resident BitTable; "
+                "construct it with bits=pack_bits(...)")
+        return self.bits.gather(ids, t_max or self.t_max)
+
+    # -- reporting -----------------------------------------------------------
+    def memory_resident_bytes(self) -> int:
+        """Host/device memory this tier requires (ESPN: offsets only, plus
+        any resident side tables)."""
+        meta = self.layout.meta_nbytes
+        if self.bits is not None:
+            meta += self.bits.nbytes
+        if self.fde is not None:
+            meta += self.fde.nbytes
+        if self.stack == "dram":
+            return self.layout.nbytes + meta
+        if self.stack in ("mmap", "swap"):
+            return self.page_cache.capacity_pages * self.layout.block + meta
+        return meta
 
     def close(self):
         """Idempotent shutdown: pending reads are cancelled rather than

@@ -9,14 +9,25 @@ buffers; the rerank moves them to the device.
 
 Only the paper's ``ragged`` layout is ported (per-doc ``n_tokens``, variable
 ``n_blocks``, offsets stored in host memory).
+
+``BitTable`` is the second, *resident* tier (Nardini et al. 2024): every
+document token sign-binarized and bit-packed, ~1/16th of the fp16 BOW bytes,
+so the ``bitvec`` and ``cascade`` backends filter candidates in memory and
+read only the survivors from storage. It stays host numpy, as in the
+reference; the filter moves each query's gathered lanes to the device.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 
+from repro_torch.core.quantize import binary_pack, to_uint32_lanes
 from repro_torch.storage.ssd import DEFAULT_BLOCK
+
+#: docs decoded per chunk when a resident table is built from the blob
+#: (~3.8M tokens at the synthetic corpus's mean length)
+CHUNK_DOCS = 65_536
 
 
 @dataclass
@@ -38,6 +49,12 @@ class EmbeddingLayout:
     @property
     def nbytes(self) -> int:
         return self.blob.nbytes
+
+    @property
+    def meta_nbytes(self) -> int:
+        """Host-resident metadata bytes (the offsets table and token
+        counts)."""
+        return self.offsets.nbytes + self.n_tokens.nbytes
 
     def doc_bytes(self, i: int) -> int:
         elt = np.dtype(self.dtype).itemsize
@@ -143,3 +160,138 @@ def gather_docs(layout: EmbeddingLayout, ids, t_max: int):
     lens = np.zeros(len(ids), np.int32)
     gather_docs_into(layout, ids, cls, out, lens)
     return cls, out, lens
+
+
+def bow_rows(layout: EmbeddingLayout, d0: int, d1: int) -> np.ndarray:
+    """The stored BOW token rows of docs ``d0..d1``, concatenated in doc
+    order: (tokens, d_bow) in the layout's dtype, scales not applied.
+
+    Every token row is one contiguous byte range of the blob, so the chunk
+    is one fancy-index over a strided (byte offset, row) view of the blob:
+    the same bytes the reference's per-byte gather picks, at an index of
+    one int64 per token instead of one per byte."""
+    elt = layout.dtype.itemsize
+    row = layout.d_bow * elt
+    nt = layout.n_tokens[d0:d1].astype(np.int64)
+    tot = int(nt.sum())
+    if tot == 0 or row == 0:
+        return np.zeros((tot, layout.d_bow), layout.dtype)
+    starts = layout.offsets[d0:d1, 0] * layout.block + layout.d_cls * elt
+    first = np.zeros(len(nt), np.int64)            # first token of each doc
+    np.cumsum(nt[:-1], out=first[1:])
+    src = (np.repeat(starts - first * row, nt)
+           + np.arange(tot, dtype=np.int64) * row)
+    blob = layout.blob
+    rows = np.lib.stride_tricks.as_strided(
+        blob, shape=(blob.size - row + 1, row), strides=(1, 1),
+        writeable=False)
+    return rows[src].view(layout.dtype)
+
+
+def token_scales(layout: EmbeddingLayout, d0: int, d1: int):
+    """(tokens, 1) fp32 dequant scale of each token of docs ``d0..d1``, or
+    ``None`` for a layout stored without scales."""
+    if layout.scales is None:
+        return None
+    return np.repeat(layout.scales[d0:d1],
+                     layout.n_tokens[d0:d1].astype(np.int64))[:, None]
+
+
+@dataclass
+class BitTable:
+    """Resident sign-bit table over all document tokens.
+
+    ``packed`` concatenates every doc's (t_i, W) bit-packed token matrix
+    along axis 0; ``starts`` is the (N+1,) token-offset prefix sum. Lane
+    dtype is a storage knob (``StorageConfig.bit_dtype``): uint8 wastes no
+    pad bytes when d_bow % 32 != 0, uint32 is the bitsim kernel's native
+    width. ``gather`` always hands back uint32 lanes (bit-exact re-view).
+    """
+    packed: np.ndarray            # (total_tokens, W) unsigned int lanes
+    starts: np.ndarray            # (N + 1,) int64 token offsets
+    d_bow: int
+    _lanes32: np.ndarray | None = field(default=None, repr=False,
+                                        compare=False)
+
+    @property
+    def n_docs(self) -> int:
+        return len(self.starts) - 1
+
+    @property
+    def nbytes(self) -> int:
+        return self.packed.nbytes + self.starts.nbytes
+
+    def doc(self, i: int) -> np.ndarray:
+        return self.packed[self.starts[i]:self.starts[i + 1]]
+
+    @property
+    def lanes32(self) -> np.ndarray:
+        """Kernel-native uint32 view of the whole table, converted once (a
+        no-copy re-view when the pack dtype is already uint32)."""
+        if self._lanes32 is None:
+            self._lanes32 = to_uint32_lanes(self.packed)
+        return self._lanes32
+
+    def gather(self, ids, t_max: int):
+        """Padded uint32-lane gather: (len(ids), t_max, W32) + lengths, one
+        bulk fancy-index over the lane table via the ``starts`` prefix
+        sums (the bit filter's per-query hot path)."""
+        ids = np.asarray(ids, np.int64)
+        lanes = self.lanes32
+        m = len(ids)
+        out = np.zeros((m, t_max, lanes.shape[-1]), np.uint32)
+        lens = np.zeros(m, np.int32)
+        if m == 0:
+            return out, lens
+        s = self.starts[ids]
+        t = np.minimum(self.starts[ids + 1] - s, t_max)
+        off = np.zeros(m, np.int64)
+        np.cumsum(t[:-1], out=off[1:])
+        tot = int(t.sum())
+        if tot:
+            flat = np.arange(tot, dtype=np.int64)
+            rows = np.repeat(np.arange(m, dtype=np.int64), t)
+            pos = flat - np.repeat(off, t)
+            src = np.repeat(s - off, t) + flat
+            out[rows, pos] = lanes[src]
+        lens[:] = t.astype(np.int32)
+        return out, lens
+
+
+def pack_bits(bow_embs: list[np.ndarray], *, dtype: str = "uint32",
+              d_bow: int = 0) -> BitTable:
+    """Sign-binarize and bit-pack a ragged BOW list into one resident table.
+    An empty list packs to a valid empty table of ``d_bow`` dims."""
+    n_tokens = np.array([b.shape[0] for b in bow_embs], np.int64)
+    starts = np.zeros(len(bow_embs) + 1, np.int64)
+    np.cumsum(n_tokens, out=starts[1:])
+    flat = np.concatenate([b for b in bow_embs], axis=0) if bow_embs else \
+        np.zeros((0, d_bow), np.float32)
+    return BitTable(packed=binary_pack(flat, dtype=dtype), starts=starts,
+                    d_bow=flat.shape[-1])
+
+
+def bits_from_layout(layout: EmbeddingLayout, *, dtype: str = "uint32",
+                     chunk_docs: int = CHUNK_DOCS) -> BitTable:
+    """Build the resident bit table from an already-packed disk layout.
+    Signs survive fp16/int8 storage quantization, so this is equivalent to
+    packing the original embeddings.
+
+    The blob is decoded ``chunk_docs`` docs at a time (``bow_rows``), so
+    the transient fp32 tokens stay bounded; sign packing is per token, so
+    the chunks concatenate to the reference's table bit for bit."""
+    n = layout.n_docs
+    if n == 0:
+        return pack_bits([], dtype=dtype, d_bow=layout.d_bow)
+    parts = []
+    for d0 in range(0, n, chunk_docs):
+        d1 = min(n, d0 + chunk_docs)
+        vals = bow_rows(layout, d0, d1).astype(np.float32)
+        scale = token_scales(layout, d0, d1)
+        if scale is not None:
+            vals = vals * scale
+        parts.append(binary_pack(vals, dtype=dtype))
+    starts = np.zeros(n + 1, np.int64)
+    np.cumsum(layout.n_tokens.astype(np.int64), out=starts[1:])
+    return BitTable(packed=np.concatenate(parts), starts=starts,
+                    d_bow=layout.d_bow)
