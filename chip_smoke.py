@@ -6,7 +6,7 @@
 Phases, each of which must pass:
 
 1. card: the ``nvidia-smi`` name and power limit; no CUDA device -> exit 2;
-2. build: the four CUDA kernels from the checkout's sources, in parallel;
+2. build: the five CUDA kernels from the checkout's sources, in parallel;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the query path's shapes and at ragged edges, with its time (CUDA events,
    median of 50 after warm-up), the plain version's time, a one-call PyTorch
@@ -14,14 +14,17 @@ Phases, each of which must pass:
 4. main path: ``Pipeline.build`` at the ColBERTer widths on a 1M-doc corpus,
    4 batches of 64 queries through ``espn`` and one through ``gds``, then,
    through ``Pipeline.from_artifacts`` on the same corpus, index and layout,
-   one batch each through ``bitvec``, ``fde`` and ``cascade`` (their bit and
-   FDE tables built once, with size and build time); every kernel's launch
-   count read around each mode's run, quality, the simulated latency
-   breakdown, and the wall time per batch split by stage;
+   one batch each through ``mmap``, ``swap``, ``dram``, ``bitvec``, ``fde``
+   and ``cascade`` (their bit and FDE tables built once, with size and
+   build time), and one ``cspn`` batch on the corpus pooled to 32 tokens a
+   doc in the ``fixed_stride`` layout, with the same index; every kernel's
+   launch count read around each mode's run, the device the rerank's tiles
+   lie on, quality, the simulated latency breakdown, and the wall time per
+   batch split by stage;
 5. agreement: on a small corpus, at the main path's retrieval settings,
    the card path ranks, scores and bills as the CPU path does in every
-   mode (``fde`` in both branches), and the card builds the FDE table the
-   CPU builds.
+   mode (``fde`` in both branches, ``cspn`` on a pooled fixed layout), and
+   the card builds the FDE table the CPU builds.
 
 It then prints the card line, the ``{"kernels": [...]}`` line and, last,
 the ``{"ok": ...}`` line. Any failed phase exits non-zero without them.
@@ -30,6 +33,8 @@ from __future__ import annotations
 
 import argparse
 import json
+import mmap
+import multiprocessing
 import os
 import subprocess
 import sys
@@ -56,12 +61,17 @@ KERNELS = {
                "replaces": "src/repro/kernels/bitsim/bitsim.py:54"},
     "fdescan": {"source": "src/repro_torch/kernels/fdescan/csrc/fdescan.cu",
                 "replaces": "src/repro/kernels/fdescan/fdescan.py:33"},
+    "gather_pack": {
+        "source": "src/repro_torch/kernels/gather_pack/csrc/gather_pack.cu",
+        "replaces": "src/repro/kernels/gather_pack/gather_pack.py:38"},
 }
 REL_TOL = 1e-5      # fp32 FMA sums taken in another order than the plain
                     # version's cuBLAS product: |err| <= 1e-5 * max(1, |ref|)
 AGREE_TOL = 1e-5    # card path vs CPU path: aggregate scores (~25 in size)
                     # after the same fp32 reordering
 N_DOCS = 1_000_000  # main-path corpus
+POOL_K = 32         # cspn: benchmarks/bench_constant_space.py's setting,
+                    # (128 + 32 * 32) fp16 values = one 4 KiB block a doc
 BATCHES, BATCH_SIZE = 4, 64
 # ESPNConfig's defaults, used by the main path and the agreement phase
 NPROBE, K_CANDIDATES, PREFETCH_STEP = 128, 1000, 0.10
@@ -312,6 +322,80 @@ def check_fdescan(dev, rng, failures) -> dict:
     return row
 
 
+def check_gather_pack(dev, rng, failures) -> dict:
+    """A copy has no rounding: the kernel must give the plain version's
+    bytes exactly, pad rows included."""
+    import torch
+
+    from repro_torch.kernels.gather_pack.ops import gather_pack
+    from repro_torch.kernels.gather_pack.ref import gather_pack_ref
+    T = 180
+    real = np.clip((rng.pareto(2.5, 1000) + 1) * 36, 8, T).astype(np.int64)
+    cases = [  # name, token counts of the K docs, D, pool dtype
+        ("slice K=1000 T=180 D=32 fp16", real, 32, torch.float16),
+        ("K=1000 D=32 fp32", real, 32, torch.float32),
+        ("K=1000 D=32 int8 (1-byte elements)", real, 32, torch.int8),
+        ("K=300 D=7 int8 (7-byte rows)", rng.integers(0, T + 1, 300), 7,
+         torch.int8),
+        ("K=1000 D=20 fp16 (40-byte rows)", real, 20, torch.float16),
+        ("K=37 all-pad doc and a full one", np.r_[0, T, rng.integers(
+            0, T + 1, 35)], 32, torch.float16),
+        ("K=1 D=32 fp16", np.array([57]), 32, torch.float16),
+    ]
+    row = None
+    worst = 0.0
+    for name, lens, D, dtype in cases:
+        K = len(lens)
+        R = int(lens.sum())
+        # the rerank's order: a query's docs lie anywhere in the arena
+        first = np.zeros(K, np.int64)
+        np.cumsum(lens[:-1], out=first[1:])
+        perm = rng.permutation(K)
+        steps = np.arange(T)
+        idx_np = np.where(steps[None, :] < lens[perm, None],
+                          first[perm, None] + steps[None, :], -1)
+        if dtype == torch.int8:
+            pool = torch.tensor(rng.integers(-128, 128, (R, D)),
+                                dtype=dtype, device=dev)
+        else:
+            pool = torch.tensor(rng.standard_normal((R, D)), dtype=dtype,
+                                device=dev)
+        idx = torch.tensor(idx_np.astype(np.int32), device=dev)
+        out = gather_pack(pool, idx)
+        ref = gather_pack_ref(pool, idx)
+        torch.cuda.synchronize()
+        same = out.shape == ref.shape and torch.equal(
+            out.view(torch.uint8), ref.view(torch.uint8))
+        err = float((out.float() - ref.float()).abs().max()) \
+            if out.shape == ref.shape else float("inf")
+        worst = max(worst, err)
+        log(f"  gather_pack {name}: pool {R} rows, max_abs_err={err:.3g}, "
+            f"{'bytes equal' if same else 'bytes DIFFER'} -> "
+            f"{'ok' if same else 'FAIL'}")
+        if not same:
+            failures.append(f"gather_pack {name}")
+        if row is None:                       # the rerank's own shape
+            ms = time_ms(lambda: gather_pack(pool, idx))
+            plain = time_ms(lambda: gather_pack_ref(pool, idx))
+            # one library call for the same function: index_select over
+            # the pool with a zero row appended and -1 mapped to it
+            padded = torch.cat([pool, pool.new_zeros(1, D)])
+            flat = torch.where(idx >= 0, idx, R).view(-1).long()
+            lib = time_ms(lambda: torch.index_select(padded, 0, flat))
+            elt = pool.element_size()
+            n_valid = int((idx >= 0).sum())
+            n_bytes = K * T * D * elt + n_valid * D * elt + 4 * K * T
+            b_ms, by = bound_ms(n_bytes, 0)
+            row = {"ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+                   "bound_by": by, "library_ms": lib}
+            log(f"  gather_pack timing (K={K}, T={T}, D={D} fp16, "
+                f"{n_valid} valid rows, {n_bytes / 1e6:.2f} MB moved): kernel "
+                f"{ms:.4f} ms, plain {plain:.4f} ms, torch.index_select "
+                f"{lib:.4f} ms, bound {b_ms:.4f} ms ({by})")
+    row["max_abs_err"] = worst
+    return row
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
@@ -324,6 +408,7 @@ class StageClock:
 
     def __init__(self):
         self.s = defaultdict(float)
+        self.tiles: set = set()
 
     def wrap(self, owner, name, key, sync=False):
         import torch
@@ -346,6 +431,7 @@ class StageClock:
         from repro_torch.core import prefetcher, rerank
         from repro_torch.core.fde import FDEEncoder
         from repro_torch.pipeline import backends, pipeline
+        from repro_torch.storage import batch_io, io_engine
         from repro_torch.storage.batch_io import BatchReadPlan, BatchReadResult
         from repro_torch.storage.io_engine import StorageTier
         # the resident tables the new modes build from the blob
@@ -369,20 +455,40 @@ class StageClock:
         self.wrap(prefetcher, "search_two_phase", "candidate_gen", sync=True)
         self.wrap(backends, "search", "candidate_gen", sync=True)
         self.wrap(StorageTier, "read_batch", "io_plan_submit")
-        self.wrap(BatchReadResult, "ensure_query", "host_gather_wait")
-        self.wrap(BatchReadResult, "ensure_rows", "host_gather_wait")
+        # the rerank's arrival barrier: the wait for a run's host staging,
+        # then (inside it) the run's host->device copy of the pool rows
+        self.wrap(BatchReadResult, "ensure_query", "ensure")
+        self.wrap(BatchReadResult, "ensure_rows", "ensure")
+        self.wrap(batch_io, "upload", "h2d_pool", sync=True)
+        self.wrap(io_engine, "upload", "h2d_pool", sync=True)
         self.wrap(backends, "rerank_query", "rerank_total")
         self.wrap(rerank, "_maxsim_np", "maxsim_call")
+        self.wrap(rerank, "gather_pack", "gather_pack_kernel", sync=True)
         self.wrap(rerank, "maxsim", "maxsim_kernel", sync=True)
+        # where the tiles that reach maxsim lie, and in which dtype
+        timed = rerank.maxsim
+
+        def watched(q, q_mask, docs, doc_lens):
+            self.tiles.add((docs.device.type, str(docs.dtype)))
+            return timed(q, q_mask, docs, doc_lens)
+        rerank.maxsim = watched
 
     def split(self, wall: float) -> dict:
         s = self.s
         out = {
             "candidate_gen_s": s["candidate_gen"],
-            "host_gather_wait_s": s["host_gather_wait"],
-            "h2d_d2h_s": s["maxsim_call"] - s["maxsim_kernel"],
-            "rerank_kernel_s": s["maxsim_kernel"],
-            "rerank_host_s": (s["rerank_total"] - s["host_gather_wait"]
+            # the rerank: waiting for the staging threads, the pool's
+            # host->device copies (every path here is coalesced, so all of
+            # them are issued inside the barrier), the gather_pack and
+            # maxsim launches, the rest of each MaxSim call (index table,
+            # query H2D, scores D2H) and the per-query host loop
+            "host_staging_wait_s": s["ensure"] - s["h2d_pool"],
+            "h2d_pool_s": s["h2d_pool"],
+            "gather_pack_kernel_s": s["gather_pack_kernel"],
+            "maxsim_kernel_s": s["maxsim_kernel"],
+            "maxsim_call_other_s": (s["maxsim_call"] - s["gather_pack_kernel"]
+                                    - s["maxsim_kernel"]),
+            "rerank_host_s": (s["rerank_total"] - s["ensure"]
                               - s["maxsim_call"]),
             "io_plan_submit_s": s["io_plan_submit"],
             # espn only: run_batch's host work between its calls, split
@@ -416,17 +522,22 @@ class StageClock:
 def counters():
     from repro_torch.kernels.bitsim.ops import bitsim
     from repro_torch.kernels.fdescan.ops import fdescan
+    from repro_torch.kernels.gather_pack.ops import gather_pack
     from repro_torch.kernels.ivf_scan.ops import centroid_scores
     from repro_torch.kernels.maxsim.ops import maxsim
     return {"maxsim": maxsim, "ivf_scan": centroid_scores, "bitsim": bitsim,
-            "fdescan": fdescan}
+            "fdescan": fdescan, "gather_pack": gather_pack}
 
 
-# the kernels each mode of the main path must launch
-PATH_KERNELS = {"espn": ("ivf_scan", "maxsim"), "gds": ("ivf_scan", "maxsim"),
-                "bitvec": ("ivf_scan", "bitsim", "maxsim"),
-                "fde": ("fdescan", "maxsim"),
-                "cascade": ("fdescan", "bitsim", "maxsim")}
+# the kernels each mode of the main path must launch: every rerank packs its
+# tiles with gather_pack, one launch before each maxsim launch
+IVF_RERANK = ("ivf_scan", "gather_pack", "maxsim")
+PATH_KERNELS = {"espn": IVF_RERANK, "gds": IVF_RERANK, "mmap": IVF_RERANK,
+                "swap": IVF_RERANK, "dram": IVF_RERANK,
+                "bitvec": ("ivf_scan", "bitsim", "gather_pack", "maxsim"),
+                "fde": ("fdescan", "gather_pack", "maxsim"),
+                "cascade": ("fdescan", "bitsim", "gather_pack", "maxsim"),
+                "cspn": IVF_RERANK}
 
 
 def reset_counts():
@@ -508,12 +619,12 @@ def tf32_off(failures, when):
         failures.append(f"TF32 is on for fp32 products ({when})")
 
 
-def side_mode(cfg, mode, idx, pipe, corpus, dev, clock, failures, out,
+def side_mode(cfg, mode, idx, layout, corpus, dev, clock, failures, out,
               tables):
-    """One batch through ``mode`` on the espn pipeline's corpus, index and
-    layout, via ``Pipeline.from_artifacts``; a side table another mode built
-    already is handed down, one not built yet is built by the entry point
-    (its build time read from the clock)."""
+    """One batch through ``mode`` on the espn pipeline's corpus and index
+    and on ``layout``, via ``Pipeline.from_artifacts``; a side table another
+    mode built already is handed down, one not built yet is built by the
+    entry point (its build time read from the clock)."""
     import dataclasses
 
     from repro_torch.pipeline import Pipeline
@@ -521,7 +632,7 @@ def side_mode(cfg, mode, idx, pipe, corpus, dev, clock, failures, out,
         cfg.retrieval, mode=mode))
     clock.s.clear()
     t0 = time.perf_counter()
-    with Pipeline.from_artifacts(mcfg, index=idx, layout=pipe.layout,
+    with Pipeline.from_artifacts(mcfg, index=idx, layout=layout,
                                  corpus=corpus, device=dev, **tables) as p:
         for name, attr, key in (("bits", "bits", "bit_table_build"),
                                 ("fde", "fde", "fde_table_build")):
@@ -543,6 +654,72 @@ def side_mode(cfg, mode, idx, pipe, corpus, dev, clock, failures, out,
         if mode in ("fde", "cascade"):
             out[mode]["candidate_gen_bytes"] = p.backend.candidate_gen_bytes()
         out[mode]["memory_resident_bytes"] = p.tier.memory_resident_bytes()
+
+
+_POOL_JOB: tuple = ()
+
+
+def _pool_range(rng_):
+    """Worker: pool docs ``d0..d1`` of the forked parent's corpus into the
+    shared output (the package's sequential ``pool_corpus`` on a slice)."""
+    from repro_torch.core.pool import pool_corpus
+    bow, out, k, seed = _POOL_JOB
+    d0, d1 = rng_
+    out[d0:d1] = np.stack(pool_corpus(bow[d0:d1], k, seed=seed))
+    return d1 - d0
+
+
+def pool_parallel(bow, k: int, seed: int = 0) -> list[np.ndarray]:
+    """``pool_corpus(bow, k, seed)`` spread over the host's cores: a doc's
+    pooled vectors depend on its own tokens only, so slices pooled apart
+    concatenate to the sequential result. The workers are forked (they
+    touch no CUDA) and write into one shared anonymous mapping."""
+    global _POOL_JOB
+    n, d = len(bow), bow[0].shape[1]
+    buf = mmap.mmap(-1, max(1, n * k * d * 4))
+    out = np.frombuffer(buf, np.float32, n * k * d).reshape(n, k, d)
+    _POOL_JOB = (bow, out, k, seed)
+    step = -(-n // 256)
+    ranges = [(d0, min(n, d0 + step)) for d0 in range(0, n, step)]
+    try:
+        with multiprocessing.get_context("fork").Pool(os.cpu_count()) as pool:
+            done = sum(pool.imap_unordered(_pool_range, ranges))
+    finally:
+        _POOL_JOB = ()
+    if done != n:
+        raise RuntimeError(f"pooled {done} of {n} docs")
+    return list(out)
+
+
+def cspn_mode(cfg, idx, corpus, dev, clock, failures, out):
+    """The corpus pooled to POOL_K tokens a doc and packed in the
+    ``fixed_stride`` layout, then one ``cspn`` batch on it with the espn
+    pipeline's index (pooling changes only the BOW rows)."""
+    import dataclasses
+
+    from repro_torch.storage.layout import pack
+    t0 = time.perf_counter()
+    pooled = pool_parallel(corpus.bow, POOL_K, seed=cfg.storage.pool_seed)
+    t_pool = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    layout = pack(corpus.cls, pooled, dtype=np.dtype(cfg.storage.dtype),
+                  block=cfg.storage.block, mode="fixed_stride",
+                  pool_k=POOL_K)
+    t_pack = time.perf_counter() - t0
+    del pooled
+    log(f"  cspn layout: {layout.n_docs} docs pooled to {POOL_K} tokens in "
+        f"{t_pool:.1f} s on {os.cpu_count()} processes, packed fixed_stride "
+        f"in {t_pack:.1f} s: {layout.stride_blocks} block(s) a doc, blob "
+        f"{layout.nbytes / 1e9:.2f} GB on the host, resident metadata "
+        f"{layout.meta_nbytes} B")
+    if layout.stride_blocks != 1:
+        failures.append(f"cspn: {layout.stride_blocks} blocks a doc, not 1")
+    out["cspn_layout"] = {"pool_s": t_pool, "pack_s": t_pack,
+                          "blob_bytes": layout.nbytes}
+    ccfg = dataclasses.replace(cfg, storage=dataclasses.replace(
+        cfg.storage, layout_mode="fixed_stride", pool_k=POOL_K))
+    side_mode(ccfg, "cspn", idx, layout, corpus, dev, clock, failures, out,
+              {})
 
 
 def main_path(dev, failures, profile=False) -> dict:
@@ -602,13 +779,21 @@ def main_path(dev, failures, profile=False) -> dict:
             out["gds"]["launches"] = read_counts()
         tf32_off(failures, "before the table builds")
         tables: dict = {}
-        for mode in ("bitvec", "fde", "cascade"):
-            side_mode(cfg, mode, idx, pipe, corpus, dev, clock, failures, out,
-                      tables)
+        for mode in ("mmap", "swap", "dram", "bitvec", "fde", "cascade"):
+            side_mode(cfg, mode, idx, pipe.layout, corpus, dev, clock,
+                      failures, out, tables)
         if tables.get("fde") is None \
                 or tables["fde"].vecs.device.type != dev.type:
             failures.append("the FDE table was not built on the card")
+        tables.clear()
+        cspn_mode(cfg, idx, corpus, dev, clock, failures, out)
         tf32_off(failures, "after the new modes")
+        # every rerank of every mode packed its tiles on the card
+        log(f"  tiles that reached maxsim on the path (device, dtype): "
+            f"{sorted(clock.tiles)}")
+        if not clock.tiles or any(d != "cuda" for d, _ in clock.tiles):
+            failures.append(f"the rerank's tiles were not all on the card: "
+                            f"{sorted(clock.tiles)}")
         if profile:
             profile_batch(pipe, corpus, bs)
     base = out["espn"]["batch0"]
@@ -701,7 +886,9 @@ def agreement(dev, failures):
     (the card's own FDE table is held to the CPU's apart)."""
     import dataclasses
 
+    from repro_torch.core.pool import pool_corpus
     from repro_torch.pipeline import Pipeline, PipelineConfig
+    from repro_torch.storage.layout import pack
     base = PipelineConfig()
     base.corpus.n_docs, base.corpus.n_queries = 20_000, 32
     base.index.ncells = 512
@@ -709,14 +896,27 @@ def agreement(dev, failures):
     base.retrieval.k_candidates = K_CANDIDATES
     base.retrieval.prefetch_step = PREFETCH_STEP
     with Pipeline.build(base, device="cpu") as built:
-        corpus, index, layout = built.corpus, built.index, built.layout
+        corpus, index, ragged = built.corpus, built.index, built.layout
+    t0 = time.perf_counter()
+    fixed = pack(corpus.cls, pool_corpus(corpus.bow, POOL_K),
+                 dtype=np.dtype(base.storage.dtype), mode="fixed_stride",
+                 pool_k=POOL_K)
+    log(f"  fixed_stride layout of the 20,000 docs (pool_k={POOL_K}, "
+        f"sequential pool_corpus) in {time.perf_counter() - t0:.1f} s")
     tables: dict = {}
-    cases = [("espn", {}), ("gds", {}), ("bitvec", {}), ("fde", {}),
-             ("cascade", {}), ("fde", {"fde_brute_threshold": 0})]
+    cases = [("espn", {}), ("gds", {}), ("mmap", {}), ("swap", {}),
+             ("dram", {}), ("bitvec", {}), ("fde", {}), ("cascade", {}),
+             ("fde", {"fde_brute_threshold": 0}), ("cspn", {})]
     for mode, extra in cases:
         cfg = dataclasses.replace(base, retrieval=dataclasses.replace(
             base.retrieval, mode=mode, **extra))
-        what = mode + (" (IVF over FDEs)" if extra else "")
+        layout = ragged
+        if mode == "cspn":
+            layout = fixed
+            cfg.storage = dataclasses.replace(
+                cfg.storage, layout_mode="fixed_stride", pool_k=POOL_K)
+        what = mode + (" (IVF over FDEs)" if extra else "") \
+            + (" (fixed_stride)" if mode == "cspn" else "")
         with Pipeline.from_artifacts(cfg, index=index, layout=layout,
                                      corpus=corpus, device="cpu",
                                      **tables) as cpu:
@@ -747,7 +947,7 @@ def agreement(dev, failures):
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
             failures.append(f"{what}: card path disagrees with CPU path")
-    check_fde_table(tables["fde"], layout, dev, failures)
+    check_fde_table(tables["fde"], ragged, dev, failures)
 
 
 def kernel_rows(rows) -> list[dict]:
@@ -804,7 +1004,8 @@ def main(argv=None) -> int:
                   maxsim=check_maxsim(dev, rng, failures),
                   ivf_scan=check_ivf_scan(dev, rng, failures),
                   bitsim=check_bitsim(dev, rng, failures),
-                  fdescan=check_fdescan(dev, rng, failures))),
+                  fdescan=check_fdescan(dev, rng, failures),
+                  gather_pack=check_gather_pack(dev, rng, failures))),
               ("main path", lambda: rows.update(
                   path=main_path(dev, failures, args.profile))),
               ("agreement", lambda: agreement(dev, failures))]

@@ -44,20 +44,25 @@ def ivf_index_from_numpy(arrays, device) -> IVFIndex:
 
 
 def layout_from_numpy(arrays) -> EmbeddingLayout:
-    """Ragged embedding layout from ``blob``, ``offsets``, ``n_tokens``,
-    ``d_cls``, ``d_bow``, ``dtype``, ``scales`` and ``block``. The layout
-    stays a host blob, as the storage tier reads it."""
+    """Embedding layout from ``blob``, ``d_cls``, ``d_bow``, ``dtype``,
+    ``scales``, ``block`` and, for a ragged layout, ``offsets`` and
+    ``n_tokens``. A ``mode`` of ``fixed_stride`` (with ``stride_blocks`` and
+    ``pool_k``) carries the constant-space layout across: its offsets and
+    token counts are recomputed from the stride, as the reference does on
+    load, whatever the mapping holds under those names. The layout stays a
+    host blob, as the storage tier reads it."""
     mode = str(arrays["mode"]) if "mode" in arrays else "ragged"
-    if mode != "ragged":
-        raise NotImplementedError(f"layout mode {mode!r} is not ported yet")
+    fixed = mode == "fixed_stride"
     return EmbeddingLayout(
         blob=np.asarray(arrays["blob"], np.uint8),
-        offsets=np.asarray(arrays["offsets"], np.int64),
-        n_tokens=np.asarray(arrays["n_tokens"], np.int32),
+        offsets=None if fixed else np.asarray(arrays["offsets"], np.int64),
+        n_tokens=None if fixed else np.asarray(arrays["n_tokens"], np.int32),
         d_cls=int(arrays["d_cls"]), d_bow=int(arrays["d_bow"]),
         dtype=np.dtype(str(arrays["dtype"])),
         scales=_optional(arrays["scales"]),
-        block=int(arrays["block"]))
+        block=int(arrays["block"]), mode=mode,
+        stride_blocks=int(arrays["stride_blocks"]) if fixed else 0,
+        pool_k=int(arrays["pool_k"]) if fixed else 0)
 
 
 def bit_table_from_numpy(arrays) -> BitTable:

@@ -16,6 +16,7 @@ import numpy as np
 
 from repro_torch.core.ivf import (ANNCostModel, IVFIndex, search_two_phase,
                                   valid_candidates)
+from repro_torch.storage.batch_io import DeviceArena
 from repro_torch.storage.io_engine import StorageTier
 
 
@@ -39,8 +40,8 @@ class QueryResult:
     hit_mask: np.ndarray          # True where the doc was prefetched
     stats: PrefetchStats
     prefetched: dict = field(default_factory=dict)   # id -> row in buffers
-    buffers: tuple | None = None  # (cls, bow, lens) of prefetched docs
-    miss_buffers: tuple | None = None
+    buffers: DeviceArena | None = None   # device arena of prefetched docs
+    miss_buffers: DeviceArena | None = None
     miss_rows: dict | None = None  # id -> row in miss_buffers (batch arena)
     wait_io: object | None = None  # callable: block until this query's async
                                    # batch-I/O runs landed (rerank calls it)
@@ -48,8 +49,8 @@ class QueryResult:
     @classmethod
     def from_batch_view(cls, doc_ids: np.ndarray, cand_scores: np.ndarray,
                         batch, b: int, *, ann_s: float) -> "QueryResult":
-        """Result whose buffers are query ``b``'s zero-copy view into a
-        ``BatchReadResult`` arena: the shared buffers plus an id->row map.
+        """Result whose buffers are query ``b``'s view of a
+        ``BatchReadResult``: the shared device arena plus an id->row map.
         I/O is billed in the critical path with the query's first-owner
         attribution share; ``wait_io`` defers the arrival barrier to the
         re-rank, so reads of later queries overlap this query's scoring.

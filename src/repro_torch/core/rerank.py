@@ -6,9 +6,12 @@ ANN probes; the critical path only scores the misses and merges.
 Partial re-ranking: only the top R candidates (by candidate-generation score)
 get MaxSim; the rest keep their CLS ordering.
 
-The gathered rows are host numpy (the storage tier is a host blob); each
-MaxSim call moves the query and its rows to the device and runs the
-``kernels/maxsim`` op there.
+The storage tier hands each query a ``DeviceArena``: the batch's raw
+stored-dtype token rows already on the device. Each MaxSim call builds its
+docs' row-index table there, packs the padded (K, t_max, D) tiles with
+``kernels/gather_pack`` (the paper's §5.1 restructuring kernel) and scores
+them with ``kernels/maxsim``; only the query goes to the device and only
+the scores come back.
 """
 from __future__ import annotations
 
@@ -17,7 +20,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from repro_torch.kernels.gather_pack.ops import gather_pack
 from repro_torch.kernels.maxsim.ops import maxsim
+from repro_torch.storage.batch_io import DeviceArena
 
 
 @dataclass
@@ -28,25 +33,49 @@ class RerankOutput:
     bow_bytes_read: int          # bandwidth bill for this query
 
 
-def _maxsim_np(q_bow: np.ndarray, q_len: int, d_bow: np.ndarray,
-               d_lens: np.ndarray, device: torch.device) -> np.ndarray:
-    """q_bow (Lq, D); d_bow (K, T, D); returns (K,) fp32 MaxSim scores,
-    computed on ``device``."""
-    if d_bow.shape[0] == 0:
+def pack_tiles(arena: DeviceArena, rows) -> tuple[torch.Tensor,
+                                                  torch.Tensor]:
+    """The padded (K, t_max, D) doc tiles of the arena ``rows`` and their
+    (K,) int32 token counts, on the arena's device.
+
+    Row k of the (K, t_max) int32 index table is ``first[rows[k]] + t`` for
+    ``t < lens[rows[k]]`` and -1 (pad) after; ``gather_pack`` packs the
+    tiles in the stored dtype. fp16 and fp32 tiles stay as they are
+    (``maxsim`` widens fp16 itself); other dtypes, and any layout with
+    per-doc scales, are widened to fp32 and scaled after the pack, as the
+    reference's ``unpack_doc`` does."""
+    dev = arena.pool.device
+    r = torch.as_tensor(np.asarray(rows, np.int64), device=dev)
+    lens = arena.lens[r]
+    steps = torch.arange(arena.t_max, device=dev)
+    idx = torch.where(steps[None, :] < lens[:, None],
+                      arena.first[r][:, None] + steps[None, :],
+                      -1).to(torch.int32)
+    tiles = gather_pack(arena.pool, idx)
+    if arena.scales is not None:
+        tiles = tiles.float() * arena.scales[r][:, None, None]
+    elif tiles.dtype not in (torch.float16, torch.float32):
+        tiles = tiles.float()
+    return tiles, lens
+
+
+def _maxsim_np(q_bow: np.ndarray, q_len: int, arena: DeviceArena,
+               rows) -> np.ndarray:
+    """MaxSim scores (K,) fp32 of the arena ``rows`` against
+    ``q_bow[:q_len]``, computed on the arena's device."""
+    if len(rows) == 0:
         return np.zeros((0,), np.float32)
+    tiles, lens = pack_tiles(arena, rows)
+    dev = tiles.device
     q = torch.as_tensor(np.ascontiguousarray(q_bow[:q_len], np.float32),
-                        device=device)
-    docs = torch.as_tensor(np.ascontiguousarray(d_bow, np.float32),
-                           device=device)
-    lens = torch.as_tensor(np.asarray(d_lens, np.int32), device=device)
-    qm = torch.ones(q_len, dtype=torch.float32, device=device)
-    return maxsim(q, qm, docs, lens).cpu().numpy()
+                        device=dev)
+    qm = torch.ones(q_len, dtype=torch.float32, device=dev)
+    return maxsim(q, qm, tiles, lens).cpu().numpy()
 
 
 def rerank_query(q_bow, q_len, result, *, alpha: float = 1.0,
                  rerank_count: int | None = None, doc_bytes=None,
-                 select: np.ndarray | None = None,
-                 device: torch.device | str = "cpu") -> RerankOutput:
+                 select: np.ndarray | None = None) -> RerankOutput:
     """Score one QueryResult (from ANNPrefetcher.run_batch).
 
     rerank_count=None -> exact (re-rank every candidate, hits scored early,
@@ -85,13 +114,11 @@ def rerank_query(q_bow, q_len, result, *, alpha: float = 1.0,
             miss_rows.append(miss_row_of[i])
             miss_pos.append(j)
     if pref_rows:
-        _, bow, lens = result.buffers
-        bow_scores[pref_pos] = _maxsim_np(q_bow, q_len, bow[pref_rows],
-                                          lens[pref_rows], device)
+        bow_scores[pref_pos] = _maxsim_np(q_bow, q_len, result.buffers,
+                                          pref_rows)
     if miss_rows:
-        _, bow, lens = result.miss_buffers
-        bow_scores[miss_pos] = _maxsim_np(q_bow, q_len, bow[miss_rows],
-                                          lens[miss_rows], device)
+        bow_scores[miss_pos] = _maxsim_np(q_bow, q_len, result.miss_buffers,
+                                          miss_rows)
     if doc_bytes is not None:
         bytes_read = int(sum(doc_bytes(int(ids[j])) for j in sel))
 

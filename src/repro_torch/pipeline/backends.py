@@ -4,8 +4,9 @@ The paper's retrieval stacks (Tables 4/5) as ``RetrievalBackend`` classes:
 ESPN's prefetched GDS path (``espn``), plain GDS (``gds``), the mmap/swap
 O/S baselines, and the all-in-DRAM upper bound, joined by the related
 work's bit-vector rerank (``bitvec``, Nardini et al. 2024), MUVERA-style FDE
-candidate generation (``fde``, Dhulipala et al. 2024) and the cascade of
-the two (``cascade``). A backend owns the full query path: candidate
+candidate generation (``fde``, Dhulipala et al. 2024), the cascade of the
+two (``cascade``) and the constant-space SSD rerank over the pooled
+``fixed_stride`` layout (``cspn``, MacAvaney et al. 2025). A backend owns the full query path: candidate
 generation, storage reads, re-ranking, and the per-stage latency accounting
 on the simulated device clock. All backends return the same
 ``RetrievalResponse``.
@@ -131,8 +132,7 @@ class RetrievalBackend(abc.ABC):
                                               ann_s=bd.ann_s)
             out = rerank_query(q_bow[b], int(q_lens[b]), res,
                                alpha=cfg.alpha, rerank_count=rr,
-                               doc_bytes=self.doc_bytes,
-                               device=self.index.device)
+                               doc_bytes=self.doc_bytes)
             ranked.append(out)
             bd.rerank_s += self._maxsim_time(rr, int(q_lens[b]))
             bd.bytes_read += out.bow_bytes_read
@@ -190,8 +190,7 @@ class RetrievalBackend(abc.ABC):
             res = QueryResult.from_batch_view(fin, fin_scores, batch, b,
                                               ann_s=bd.ann_s)
             out = rerank_query(q_bow[b], qlen, res, alpha=cfg.alpha,
-                               select=sel, doc_bytes=self.doc_bytes,
-                               device=dev)
+                               select=sel, doc_bytes=self.doc_bytes)
             ranked.append(out)
             bd.rerank_s += self._maxsim_time(len(sel), qlen)
             bd.bytes_read += out.bow_bytes_read
@@ -226,8 +225,7 @@ class ESPNBackend(RetrievalBackend):
         for b, res in enumerate(results):
             out = rerank_query(q_bow[b], int(q_lens[b]), res,
                                alpha=cfg.alpha, rerank_count=cfg.rerank_count,
-                               doc_bytes=self.doc_bytes,
-                               device=self.index.device)
+                               doc_bytes=self.doc_bytes)
             ranked.append(out)
             early_t = self._maxsim_time(res.stats.n_hits, int(q_lens[b]))
             miss_t = self._maxsim_time(res.stats.n_misses, int(q_lens[b]))
@@ -293,6 +291,17 @@ class SwapBackend(DirectBackend):
 class DRAMBackend(DirectBackend):
     """Whole index resident in memory: the paper's upper-bound baseline."""
     storage_stack = "dram"
+
+
+@register_backend("cspn")
+class CSPNBackend(DirectBackend):
+    """Constant-space SSD rerank: the gds query path run over the
+    ``fixed_stride`` pooled layout. Every document holds exactly ``pool_k``
+    token vectors at a uniform block stride, so offsets are arithmetic
+    (zero resident metadata) and every read moves the same byte count. The
+    backend itself is layout-agnostic: on a ragged layout it runs the gds
+    path."""
+    storage_stack = "espn"
 
 
 @register_backend("bitvec")

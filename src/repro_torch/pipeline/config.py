@@ -58,7 +58,13 @@ class StorageConfig:
     io_coalesce: bool = True           # batch I/O engine: dedup + coalesce
                                        # reads across the query batch (False
                                        # = serial per-query reads)
-    layout_mode: str = "ragged"        # only "ragged" is ported
+    layout_mode: str = "ragged"        # ragged | fixed_stride (constant-space
+                                       # pooled layout: uniform stride,
+                                       # offsets computed, zero metadata)
+    pool_k: int = 0                    # fixed_stride: tokens per doc after
+                                       # cluster pooling (required > 0)
+    pool_seed: int = 0                 # pooling k-means seed (content-
+                                       # deterministic)
 
 
 @dataclass
@@ -147,14 +153,20 @@ class PipelineConfig:
                         default=s.mem_budget_frac)
         ap.add_argument("--layout-mode", default=s.layout_mode,
                         choices=["ragged", "fixed_stride"],
-                        help="storage layout (only ragged is ported)")
+                        help="storage layout: ragged (per-doc offsets) or "
+                             "fixed_stride (constant-space pooled layout; "
+                             "requires --pool-k)")
+        ap.add_argument("--pool-k", type=int, default=s.pool_k,
+                        help="fixed_stride: pooled token vectors per doc")
+        ap.add_argument("--pool-seed", type=int, default=s.pool_seed,
+                        help="fixed_stride: pooling k-means seed")
         ap.add_argument("--serial-io", action="store_true",
                         help="disable the coalesced batch I/O engine "
                              "(per-query serial reads; duplicates billed "
                              "per requesting query)")
         ap.add_argument("--mode", default=r.mode,
                         help="retrieval backend (espn, gds, mmap, swap, "
-                             "dram, bitvec, fde, cascade; validated "
+                             "dram, bitvec, fde, cascade, cspn; validated "
                              "against the registry)")
         ap.add_argument("--nprobe", type=int, default=r.nprobe)
         ap.add_argument("--k", type=int, default=r.k_candidates)
@@ -210,7 +222,9 @@ class PipelineConfig:
                                   bit_dtype=args.bit_dtype,
                                   fde_dtype=args.fde_dtype,
                                   io_coalesce=not args.serial_io,
-                                  layout_mode=args.layout_mode),
+                                  layout_mode=args.layout_mode,
+                                  pool_k=args.pool_k,
+                                  pool_seed=args.pool_seed),
             retrieval=RetrievalConfig(mode=args.mode, nprobe=args.nprobe,
                                       k_candidates=args.k,
                                       prefetch_step=args.prefetch_step,

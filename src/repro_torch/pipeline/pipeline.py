@@ -10,9 +10,11 @@ The retrieval mode is resolved against the backend registry
 (``repro_torch.pipeline.backends``), which also decides the storage-tier
 software stack, whether a page-cache memory budget applies, and which
 resident side tables the tier carries (the sign-bit table for ``bitvec``/
-``cascade``, the FDE table for ``fde``/``cascade``). The IVF index and the
-FDE table live on ``device``; the packed layout and the bit table are host
-arrays.
+``cascade``, the FDE table for ``fde``/``cascade``). The storage layout is
+the paper's ``ragged`` one or, with ``storage.layout_mode="fixed_stride"``,
+the constant-space layout of a corpus pooled to ``storage.pool_k`` tokens a
+doc. The IVF index, the FDE table and each read's token rows live on
+``device``; the packed layout and the bit table are host arrays.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.espn import ComputeModel, RetrievalResponse
+from repro_torch.core.pool import pool_corpus
 from repro_torch.core.fde import FDETable, fde_from_layout
 from repro_torch.core.ivf import ANNCostModel, IVFIndex, build_ivf
 from repro_torch.core.metrics import mrr_at_k, recall_at_k
@@ -28,8 +31,28 @@ from repro_torch.device import resolve_device
 from repro_torch.pipeline.backends import RetrievalBackend, get_backend
 from repro_torch.pipeline.config import PipelineConfig
 from repro_torch.storage.io_engine import StorageTier
-from repro_torch.storage.layout import (BitTable, EmbeddingLayout,
-                                        bits_from_layout, pack)
+from repro_torch.storage.layout import (LAYOUT_MODES, BitTable,
+                                        EmbeddingLayout, bits_from_layout,
+                                        pack)
+
+
+def _pack_layout(cfg: PipelineConfig, cls_embs: np.ndarray,
+                 bow_embs: list[np.ndarray]) -> EmbeddingLayout:
+    """Pack per the config's layout mode. ``fixed_stride`` pools every
+    document to exactly ``pool_k`` token vectors first (deterministic
+    content-seeded k-means), then packs at a uniform block stride."""
+    s = cfg.storage
+    if s.layout_mode not in LAYOUT_MODES:
+        raise ValueError(f"unknown layout_mode {s.layout_mode!r}; expected "
+                         f"one of {LAYOUT_MODES}")
+    if s.layout_mode == "fixed_stride":
+        if s.pool_k <= 0:
+            raise ValueError("layout_mode='fixed_stride' requires "
+                             "storage.pool_k > 0 (--pool-k)")
+        bow_embs = pool_corpus(bow_embs, s.pool_k, seed=s.pool_seed)
+        return pack(cls_embs, bow_embs, dtype=np.dtype(s.dtype),
+                    block=s.block, mode="fixed_stride", pool_k=s.pool_k)
+    return pack(cls_embs, bow_embs, dtype=np.dtype(s.dtype), block=s.block)
 
 
 class Pipeline:
@@ -61,7 +84,7 @@ class Pipeline:
         one; otherwise one is synthesized from ``cfg.corpus``."""
         cfg = cfg or PipelineConfig()
         dev = resolve_device(device)
-        _check_ported(cfg)
+        get_backend(cfg.retrieval.mode)
         if corpus is None:
             c = cfg.corpus
             corpus = make_corpus(n_docs=c.n_docs, n_queries=c.n_queries,
@@ -73,8 +96,7 @@ class Pipeline:
                           ncells=cfg.index.resolve_ncells(corpus.n_docs),
                           iters=cfg.index.iters, quant=cfg.index.quant,
                           train_sample=cfg.index.train_sample, device=dev)
-        layout = pack(corpus.cls, corpus.bow, dtype=np.dtype(cfg.storage.dtype),
-                      block=cfg.storage.block)
+        layout = _pack_layout(cfg, corpus.cls, corpus.bow)
         return cls._assemble(cfg, corpus, index, layout,
                              cost_model=cost_model, compute=compute)
 
@@ -93,7 +115,6 @@ class Pipeline:
         did not pass (or an FDE table of another encoding family or dtype)
         is built from the layout."""
         dev = resolve_device(device)
-        _check_ported(cfg)
         return cls._assemble(cfg, corpus, index.to(dev), layout,
                              cost_model=cost_model, compute=compute,
                              bits=bits, fde=fde)
@@ -122,7 +143,8 @@ class Pipeline:
         tier = StorageTier(layout, stack=backend_cls.storage_stack,
                            t_max=cfg.storage.t_max, mem_budget_bytes=budget,
                            bits=bits, fde=fde,
-                           coalesce=cfg.storage.io_coalesce)
+                           coalesce=cfg.storage.io_coalesce,
+                           device=index.device)
         backend = backend_cls(index, tier, cfg.retrieval.to_espn_config(),
                               cost_model=cost_model, compute=compute)
         return cls(cfg, corpus=corpus, index=index, layout=layout, tier=tier,
@@ -167,10 +189,3 @@ class Pipeline:
     def __exit__(self, *exc):
         self.close()
 
-
-def _check_ported(cfg: PipelineConfig) -> None:
-    if cfg.storage.layout_mode != "ragged":
-        raise NotImplementedError(
-            f"layout_mode={cfg.storage.layout_mode!r} is not ported yet; "
-            "the port packs the paper's ragged layout only")
-    get_backend(cfg.retrieval.mode)

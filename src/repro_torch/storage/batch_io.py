@@ -3,11 +3,17 @@ query batch.
 
 ``BatchReadPlan`` takes the per-query candidate-id arrays for a whole batch,
 deduplicates doc ids across queries, and orders the union by start block.
-``StorageTier.read_batch`` executes the plan: runs are submitted to the
-tier's thread pool and gathered concurrently into one shared buffer arena
-while the caller reranks queries whose rows already arrived
-(``ensure_query`` is the synchronization point). Each query sees a
-zero-copy view: the arena arrays plus an id->row map.
+Each arena row (unique doc) gets a range of pool rows: its token rows,
+clipped at ``t_max``, laid end to end in arena order, so every run of
+arena rows is one contiguous range of pool rows.
+
+``StorageTier.read_batch`` executes the plan: runs are staged as raw
+stored-dtype rows into one host buffer on the tier's thread pool while the
+caller reranks queries whose rows already arrived. ``ensure_query`` is the
+synchronization point: it waits for a run's staging and then, on the
+caller's thread, issues that run's one host->device copy into the batch's
+``DeviceArena``. Each query sees the shared arena plus an id->row map; the
+rerank packs its tiles there with ``kernels/gather_pack``.
 
 The *clock* follows the same shape: the batch is billed ONE coalesced read
 of the unique blocks at the tier's queue depth, deduplicated bytes are
@@ -20,12 +26,39 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 
 import numpy as np
+import torch
 
 
 def _exclusive_cumsum(counts: np.ndarray) -> np.ndarray:
     out = np.zeros(len(counts), np.int64)
     np.cumsum(counts[:-1], out=out[1:])
     return out
+
+
+@dataclass
+class DeviceArena:
+    """A batch's token rows on the tier's device, shared by every query of
+    the batch: arena row ``u``'s token rows are
+    ``pool[first[u]:first[u] + lens[u]]``. ``first``, ``lens`` and
+    ``scales`` live beside ``pool``, so the rerank builds its row-index
+    tables on the device."""
+    pool: torch.Tensor              # (R, d_bow) stored dtype
+    first: torch.Tensor             # (U,) int64 first pool row of each row
+    lens: torch.Tensor              # (U,) int32 token counts, clipped at
+                                    # t_max
+    scales: torch.Tensor | None     # (U,) fp32 per-doc dequant scales
+    t_max: int
+
+
+def upload(arena: DeviceArena, staging: torch.Tensor, a: int,
+           b: int) -> None:
+    """Issue the host->device copy of staged pool rows ``[a, b)`` on the
+    caller's stream. A host arena's pool IS its staging buffer: nothing to
+    copy. A pinned buffer freed while its copy is in flight is not handed
+    out again before the copy ends (PyTorch's pinned-memory allocator
+    records the copy)."""
+    if arena.pool is not staging and b > a:
+        arena.pool[a:b].copy_(staging[a:b], non_blocking=True)
 
 
 def run_chunk(n_docs: int, chunk_docs: int | None = None) -> int:
@@ -44,6 +77,10 @@ class BatchReadPlan:
     lists: list[np.ndarray]            # per-query requested ids (as given)
     arena_ids: np.ndarray              # (U,) unique ids in arena (block) order
     arena_blocks: np.ndarray           # (U,) n_blocks per arena row
+    arena_lens: np.ndarray             # (U,) int32 tokens, clipped at t_max
+    arena_first: np.ndarray            # (U,) int64 first pool row (exclusive
+                                       # cumsum of arena_lens)
+    n_rows: int                        # pool rows of the whole arena
     runs: list[tuple[int, int]]        # [row0, row1) pipelined gather chunks
     query_rows: list[np.ndarray]       # per-query arena rows (list order)
     query_runs: list[np.ndarray]       # per-query run indices to wait on
@@ -55,13 +92,15 @@ class BatchReadPlan:
     _sorted_rows: np.ndarray = field(repr=False, default=None)
 
     @classmethod
-    def build(cls, layout, lists: list[np.ndarray], *,
+    def build(cls, layout, lists: list[np.ndarray], *, t_max: int,
               chunk_docs: int | None = None) -> "BatchReadPlan":
         lists = [np.asarray(x, np.int64).ravel() for x in lists]
         n_req = int(sum(len(x) for x in lists))
         if n_req == 0:
             return cls(lists=lists, arena_ids=np.empty(0, np.int64),
-                       arena_blocks=np.empty(0, np.int64), runs=[],
+                       arena_blocks=np.empty(0, np.int64),
+                       arena_lens=np.empty(0, np.int32),
+                       arena_first=np.empty(0, np.int64), n_rows=0, runs=[],
                        query_rows=[np.empty(0, np.int64) for _ in lists],
                        query_runs=[np.empty(0, np.int64) for _ in lists],
                        owned_blocks=np.zeros(len(lists), np.int64),
@@ -77,6 +116,9 @@ class BatchReadPlan:
         order = np.argsort(offs[:, 0], kind="stable")
         arena_ids = uids[order]
         arena_blocks = offs[order, 1]
+        arena_lens = np.minimum(layout.n_tokens[arena_ids],
+                                t_max).astype(np.int32)
+        arena_first = _exclusive_cumsum(arena_lens.astype(np.int64))
         # sorted-unique position -> arena row (uids ascending already)
         sorted_rows = np.empty(u, np.int64)
         sorted_rows[order] = np.arange(u)
@@ -99,11 +141,19 @@ class BatchReadPlan:
         owned = np.zeros(len(lists), np.int64)
         np.add.at(owned, owner, offs[:, 1])
         return cls(lists=lists, arena_ids=arena_ids,
-                   arena_blocks=arena_blocks, runs=runs,
+                   arena_blocks=arena_blocks, arena_lens=arena_lens,
+                   arena_first=arena_first,
+                   n_rows=int(arena_lens.sum(dtype=np.int64)), runs=runs,
                    query_rows=query_rows, query_runs=query_runs,
                    owned_blocks=owned, n_unique=u, n_requested=n_req,
                    n_blocks=int(arena_blocks.sum()),
                    _sorted_ids=uids, _sorted_rows=sorted_rows)
+
+    def pool_range(self, r0: int, r1: int) -> tuple[int, int]:
+        """The pool rows ``[a, b)`` that arena rows ``r0..r1`` occupy."""
+        end = (int(self.arena_first[r1]) if r1 < len(self.arena_first)
+               else self.n_rows)
+        return (int(self.arena_first[r0]) if r0 < r1 else end), end
 
     def contains(self, ids) -> np.ndarray:
         """Boolean mask: which of ``ids`` live in the arena."""
@@ -121,22 +171,26 @@ class BatchReadPlan:
 class BatchReadResult:
     """Executed (or executing) batch read: shared arena + per-query views.
 
-    ``coalesced=True``: one dedup'd read, runs possibly still in flight —
+    ``coalesced=True``: one dedup'd read, runs possibly still staging —
     call ``ensure_query(b)`` before touching query ``b``'s rows.
     ``coalesced=False``: the serial path — B blocking per-query
-    ``tier.read`` calls, each billed separately.
+    ``tier.read`` calls, each billed separately, each with its own arena.
     """
 
     def __init__(self, *, coalesced: bool, plan: BatchReadPlan | None,
                  sim_seconds: float, n_blocks: int,
-                 arena: tuple | None = None, futures: list | None = None,
+                 arena: DeviceArena | None = None,
+                 staging: torch.Tensor | None = None,
+                 futures: list | None = None,
                  serial_reads: list | None = None):
         self.coalesced = coalesced
         self.plan = plan
         self.sim_seconds = sim_seconds
         self.n_blocks = n_blocks
-        self.arena = arena                      # (cls, bow, lens) shared
+        self.arena = arena                      # shared DeviceArena
+        self._staging = staging                 # host rows behind the arena
         self._futures = futures or []
+        self._landed = [False] * len(self._futures)
         self._serial_reads = serial_reads       # list[ReadResult | None]
 
     # -- fault surface (the fault layer is not ported: no read fails) --------
@@ -147,12 +201,22 @@ class BatchReadResult:
         return False
 
     # -- synchronization -----------------------------------------------------
+    def _land(self, ri: int) -> None:
+        """Wait for run ``ri``'s staging, then issue its one host->device
+        copy (on the caller's thread: the staging threads touch no CUDA)."""
+        if self._landed[ri]:
+            return
+        self._futures[ri].result()
+        upload(self.arena, self._staging,
+               *self.plan.pool_range(*self.plan.runs[ri]))
+        self._landed[ri] = True
+
     def ensure_query(self, b: int) -> None:
         """Block until every run holding query ``b``'s rows has landed."""
         if not self.coalesced:
             return
         for ri in self.plan.query_runs[b]:
-            self._futures[int(ri)].result()
+            self._land(int(ri))
 
     def ensure_rows(self, rows) -> None:
         """Block until the runs covering arbitrary arena ``rows`` have
@@ -164,14 +228,14 @@ class BatchReadResult:
         run_starts = np.array([r0 for r0, _ in self.plan.runs], np.int64)
         for ri in np.unique(np.searchsorted(run_starts, rows,
                                             side="right") - 1):
-            self._futures[int(ri)].result()
+            self._land(int(ri))
 
     # -- per-query views -----------------------------------------------------
-    def view(self, b: int) -> tuple[tuple | None, dict, float]:
-        """(buffers, id->row map, attributed io seconds) for query ``b``.
+    def view(self, b: int) -> tuple[DeviceArena | None, dict, float]:
+        """(arena, id->row map, attributed io seconds) for query ``b``.
 
-        ``buffers`` are the SHARED arena arrays (zero-copy). Serial mode
-        hands back that query's own read buffers with a positional map.
+        The arena is the batch's SHARED one. Serial mode hands back that
+        query's own read arena with a positional map.
         """
         if self.coalesced:
             rows = self.plan.query_rows[b]
@@ -183,7 +247,7 @@ class BatchReadResult:
         if read is None:
             return None, {}, 0.0
         ids = self.plan.lists[b]
-        return ((read.cls, read.bow, read.lens),
+        return (read.arena,
                 {int(i): j for j, i in enumerate(ids)},
                 read.sim_seconds)
 
@@ -214,7 +278,8 @@ def serial_batch(read_fn, lists: list[np.ndarray],
              for ids in lists]
     plan = BatchReadPlan(
         lists=lists, arena_ids=np.empty(0, np.int64),
-        arena_blocks=np.empty(0, np.int64), runs=[],
+        arena_blocks=np.empty(0, np.int64), arena_lens=np.empty(0, np.int32),
+        arena_first=np.empty(0, np.int64), n_rows=0, runs=[],
         query_rows=[np.empty(0, np.int64) for _ in lists],
         query_runs=[np.empty(0, np.int64) for _ in lists],
         owned_blocks=np.zeros(len(lists), np.int64), n_unique=0,

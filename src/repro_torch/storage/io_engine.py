@@ -3,10 +3,12 @@ stack. The GDS-analogue path ("espn") issues batched block reads at high
 queue depth; "mmap"/"swap" model the conventional O/S paths the paper
 compares against; "dram" is the all-in-memory upper bound.
 
-Data movement is real (numpy gather from the disk-image blob, thread-pool
-async); the *clock* is the model in storage/ssd.py. Every read returns its
-simulated duration so the pipeline can account overlap exactly like the
-paper's prefetch-budget math.
+Data movement is real: the tier's threads stage the stored token rows of
+each run from the disk-image blob into one host buffer per read (pinned
+when the tier's device is CUDA), and the caller's thread copies each run to
+the device once (``BatchReadResult.ensure_query``); the *clock* is the
+model in storage/ssd.py. Every read returns its simulated duration so the
+pipeline can account overlap exactly like the paper's prefetch-budget math.
 """
 from __future__ import annotations
 
@@ -15,23 +17,22 @@ from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 from repro_torch.core.fde import FDETable
 from repro_torch.storage import ssd as ssd_lib
 from repro_torch.storage.batch_io import (BatchReadPlan, BatchReadResult,
-                                          _exclusive_cumsum, serial_batch)
+                                          DeviceArena, _exclusive_cumsum,
+                                          serial_batch, upload)
 from repro_torch.storage.cache import PageCache
-from repro_torch.storage.layout import (BitTable, EmbeddingLayout,
-                                        gather_docs, gather_docs_into)
+from repro_torch.storage.layout import BitTable, EmbeddingLayout, stage_rows
 
 STACKS = ("espn", "mmap", "swap", "dram")
 
 
 @dataclass
 class ReadResult:
-    cls: np.ndarray           # (n, d_cls) fp32
-    bow: np.ndarray           # (n, t_max, d_bow) fp32 padded
-    lens: np.ndarray          # (n,) int32
+    arena: DeviceArena        # the read's token rows, row j = ids[j]
     sim_seconds: float        # modeled device+software time
     n_blocks: int
 
@@ -43,7 +44,8 @@ class StorageTier:
                  t_max: int = 180, qd: int = 64, include_h2d: bool = True,
                  n_io_threads: int = 4, bits: BitTable | None = None,
                  fde: FDETable | None = None, coalesce: bool = True,
-                 io_chunk_docs: int | None = None):
+                 io_chunk_docs: int | None = None,
+                 device: str | torch.device = "cuda"):
         if stack not in STACKS:
             raise ValueError(f"unknown storage stack {stack!r}; "
                              f"expected one of {STACKS}")
@@ -58,6 +60,7 @@ class StorageTier:
         self.include_h2d = include_h2d
         self.coalesce = coalesce      # read_batch default: coalesced vs serial
         self.io_chunk_docs = io_chunk_docs   # pipelining granularity (docs/run)
+        self.device = torch.device(device)   # where read arenas live
         self._pool = ThreadPoolExecutor(max_workers=n_io_threads,
                                         thread_name_prefix="espn-io")
         self._lock = threading.Lock()
@@ -103,18 +106,46 @@ class StorageTier:
         return t, n_blocks
 
     # -- reads ---------------------------------------------------------------
+    def _arena(self, ids: np.ndarray, lens: np.ndarray, t_max: int):
+        """The arena of a read of ``ids`` (``lens`` token rows each) on the
+        tier's device, and the host buffer its rows are staged in (pinned on
+        CUDA; on the CPU the two are one tensor). Called on the caller's
+        thread."""
+        dtype = torch.from_numpy(np.empty(0, self.layout.dtype)).dtype
+        on_card = self.device.type == "cuda"
+        staging = torch.empty((int(lens.sum(dtype=np.int64)),
+                               self.layout.d_bow), dtype=dtype,
+                              pin_memory=on_card)
+        pool = (torch.empty_like(staging, device=self.device) if on_card
+                else staging)
+        scales = self.layout.scales
+        arena = DeviceArena(
+            pool=pool, first=torch.as_tensor(
+                _exclusive_cumsum(lens.astype(np.int64)), device=self.device),
+            lens=torch.as_tensor(lens, device=self.device),
+            scales=(torch.as_tensor(np.asarray(scales[ids], np.float32),
+                                    device=self.device)
+                    if scales is not None else None),
+            t_max=t_max)
+        return arena, staging
+
     def read(self, ids, t_max: int | None = None) -> ReadResult:
+        """One blocking read of ``ids``: staged on the caller's thread and
+        copied to the tier's device."""
         ids = np.asarray(ids, np.int64)
         t_max = t_max or self.t_max
         sim, n_blocks = self._sim_time(ids)
-        cls, bow, lens = gather_docs(self.layout, ids, t_max)
+        lens = np.minimum(self.layout.n_tokens[ids], t_max).astype(np.int32)
+        arena, staging = self._arena(ids, lens, t_max)
+        stage_rows(self.layout, ids, t_max, staging.numpy())
+        upload(arena, staging, 0, len(staging))
         with self._lock:
             self.stats["reads"] += 1
             self.stats["docs"] += len(ids)
             self.stats["doc_requests"] += len(ids)
             self.stats["blocks"] += n_blocks
             self.stats["sim_seconds"] += sim
-        return ReadResult(cls, bow, lens, sim, n_blocks)
+        return ReadResult(arena, sim, n_blocks)
 
     def read_batch(self, per_query_ids, t_max: int | None = None, *,
                    coalesce: bool | None = None,
@@ -122,10 +153,11 @@ class StorageTier:
         """One storage transaction for a whole query batch.
 
         Coalesced (the default, ``self.coalesce``): doc ids are dedup'd
-        across queries, runs are gathered concurrently on the tier's thread
-        pool into a shared arena (call ``ensure_query(b)`` before consuming
-        query ``b``'s rows), and the clock bills ONE read of the unique
-        blocks at this tier's queue depth.
+        across queries, runs are staged concurrently on the tier's thread
+        pool into one host buffer (call ``ensure_query(b)`` before
+        consuming query ``b``'s rows: it also issues the runs' copies to
+        the device), and the clock bills ONE read of the unique blocks at
+        this tier's queue depth.
 
         ``coalesce=False``: one blocking ``read`` per query, duplicates
         billed per requesting query (``skip_empty`` skips zero-id queries).
@@ -136,20 +168,19 @@ class StorageTier:
         if not coalesce:
             return serial_batch(lambda ids: self.read(ids, t_max), lists,
                                 skip_empty)
-        plan = BatchReadPlan.build(self.layout, lists,
+        plan = BatchReadPlan.build(self.layout, lists, t_max=t_max,
                                    chunk_docs=self.io_chunk_docs)
         u = plan.n_unique
-        arena = (np.zeros((u, self.layout.d_cls), np.float32),
-                 np.zeros((u, t_max, self.layout.d_bow), np.float32),
-                 np.zeros(u, np.int32))
+        arena, staging = self._arena(plan.arena_ids, plan.arena_lens, t_max)
         if u == 0:
             return BatchReadResult(coalesced=True, plan=plan,
-                                   sim_seconds=0.0, n_blocks=0, arena=arena)
+                                   sim_seconds=0.0, n_blocks=0, arena=arena,
+                                   staging=staging)
         sim, n_blocks = self._sim_time(plan.arena_ids)
+        rows = staging.numpy()
         futures = [self._pool.submit(
-            gather_docs_into, self.layout, plan.arena_ids[r0:r1],
-            arena[0][r0:r1], arena[1][r0:r1], arena[2][r0:r1])
-            for r0, r1 in plan.runs]
+            stage_rows, self.layout, plan.arena_ids[r0:r1], t_max,
+            rows[slice(*plan.pool_range(r0, r1))]) for r0, r1 in plan.runs]
         with self._lock:
             self.stats["reads"] += 1
             self.stats["batch_reads"] += 1
@@ -161,7 +192,7 @@ class StorageTier:
             self.stats["sim_seconds"] += sim
         return BatchReadResult(coalesced=True, plan=plan, sim_seconds=sim,
                                n_blocks=n_blocks, arena=arena,
-                               futures=futures)
+                               staging=staging, futures=futures)
 
     def read_bits(self, ids, t_max: int | None = None):
         """Gather packed sign bits for ``ids`` from the *resident* bit tier:

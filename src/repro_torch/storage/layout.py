@@ -4,11 +4,23 @@ The CLS vector and the BOW token matrix of a document are packed together
 and aligned so a typical compressed document costs ONE I/O block instead of
 two. The "disk image" is a single uint8 numpy array on the host; an offsets
 table (kept in host memory, as in the paper) maps doc id ->
-(start_block, n_blocks, n_tokens). Gathers stay host numpy and yield fp32
-buffers; the rerank moves them to the device.
+(start_block, n_blocks, n_tokens).
 
-Only the paper's ``ragged`` layout is ported (per-doc ``n_tokens``, variable
-``n_blocks``, offsets stored in host memory).
+Two layout **modes** share the accessor API:
+
+- ``ragged`` (the paper's layout): per-doc ``n_tokens``, variable
+  ``n_blocks``, offsets stored in host memory.
+- ``fixed_stride`` (constant-space, MacAvaney et al. 2025): every doc holds
+  exactly ``pool_k`` pooled tokens (``repro_torch.core.pool``), so every
+  record spans the same ``stride_blocks`` blocks and the offsets and token
+  counts are arithmetic, not stored: ``meta_nbytes`` is zero. In-process
+  they are materialized once in ``__post_init__``, so every consumer of
+  ``layout.offsets`` works on both modes unchanged.
+
+Reads never unpack a doc at a time: ``stage_rows`` copies the stored token
+rows of a run of docs into a caller-owned buffer of stored-dtype rows with
+one fancy index, and the rerank packs and widens them on the device
+(``kernels/gather_pack``).
 
 ``BitTable`` is the second, *resident* tier (Nardini et al. 2024): every
 document token sign-binarized and bit-packed, ~1/16th of the fp16 BOW bytes,
@@ -28,19 +40,45 @@ from repro_torch.storage.ssd import DEFAULT_BLOCK
 #: docs decoded per chunk when a resident table is built from the blob
 #: (~3.8M tokens at the synthetic corpus's mean length)
 CHUNK_DOCS = 65_536
+LAYOUT_MODES = ("ragged", "fixed_stride")
 
 
 @dataclass
 class EmbeddingLayout:
     blob: np.ndarray              # uint8 disk image (block-aligned)
-    offsets: np.ndarray           # (N, 2) int64: start_block, n_blocks
-    n_tokens: np.ndarray          # (N,) int32
+    offsets: np.ndarray | None    # (N, 2) int64: start_block, n_blocks
+    n_tokens: np.ndarray | None   # (N,) int32
     d_cls: int
     d_bow: int
     dtype: np.dtype               # stored element dtype (e.g. float16/int8)
     scales: np.ndarray | None     # (N,) fp32 dequant scales (a carried-over
                                   # int8 layout; pack() stores none)
     block: int = DEFAULT_BLOCK
+    mode: str = "ragged"          # "ragged" | "fixed_stride"
+    stride_blocks: int = 0        # fixed mode: blocks per doc (uniform)
+    pool_k: int = 0               # fixed mode: tokens per doc (uniform)
+
+    def __post_init__(self):
+        if self.mode not in LAYOUT_MODES:
+            raise ValueError(f"unknown layout mode {self.mode!r}; "
+                             f"expected one of {LAYOUT_MODES}")
+        if self.mode == "fixed_stride":
+            if self.stride_blocks <= 0 or self.pool_k <= 0:
+                raise ValueError("fixed_stride layout requires positive "
+                                 "stride_blocks and pool_k")
+            n = self.blob.nbytes // (self.stride_blocks * self.block)
+            # pure arithmetic in fixed mode: materialized here, never
+            # stored or billed (meta_nbytes stays 0)
+            if self.offsets is None:
+                starts = np.arange(n, dtype=np.int64) * self.stride_blocks
+                self.offsets = np.stack(
+                    [starts, np.full(n, self.stride_blocks, np.int64)],
+                    axis=1)
+            if self.n_tokens is None:
+                self.n_tokens = np.full(n, self.pool_k, np.int32)
+        elif self.offsets is None or self.n_tokens is None:
+            raise ValueError("ragged layout requires stored offsets "
+                             "and n_tokens")
 
     @property
     def n_docs(self) -> int:
@@ -53,7 +91,9 @@ class EmbeddingLayout:
     @property
     def meta_nbytes(self) -> int:
         """Host-resident metadata bytes (the offsets table and token
-        counts)."""
+        counts). Zero in fixed-stride mode: both are computable."""
+        if self.mode == "fixed_stride":
+            return 0
         return self.offsets.nbytes + self.n_tokens.nbytes
 
     def doc_bytes(self, i: int) -> int:
@@ -63,18 +103,23 @@ class EmbeddingLayout:
     def blocks_for(self, ids) -> int:
         """Total blocks touched by a set of doc ids (the IO bill)."""
         ids = np.asarray(ids, np.int64)
+        if self.mode == "fixed_stride":
+            return len(ids) * self.stride_blocks
         return int(self.offsets[ids, 1].sum())
 
 
 def pack(cls_embs: np.ndarray, bow_embs: list[np.ndarray], *,
-         dtype=np.float16, block: int = DEFAULT_BLOCK,
-         d_bow: int | None = None) -> EmbeddingLayout:
+         dtype=np.float16, block: int = DEFAULT_BLOCK, mode: str = "ragged",
+         pool_k: int = 0, d_bow: int | None = None) -> EmbeddingLayout:
     """Build the block-aligned disk image.
 
     cls_embs: (N, d_cls) fp32; bow_embs: list of (t_i, d_bow) fp32 arrays,
-    stored as ``dtype`` (fp16 default). An empty corpus packs to a valid
-    empty layout (``d_bow`` may be passed explicitly when it cannot be
-    inferred from a zero-doc ``bow_embs``).
+    stored as ``dtype`` (fp16 default). ``mode="fixed_stride"`` requires
+    every doc to hold exactly ``pool_k`` tokens (pool first:
+    ``repro_torch.core.pool``); the layout then stores no per-doc offset or
+    token tables. An empty corpus packs to a valid empty layout (``d_bow``
+    may be passed explicitly when it cannot be inferred from a zero-doc
+    ``bow_embs``).
     """
     n = len(bow_embs)
     cls_embs = np.asarray(cls_embs)
@@ -83,16 +128,28 @@ def pack(cls_embs: np.ndarray, bow_embs: list[np.ndarray], *,
         d_bow = bow_embs[0].shape[1]
     elif d_bow is None:
         d_bow = 0
+    elt = np.dtype(dtype).itemsize
     n_tokens = np.array([b.shape[0] for b in bow_embs], np.int32)
-    sizes = (d_cls + n_tokens.astype(np.int64) * d_bow) \
-        * np.dtype(dtype).itemsize
-    n_blocks = (sizes + block - 1) // block
+    if mode == "fixed_stride":
+        if pool_k <= 0:
+            raise ValueError("fixed_stride pack requires pool_k > 0")
+        if n and not (n_tokens == pool_k).all():
+            raise ValueError("fixed_stride pack requires every doc to hold "
+                             f"exactly pool_k={pool_k} tokens; "
+                             "pool the corpus first (repro_torch.core.pool)")
+        stride = (d_cls + pool_k * d_bow) * elt
+        stride_blocks = max(1, -(-stride // block))
+        n_blocks = np.full(n, stride_blocks, np.int64)
+    else:
+        sizes = (d_cls + n_tokens.astype(np.int64) * d_bow) * elt
+        n_blocks = (sizes + block - 1) // block
     starts = np.zeros(n, np.int64)
     np.cumsum(n_blocks[:-1], out=starts[1:])
     blob = np.zeros(int(n_blocks.sum()) * block, np.uint8)
     if n and (n_tokens == n_tokens[0]).all():
-        # uniform token count: one bulk write — bit-identical to the per-doc
-        # loop, which writes the same record bytes at the same block starts
+        # uniform token count (always so in fixed mode): one bulk write —
+        # bit-identical to the per-doc loop, which writes the same record
+        # bytes at the same block starts
         recs = np.concatenate(
             [cls_embs, np.stack(bow_embs).reshape(n, -1)], axis=1)
         raw = np.ascontiguousarray(recs.astype(dtype)).view(np.uint8)
@@ -104,6 +161,13 @@ def pack(cls_embs: np.ndarray, bow_embs: list[np.ndarray], *,
             raw = rec.astype(dtype).view(np.uint8)
             s = starts[i] * block
             blob[s:s + raw.nbytes] = raw
+    if mode == "fixed_stride":
+        return EmbeddingLayout(blob=blob, offsets=None, n_tokens=None,
+                               d_cls=d_cls, d_bow=d_bow,
+                               dtype=np.dtype(dtype), scales=None,
+                               block=block, mode=mode,
+                               stride_blocks=int(stride_blocks),
+                               pool_k=pool_k)
     offsets = np.zeros((n, 2), np.int64)
     offsets[:, 0] = starts
     offsets[:, 1] = n_blocks
@@ -112,71 +176,22 @@ def pack(cls_embs: np.ndarray, bow_embs: list[np.ndarray], *,
                            scales=None, block=block)
 
 
-def unpack_doc(layout: EmbeddingLayout, i: int):
-    """Read one doc back: returns (cls (d_cls,), bow (t_i, d_bow)) fp32."""
-    start = layout.offsets[i, 0]
-    t = int(layout.n_tokens[i])
-    elt = layout.dtype.itemsize
-    raw = layout.blob[start * layout.block:
-                      start * layout.block + (layout.d_cls + t * layout.d_bow) * elt]
-    vals = raw.view(layout.dtype).astype(np.float32)
-    if layout.scales is not None:
-        vals = vals * layout.scales[i]
-    return vals[:layout.d_cls], vals[layout.d_cls:].reshape(t, layout.d_bow)
+def _token_rows(layout: EmbeddingLayout, ids: np.ndarray,
+                counts: np.ndarray) -> np.ndarray:
+    """The first ``counts[j]`` stored BOW token rows of each doc
+    ``ids[j]``, concatenated in ``ids`` order: (sum(counts), d_bow) in the
+    layout's dtype, scales not applied.
 
-
-def gather_docs_at(layout: EmbeddingLayout, ids, rows, out_cls: np.ndarray,
-                   out_bow: np.ndarray, out_lens: np.ndarray) -> None:
-    """Gather ``ids`` into arbitrary (non-contiguous) buffer rows."""
-    ids = np.asarray(ids, np.int64)
-    rows = np.asarray(rows, np.int64)
-    t_max = out_bow.shape[1]
-    for i, row in zip(ids, rows):
-        c, b = unpack_doc(layout, int(i))
-        t = min(b.shape[0], t_max)
-        out_bow[row, :t] = b[:t]
-        out_cls[row] = c
-        out_lens[row] = t
-
-
-def gather_docs_into(layout: EmbeddingLayout, ids, out_cls: np.ndarray,
-                     out_bow: np.ndarray, out_lens: np.ndarray) -> None:
-    """Gather ``ids`` into caller-owned buffer slices (rows ``0..len(ids)``).
-
-    The batch I/O engine preallocates one shared arena for a whole query
-    batch and hands each run a disjoint slice, so runs can gather
-    concurrently on the tier's thread pool with no further copies.
-    """
-    ids = np.asarray(ids, np.int64)
-    gather_docs_at(layout, ids, np.arange(len(ids)), out_cls, out_bow,
-                   out_lens)
-
-
-def gather_docs(layout: EmbeddingLayout, ids, t_max: int):
-    """Host-side ragged gather -> padded (len(ids), t_max, d_bow) + lengths."""
-    ids = np.asarray(ids, np.int64)
-    out = np.zeros((len(ids), t_max, layout.d_bow), np.float32)
-    cls = np.zeros((len(ids), layout.d_cls), np.float32)
-    lens = np.zeros(len(ids), np.int32)
-    gather_docs_into(layout, ids, cls, out, lens)
-    return cls, out, lens
-
-
-def bow_rows(layout: EmbeddingLayout, d0: int, d1: int) -> np.ndarray:
-    """The stored BOW token rows of docs ``d0..d1``, concatenated in doc
-    order: (tokens, d_bow) in the layout's dtype, scales not applied.
-
-    Every token row is one contiguous byte range of the blob, so the chunk
-    is one fancy-index over a strided (byte offset, row) view of the blob:
-    the same bytes the reference's per-byte gather picks, at an index of
-    one int64 per token instead of one per byte."""
+    Every token row is one contiguous byte range of the blob, so this is
+    one fancy-index over a strided (byte offset, row) view of the blob, at
+    one int64 per token."""
     elt = layout.dtype.itemsize
     row = layout.d_bow * elt
-    nt = layout.n_tokens[d0:d1].astype(np.int64)
+    nt = counts.astype(np.int64)
     tot = int(nt.sum())
     if tot == 0 or row == 0:
         return np.zeros((tot, layout.d_bow), layout.dtype)
-    starts = layout.offsets[d0:d1, 0] * layout.block + layout.d_cls * elt
+    starts = layout.offsets[ids, 0] * layout.block + layout.d_cls * elt
     first = np.zeros(len(nt), np.int64)            # first token of each doc
     np.cumsum(nt[:-1], out=first[1:])
     src = (np.repeat(starts - first * row, nt)
@@ -186,6 +201,27 @@ def bow_rows(layout: EmbeddingLayout, d0: int, d1: int) -> np.ndarray:
         blob, shape=(blob.size - row + 1, row), strides=(1, 1),
         writeable=False)
     return rows[src].view(layout.dtype)
+
+
+def stage_rows(layout: EmbeddingLayout, ids, t_max: int,
+               out: np.ndarray) -> None:
+    """Stage a run of docs for the device: copy the stored BOW token rows
+    of ``ids``, each doc clipped at ``t_max`` tokens, concatenated in
+    ``ids`` order, into the caller-owned ``out`` ((sum of the clipped
+    counts, d_bow) in the layout's dtype). Raw stored values: no widening,
+    no scales, no padding (the rerank packs, widens and scales on the
+    device). Serves both layout modes."""
+    ids = np.asarray(ids, np.int64)
+    out[...] = _token_rows(layout, ids,
+                           np.minimum(layout.n_tokens[ids], t_max))
+
+
+def bow_rows(layout: EmbeddingLayout, d0: int, d1: int) -> np.ndarray:
+    """The stored BOW token rows of docs ``d0..d1``, concatenated in doc
+    order: (tokens, d_bow) in the layout's dtype, scales not applied (the
+    same bytes the reference's per-byte gather picks)."""
+    return _token_rows(layout, np.arange(d0, d1, dtype=np.int64),
+                       layout.n_tokens[d0:d1])
 
 
 def token_scales(layout: EmbeddingLayout, d0: int, d1: int):

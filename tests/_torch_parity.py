@@ -44,10 +44,14 @@ def index_arrays(index):
 
 
 def layout_arrays(layout):
+    """The fields of the reference's ``layout.npz`` (a fixed_stride
+    layout's offsets and token counts ride along; the port recomputes
+    them)."""
     return dict(blob=layout.blob, offsets=layout.offsets,
                 n_tokens=layout.n_tokens, d_cls=layout.d_cls,
                 d_bow=layout.d_bow, dtype=str(layout.dtype),
-                scales=layout.scales, block=layout.block)
+                scales=layout.scales, block=layout.block, mode=layout.mode,
+                stride_blocks=layout.stride_blocks, pool_k=layout.pool_k)
 
 
 def bits_arrays(bits):

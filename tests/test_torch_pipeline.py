@@ -64,10 +64,12 @@ def test_build_without_device_needs_cuda():
 
 
 def test_unported_layout_mode_raises():
+    """Both of the reference's layout modes are ported; a mode that is
+    neither raises before anything is packed."""
     cfg = PipelineConfig()
     cfg.corpus.n_docs = 50
-    cfg.storage.layout_mode = "fixed_stride"
-    with pytest.raises(NotImplementedError):
+    cfg.storage.layout_mode = "columnar"
+    with pytest.raises(ValueError, match="unknown layout_mode"):
         Pipeline.build(cfg, device="cpu")
 
 
