@@ -6,9 +6,9 @@
 Phases, each of which must pass:
 
 1. card: the ``nvidia-smi`` name and power limit; no CUDA device -> exit 2;
-2. build: the five CUDA kernels from the checkout's sources, in parallel;
+2. build: the six CUDA kernels from the checkout's sources, in parallel;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the query path's shapes and at ragged edges, with its time (CUDA events,
+   the paths' shapes and at ragged edges, with its time (CUDA events,
    median of 50 after warm-up), the plain version's time, a one-call PyTorch
    yardstick where there is one, and the least time the card could take;
 4. main path: ``Pipeline.build`` at the ColBERTer widths on a 1M-doc corpus,
@@ -24,7 +24,14 @@ Phases, each of which must pass:
 5. agreement: on a small corpus, at the main path's retrieval settings,
    the card path ranks, scores and bills as the CPU path does in every
    mode (``fde`` in both branches, ``cspn`` on a pooled fixed layout), and
-   the card builds the FDE table the CPU builds.
+   the card builds the FDE table the CPU builds;
+6. decode path: SmolLM-135M at full width and depth (random weights from a
+   numpy seed), 8 requests of 4,096 tokens prefilled, then 32 greedy
+   decode steps over the KV cache, every step's attention on the
+   ``flash_decode`` kernel (30 launches a step, 960 in all, or the run
+   fails); prefill and step wall, the step's split, tokens/s, peak memory;
+7. decode agreement: the same model in fp32 at 2 layers, its logits and
+   greedy tokens on the card against the CPU path.
 
 It then prints the card line, the ``{"kernels": [...]}`` line and, last,
 the ``{"ok": ...}`` line. Any failed phase exits non-zero without them.
@@ -64,6 +71,9 @@ KERNELS = {
     "gather_pack": {
         "source": "src/repro_torch/kernels/gather_pack/csrc/gather_pack.cu",
         "replaces": "src/repro/kernels/gather_pack/gather_pack.py:38"},
+    "flash_decode": {
+        "source": "src/repro_torch/kernels/flash_decode/csrc/flash_decode.cu",
+        "replaces": "src/repro/kernels/flash_decode/flash_decode.py:62"},
 }
 REL_TOL = 1e-5      # fp32 FMA sums taken in another order than the plain
                     # version's cuBLAS product: |err| <= 1e-5 * max(1, |ref|)
@@ -120,18 +130,24 @@ def check_maxsim(dev, rng, failures) -> dict:
     from repro_torch.kernels.maxsim.ops import maxsim
     from repro_torch.kernels.maxsim.ref import maxsim_ref
     T, D = 180, 32
-    cases = [  # name, K, Lq, lens, fp16 docs, query mask
-        ("slice K=1000 Lq=24", 1000, 24,
-         np.clip((rng.pareto(2.5, 1000) + 1) * 36, 8, T), False, False),
+    slice_lens = np.clip((rng.pareto(2.5, 1000) + 1) * 36, 8, T)
+    cases = [  # name, K, Lq, lens, fp16 docs, query mask, timed
+        # the rerank's shape: the path feeds fp16 tiles (the row); the
+        # fp32 case is timed too, for comparison
+        ("slice K=1000 Lq=24 fp32 docs", 1000, 24, slice_lens, False, False,
+         True),
+        ("slice K=1000 Lq=24 fp16 docs", 1000, 24, slice_lens, True, False,
+         True),
         ("K=37 Lq=24 lens 0..T", 37, 24, np.r_[0, T, rng.integers(0, T + 1, 35)],
-         False, True),
-        ("K=1000 Lq=1", 1000, 1, rng.integers(0, T + 1, 1000), False, False),
+         False, True, False),
+        ("K=1000 Lq=1", 1000, 1, rng.integers(0, T + 1, 1000), False, False,
+         False),
         ("K=1000 Lq=24 fp16 docs", 1000, 24, rng.integers(0, T + 1, 1000),
-         True, True),
+         True, True, False),
     ]
     row = None
     worst = 0.0
-    for name, K, lq, lens, fp16, masked in cases:
+    for name, K, lq, lens, fp16, masked, timed in cases:
         q = torch.tensor(unit(rng.standard_normal((lq, D))), device=dev)
         qm = torch.tensor((rng.random(lq) > 0.2) if masked else np.ones(lq),
                           dtype=torch.float32, device=dev)
@@ -154,18 +170,21 @@ def check_maxsim(dev, rng, failures) -> dict:
             f"-> {'ok' if ok else 'FAIL'}")
         if not ok:
             failures.append(f"maxsim {name}")
-        if row is None:                       # the slice's own shape
+        if timed:                             # the slice's own shape
             n_tok = float(lens_t.clamp(0, T).sum())
             ms = time_ms(lambda: maxsim(q, qm, docs, lens_t))
             plain = time_ms(lambda: maxsim_ref(q, qm, docs, lens_t))
-            n_bytes = 4 * (lq * D + lq + 2 * K) + 4 * D * n_tok
+            n_bytes = (4 * (lq * D + lq + 2 * K)
+                       + docs.element_size() * D * n_tok)
             n_ops = 2 * lq * D * n_tok + lq * n_tok + 2 * K * lq
             b_ms, by = bound_ms(n_bytes, n_ops)
-            row = {"ms": ms, "plain_ms": plain, "bound_ms": b_ms,
-                   "bound_by": by, "library_ms": None}
+            if fp16:
+                row = {"ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+                       "bound_by": by, "library_ms": None}
             log(f"  maxsim timing (K={K}, T={T}, D={D}, Lq={lq}, "
-                f"{int(n_tok)} valid tokens): kernel {ms:.4f} ms, plain "
-                f"{plain:.4f} ms, bound {b_ms:.4f} ms ({by})")
+                f"{int(n_tok)} valid tokens, {'fp16' if fp16 else 'fp32'} "
+                f"docs{', the row' if fp16 else ''}): kernel {ms:.4f} ms, "
+                f"plain {plain:.4f} ms, bound {b_ms:.4f} ms ({by})")
     row["max_abs_err"] = worst
     return row
 
@@ -396,13 +415,97 @@ def check_gather_pack(dev, rng, failures) -> dict:
     return row
 
 
+def check_flash_decode(dev, rng, failures) -> dict:
+    """Every dtype, Dh and G the kernel takes, ragged lengths with 1, S and
+    0, S no multiple of the split; then the decode path's first step and
+    decode_32k's context, timed. fp32 within REL_TOL x max(1, |ref|);
+    bf16/fp16 within one ulp of the output dtype."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_decode.ops import flash_decode, split_slots
+    from repro_torch.kernels.flash_decode.ref import flash_decode_ref
+    ulp = {torch.float32: REL_TOL, torch.bfloat16: 2**-7,
+           torch.float16: 2**-10}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+
+    def inputs(b, s, kv, g, dh, dtype):
+        q, kc, vc = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                     for shape in ((b, kv, g, dh), (b, s, kv, dh),
+                                   (b, s, kv, dh)))
+        return q, kc, vc
+
+    cases = [(f"B=4 S=300 KV=3 G={g} Dh={dh} {str(dt).split('.')[-1]} "
+              f"lens 1,S,0,123", 4, 300, 3, g, dh, dt, [1, 300, 0, 123])
+             for dt in ulp for dh in (16, 32, 64, 128) for g in (1, 3, 8)]
+    cases += [  # the decode path's first step; decode_32k's context
+        ("path B=8 S=4128 KV=3 G=3 Dh=64 bf16 lens 4097", 8, 4128, 3, 3, 64,
+         torch.bfloat16, [4097] * 8),
+        ("decode_32k B=8 S=32768 KV=3 G=3 Dh=64 bf16 lens S", 8, 32_768, 3,
+         3, 64, torch.bfloat16, [32_768] * 8)]
+    row: dict = {}
+    worst = 0.0
+    for name, b, s, kv, g, dh, dtype, lens in cases:
+        q, kc, vc = inputs(b, s, kv, g, dh, dtype)
+        lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+        out = flash_decode(q, kc, vc, lens_t)
+        ref = flash_decode_ref(q, kc, vc, lens_t)
+        torch.cuda.synchronize()
+        err = float((out.float() - ref.float()).abs().max())
+        tol = ulp[dtype] * max(1.0, float(ref.float().abs().max()))
+        ok = err <= tol and out.shape == ref.shape and out.dtype == dtype
+        worst = max(worst, err)
+        split, n_splits = split_slots(s, b * kv, sms)
+        log(f"  flash_decode {name} ({n_splits} splits of {split}): "
+            f"max_abs_err={err:.3g} tol={tol:.3g} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"flash_decode {name}")
+        if not name.startswith(("path", "decode_32k")):
+            continue
+        ms = time_ms(lambda: flash_decode(q, kc, vc, lens_t))
+        plain = time_ms(lambda: flash_decode_ref(q, kc, vc, lens_t))
+        # one library call for the same function: SDPA over the same cache,
+        # its (B, KV, S, Dh) operands strided views of it (made inside the
+        # timed call, no copy), q as (B, H, 1, Dh), a (B, 1, 1, S) mask
+        mask = (torch.arange(s, device=dev)[None, :]
+                < lens_t[:, None])[:, None, None, :]
+        q4 = q.reshape(b, kv * g, 1, dh)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                q4, kc.transpose(1, 2), vc.transpose(1, 2), attn_mask=mask,
+                enable_gqa=True)
+        lib = time_ms(sdpa)
+        lib_err = float((sdpa().reshape(out.shape).float()
+                         - ref.float()).abs().max())
+        n = int(lens_t.clamp(0, s).sum())
+        elt = kc.element_size()
+        n_bytes = 2 * kv * n * dh * elt + 2 * b * kv * g * dh * elt + 4 * b
+        b_ms, by = bound_ms(n_bytes, 4 * kv * g * n * dh)
+        key = "" if name.startswith("path") else "_32k"
+        row.update({"ms" + key: ms, "plain_ms" + key: plain,
+                    "bound_ms" + key: b_ms, "bound_by" + key: by,
+                    "library_ms" + key: lib})
+        log(f"  flash_decode timing ({name}, {n_bytes / 1e6:.2f} MB of "
+            f"k/v read): kernel {ms:.4f} ms, plain {plain:.4f} ms, SDPA "
+            f"(enable_gqa, boolean mask, strided cache views) {lib:.4f} ms "
+            f"(its max_abs_err {lib_err:.3g}), bound {b_ms:.4f} ms ({by})")
+        del q, kc, vc, out, ref, mask, q4
+    torch.cuda.empty_cache()
+    row["max_abs_err"] = worst
+    return row
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
 
 class StageClock:
-    """Wall seconds spent in the query path's stages, read by wrapping the
-    functions the path calls: the port itself carries no instrumentation.
+    """Wall seconds spent in a path's stages (the query path's, the decode
+    step's), read by wrapping the functions the path calls: the port itself
+    carries no instrumentation.
     Each key also gets the calling thread's CPU seconds (``key + "_cpu"``):
     wall well above CPU means the thread waited, e.g. for the GIL."""
 
@@ -522,22 +625,27 @@ class StageClock:
 def counters():
     from repro_torch.kernels.bitsim.ops import bitsim
     from repro_torch.kernels.fdescan.ops import fdescan
+    from repro_torch.kernels.flash_decode.ops import flash_decode
     from repro_torch.kernels.gather_pack.ops import gather_pack
     from repro_torch.kernels.ivf_scan.ops import centroid_scores
     from repro_torch.kernels.maxsim.ops import maxsim
     return {"maxsim": maxsim, "ivf_scan": centroid_scores, "bitsim": bitsim,
-            "fdescan": fdescan, "gather_pack": gather_pack}
+            "fdescan": fdescan, "gather_pack": gather_pack,
+            "flash_decode": flash_decode}
 
 
-# the kernels each mode of the main path must launch: every rerank packs its
-# tiles with gather_pack, one launch before each maxsim launch
+# the kernels each path must launch: every retrieval mode's rerank packs its
+# tiles with gather_pack, one launch before each maxsim launch; the LM's
+# decode steps launch flash_decode once per layer
 IVF_RERANK = ("ivf_scan", "gather_pack", "maxsim")
 PATH_KERNELS = {"espn": IVF_RERANK, "gds": IVF_RERANK, "mmap": IVF_RERANK,
                 "swap": IVF_RERANK, "dram": IVF_RERANK,
                 "bitvec": ("ivf_scan", "bitsim", "gather_pack", "maxsim"),
                 "fde": ("fdescan", "gather_pack", "maxsim"),
                 "cascade": ("fdescan", "bitsim", "gather_pack", "maxsim"),
-                "cspn": IVF_RERANK}
+                "cspn": IVF_RERANK,
+                "decode": ("flash_decode",)}
+RETRIEVAL_MODES = [m for m in PATH_KERNELS if m != "decode"]
 
 
 def reset_counts():
@@ -797,7 +905,7 @@ def main_path(dev, failures, profile=False) -> dict:
         if profile:
             profile_batch(pipe, corpus, bs)
     base = out["espn"]["batch0"]
-    for mode in PATH_KERNELS:
+    for mode in RETRIEVAL_MODES:
         r = out[mode]
         log(f"  {mode}: MRR@10={r['mrr@10']:.4f} "
             f"Recall@100={r['recall@100']:.4f} (espn on the same 64 queries:"
@@ -950,11 +1058,184 @@ def agreement(dev, failures):
     check_fde_table(tables["fde"], ragged, dev, failures)
 
 
+# ---------------------------------------------------------------------------
+# phases 6-7: the LM serving path (prefill, then KV-cache decode)
+# ---------------------------------------------------------------------------
+
+LM = "smollm-135m"              # full width and depth
+DECODE_BATCH, PROMPT_LEN, DECODE_STEPS = 8, 4096, 32
+
+
+def numpy_params(cfg, rng) -> dict:
+    """The reference's init from a numpy generator, in its sorted name
+    order: LeCun-normal dense weights, N(0, 0.02) embedding, ones for the
+    norms, zeros for the biases; nested as the reference's params."""
+    from repro_torch.models.transformer import param_table
+    out: dict = {"layers": {}}
+    for name, (shape, kind) in sorted(param_table(cfg).items()):
+        if kind in ("ones", "zeros"):
+            a = np.full(shape, kind == "ones", np.float32)
+        else:
+            std = 0.02 if kind == "embed" else 1 / np.sqrt(shape[-2])
+            a = rng.standard_normal(shape, dtype=np.float32) * np.float32(std)
+        if name.startswith("layers/"):
+            out["layers"][name.split("/", 1)[1]] = a
+        else:
+            out[name] = a
+    return out
+
+
+def greedy(logits, vocab: int):
+    """The next tokens (B,): argmax over the true vocab."""
+    return logits[:, :vocab].float().argmax(dim=-1)
+
+
+def decode_path(dev, failures) -> dict:
+    """SmolLM-135M at full width and depth on the card (bf16 activations,
+    fp32 masters, weights from numpy seed 0): 8 requests of 4,096 random
+    token ids prefilled, then 32 greedy decode steps, as a server answering
+    8 requests would. The first half of the steps run as they are (their
+    wall is the step time); for the second half ``StageClock`` wraps the
+    flash_decode call with synchronisation, to split the step."""
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    cfg = get_config(LM)
+    b, steps = DECODE_BATCH, DECODE_STEPS
+    rng = np.random.default_rng(0)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = convert.transformer_params_from_numpy(numpy_params(cfg, rng), cfg,
+                                                  dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    prompts = torch.tensor(rng.integers(0, cfg.vocab_size, (b, PROMPT_LEN)),
+                           device=dev)
+    cache = transformer.init_cache(cfg, b, PROMPT_LEN + steps, dev)
+    torch.cuda.synchronize()
+    cache_bytes = sum(cache[k].numel() * cache[k].element_size()
+                      for k in ("k", "v"))
+    log(f"  {LM}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads / {cfg.n_kv_heads} KV heads of "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; "
+        f"{n_params:,} fp32 params on {dev}, {cache_bytes / 1e6:.0f} MB bf16 "
+        f"cache of {PROMPT_LEN + steps} slots; set up in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = transformer.prefill(cfg, model, prompts, cache)
+    tok = greedy(logits, cfg.vocab_size)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    finite = bool(torch.isfinite(logits).all())
+    clock = StageClock()
+    walls, kernel_s = [], []
+    for step in range(steps):
+        if step == steps // 2:
+            clock.wrap(transformer, "flash_decode", "flash_decode", sync=True)
+        clock.s.clear()
+        t0 = time.perf_counter()
+        pos = torch.full((b,), cache["length"], dtype=torch.int32, device=dev)
+        logits, cache = transformer.decode_step(cfg, model, tok[:, None], pos,
+                                                cache)
+        tok = greedy(logits, cfg.vocab_size)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        kernel_s.append(clock.s["flash_decode"])
+        finite &= bool(torch.isfinite(logits).all())
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    plain = np.array(walls[:steps // 2]) * 1e3
+    synced = np.array(walls[steps // 2:]) * 1e3
+    kern = np.array(kernel_s[steps // 2:]) * 1e3
+    want = cfg.n_layers * steps
+    out = {"prefill_s": prefill_s, "step_ms": plain.tolist(),
+           "tokens_per_s": b * len(plain) / (plain.sum() / 1e3),
+           "synced_step_ms": synced.tolist(),
+           "flash_decode_ms_per_step": kern.tolist(),
+           "peak_bytes": peak, "launches": launches,
+           "length": cache["length"]}
+    log(f"  prefill of {b} x {PROMPT_LEN} tokens: {prefill_s:.3f} s "
+        f"({b * PROMPT_LEN / prefill_s:,.0f} tokens/s)")
+    log(f"  decode steps 0-{steps // 2 - 1}: wall per step median "
+        f"{np.median(plain):.3f} ms (range {plain.min():.3f}-"
+        f"{plain.max():.3f}), {out['tokens_per_s']:,.1f} tokens/s at "
+        f"batch {b}")
+    log(f"  decode steps {steps // 2}-{steps - 1}, each flash_decode launch "
+        f"synchronised: wall median {np.median(synced):.3f} ms (range "
+        f"{synced.min():.3f}-{synced.max():.3f}), of it the "
+        f"{cfg.n_layers} flash_decode launches {np.median(kern):.3f} ms and "
+        f"the rest {np.median(synced - kern):.3f} ms")
+    log(f"  launches {json.dumps(launches)}; cache length "
+        f"{cache['length']}; logits {tuple(logits.shape)} "
+        f"{'finite' if finite else 'NOT finite'}; peak device memory "
+        f"{peak / 2**30:.2f} GiB")
+    if launches["flash_decode"] != want:
+        failures.append(f"decode: flash_decode launched "
+                        f"{launches['flash_decode']} times, not {want}")
+    if cache["length"] != PROMPT_LEN + steps:
+        failures.append(f"decode: cache length {cache['length']}")
+    if not finite or tuple(logits.shape) != (b, cfg.vocab_size):
+        failures.append("decode: logits not finite or misshapen")
+    return out
+
+
+def decode_agreement(dev, failures):
+    """The same model at full width, 2 layers, in fp32: 2 prompts of 64
+    tokens, then 8 greedy decode steps, on the card (flash_decode) and on
+    the CPU (its plain version) from the same numpy weights. Logits within
+    1e-4 x max(1, |ref|) (fp32 sums in other orders over 2 layers and a
+    576-wide product), greedy tokens equal."""
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    cfg = get_config(LM).scaled(n_layers=2, dtype=torch.float32)
+    b, prompt_len, steps, tol = 2, 64, 8, 1e-4
+    rng = np.random.default_rng(1)
+    params = numpy_params(cfg, rng)
+    prompt = rng.integers(0, cfg.vocab_size, (b, prompt_len))
+    runs = {}
+    for where in (dev, torch.device("cpu")):
+        model = convert.transformer_params_from_numpy(params, cfg, where)
+        cache = transformer.init_cache(cfg, b, prompt_len + steps, where)
+        logits, cache = transformer.prefill(
+            cfg, model, torch.tensor(prompt, device=where), cache)
+        seq = [logits.cpu()]
+        for _ in range(steps):
+            tok = greedy(logits, cfg.vocab_size)
+            pos = torch.full((b,), cache["length"], dtype=torch.int32,
+                             device=where)
+            logits, cache = transformer.decode_step(cfg, model, tok[:, None],
+                                                    pos, cache)
+            seq.append(logits.cpu())
+        runs[where.type] = seq
+    worst, same_tokens = 0.0, True
+    for card, cpu in zip(runs[dev.type], runs["cpu"]):
+        err = float((card - cpu).abs().max())
+        worst = max(worst, err / max(1.0, float(cpu.abs().max())))
+        same_tokens &= bool(torch.equal(greedy(card, cfg.vocab_size),
+                                        greedy(cpu, cfg.vocab_size)))
+    ok = worst <= tol and same_tokens
+    log(f"  {LM} fp32, 2 layers, {b} x {prompt_len}-token prompts + {steps} "
+        f"steps, card vs CPU: max logit diff {worst:.3g} x max(1, |ref|) "
+        f"(tol {tol}), greedy tokens {'equal' if same_tokens else 'DIFFER'}"
+        f" -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("decode: the card's logits disagree with the CPU's")
+
+
 def kernel_rows(rows) -> list[dict]:
     """The ``{"kernels": [...]}`` line's rows. Each kernel's launches are
-    those of the main-path modes that run it, each mode's count read
-    around its own run."""
-    by_path = {name: {mode: rows["path"][mode]["launches"][name]
+    those of the paths that run it (the retrieval modes, the LM decode),
+    each path's count read around its own run."""
+    paths = {**rows["path"], "decode": rows["decode"]}
+    by_path = {name: {mode: paths[mode]["launches"][name]
                       for mode, names in PATH_KERNELS.items()
                       if name in names}
                for name in KERNELS}
@@ -1005,10 +1286,14 @@ def main(argv=None) -> int:
                   ivf_scan=check_ivf_scan(dev, rng, failures),
                   bitsim=check_bitsim(dev, rng, failures),
                   fdescan=check_fdescan(dev, rng, failures),
-                  gather_pack=check_gather_pack(dev, rng, failures))),
+                  gather_pack=check_gather_pack(dev, rng, failures),
+                  flash_decode=check_flash_decode(dev, rng, failures))),
               ("main path", lambda: rows.update(
                   path=main_path(dev, failures, args.profile))),
-              ("agreement", lambda: agreement(dev, failures))]
+              ("agreement", lambda: agreement(dev, failures)),
+              ("decode path", lambda: rows.update(
+                  decode=decode_path(dev, failures))),
+              ("decode agreement", lambda: decode_agreement(dev, failures))]
     for name, fn in phases:
         log(f"[{name}]")
         t0 = time.perf_counter()

@@ -11,10 +11,20 @@ sign-bit and FDE tables, and ``cspn`` over the constant-space
 kernels: ``kernels/maxsim``, ``kernels/ivf_scan``, ``kernels/bitsim``,
 ``kernels/fdescan`` and ``kernels/gather_pack`` (the restructuring step
 that packs every rerank's tiles from the raw rows a read moved to the
-device).
+device). The dense transformer LM's serving path (``models/``,
+``configs/``: prefill, then decode over a KV cache) runs its decode
+attention on a sixth, ``kernels/flash_decode``.
 
     from repro_torch.pipeline import Pipeline, PipelineConfig
 
     with Pipeline.build(PipelineConfig()) as pipe:     # device="cuda"
         print(pipe.evaluate())
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    cfg = get_config("smollm-135m")
+    model = T.init_params(cfg, torch.Generator().manual_seed(0))
+    cache = T.init_cache(cfg, batch=8, max_len=4128)
+    logits, cache = T.prefill(cfg, model, prompts, cache)   # (8, 4096) ids
 """

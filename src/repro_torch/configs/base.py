@@ -1,0 +1,72 @@
+"""Transformer LM config and a small registry.
+
+The reference's ``TransformerConfig`` with torch dtypes and without the
+knobs that only change how XLA lowers the model (sharding axes, layer scan,
+remat, the one-hot cache write, unrolled chunk loops): the port runs one
+device and computes the reference's default numerics (fp32 attention scores,
+every kv chunk visited).
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Any, Callable
+
+import torch
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_ff_expert: int
+    n_shared_experts: int = 0
+    capacity_factor: float = 1.25
+    router_jitter: float = 0.0
+
+
+@dataclass(frozen=True)
+class TransformerConfig:
+    name: str
+    family: str                      # "lm-dense" | "lm-moe"
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    d_head: int = 0                  # 0 -> d_model // n_heads
+    qkv_bias: bool = False
+    moe: MoEConfig | None = None     # the port runs dense models only
+    rope_theta: float = 10_000.0
+    norm_eps: float = 1e-6
+    tie_embeddings: bool = False
+    dtype: Any = torch.bfloat16      # activation/compute dtype
+    param_dtype: Any = torch.float32
+    attn_chunk: int = 1024           # kv-chunk for blockwise online-softmax attn
+    max_seq_len: int = 524_288
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_head or self.d_model // self.n_heads
+
+    def scaled(self, **kw) -> "TransformerConfig":
+        return dataclasses.replace(self, **kw)
+
+
+_REGISTRY: dict[str, Callable[[], Any]] = {}
+
+
+def register(name: str):
+    def deco(fn):
+        _REGISTRY[name] = fn
+        return fn
+    return deco
+
+
+def get_config(name: str):
+    if name not in _REGISTRY:
+        from repro_torch.configs import smollm_135m  # noqa: F401  (registers)
+    if name not in _REGISTRY:
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")
+    return _REGISTRY[name]()

@@ -4,7 +4,8 @@ Every function takes plain numpy arrays — the fields the reference's
 ``IVFIndex``, ``EmbeddingLayout``, ``BitTable`` and ``FDETable`` hold, under
 the names its ``.npz`` artifacts use — so a mapping from ``np.load`` of a
 saved ``index.npz`` / ``layout.npz`` / ``bits.npz`` / ``fde.npz`` works as
-well as a dict built in memory.
+well as a dict built in memory; and the transformer's nested parameter
+dict.
 """
 from __future__ import annotations
 
@@ -12,7 +13,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.fde import FDEConfig, FDETable
+from repro_torch.configs.base import TransformerConfig
 from repro_torch.core.ivf import IVFIndex
+from repro_torch.models.transformer import TransformerLM, param_table
 from repro_torch.storage.layout import BitTable, EmbeddingLayout
 
 
@@ -84,3 +87,28 @@ def fde_table_from_numpy(arrays, device) -> FDETable:
                     seed=int(arrays["seed"]))
     return FDETable(vecs=torch.tensor(np.asarray(arrays["vecs"]),
                                       device=device), cfg=cfg)
+
+
+def transformer_params_from_numpy(params, cfg: TransformerConfig,
+                                  device) -> TransformerLM:
+    """The dense LM with the weights of the reference's nested parameter
+    dict (``embed``, ``final_norm``, [``lm_head``,] ``layers/{wq, ...}``,
+    numpy arrays of the reference's shapes), on ``device`` in
+    ``cfg.param_dtype``. A missing, extra or misshapen array raises."""
+    flat = {k: v for k, v in params.items() if k != "layers"}
+    flat.update({f"layers/{k}": v for k, v in params.get("layers",
+                                                         {}).items()})
+    table = param_table(cfg)
+    if set(flat) != set(table):
+        raise ValueError(f"parameter names differ from {cfg.name}'s: missing "
+                         f"{sorted(set(table) - set(flat))}, extra "
+                         f"{sorted(set(flat) - set(table))}")
+    model = TransformerLM(cfg, device)
+    with torch.no_grad():
+        for name, (shape, _) in table.items():
+            a = np.asarray(flat[name])
+            if a.shape != shape:
+                raise ValueError(f"{name}: shape {a.shape}, expected {shape}")
+            model.get_parameter(name.replace("/", ".")).copy_(
+                torch.tensor(a))
+    return model

@@ -1,0 +1,40 @@
+"""Shared layers of the transformer: initializers, RMSNorm, the SwiGLU MLP.
+
+Parameters are fp32 masters; compute casts them to the activation dtype
+(bf16 by default), with the rounding points of the reference's layers.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+
+def dense_init(generator: torch.Generator, shape, in_axis=-2,
+               dtype=torch.float32) -> torch.Tensor:
+    """LeCun-normal fan-in init, drawn on ``generator``'s device."""
+    std = 1.0 / math.sqrt(shape[in_axis])
+    return (torch.randn(shape, generator=generator,
+                        device=generator.device) * std).to(dtype)
+
+
+def embed_init(generator: torch.Generator, shape, dtype=torch.float32,
+               scale=0.02) -> torch.Tensor:
+    return (torch.randn(shape, generator=generator,
+                        device=generator.device) * scale).to(dtype)
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
+    """Only the variance reduction runs in fp32: ``inv`` is cast to x's
+    dtype and both products stay in it, as in the reference (this decides
+    bf16 parity)."""
+    var = x.float().square().mean(dim=-1, keepdim=True)
+    inv = torch.rsqrt(var + eps).to(x.dtype)
+    return (x * inv) * scale.to(x.dtype)
+
+
+def swiglu_mlp(x, w_gate, w_up, w_down):
+    """LLaMA-style gated MLP. x: (..., D); weights already in compute dtype."""
+    h = F.silu(x @ w_gate) * (x @ w_up)
+    return h @ w_down
