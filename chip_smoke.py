@@ -8,9 +8,15 @@ Phases, each of which must pass:
 1. card: the ``nvidia-smi`` name and power limit; no CUDA device -> exit 2;
 2. build: the six CUDA kernels from the checkout's sources, in parallel;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the paths' shapes and at ragged edges, with its time (CUDA events,
-   median of 50 after warm-up), the plain version's time, a one-call PyTorch
-   yardstick where there is one, and the least time the card could take;
+   the paths' shapes and at ragged edges (``fdescan`` on both of its
+   kernels, each case naming the one it took; ``flash_decode`` one launch a
+   call and the same bits twice), with its time two ways: ``ms`` (CUDA
+   events around one Python call, median of 50 after warm-up: the host's
+   time to reach the launch is inside) and ``device_ms`` (20 calls in one
+   CUDA graph replayed between two events, / 20: the card's own time, with
+   the profiler's kernel time beside it as a cross-check); the plain
+   version's time, a one-call PyTorch yardstick where there is one (both
+   ways), the least time the card could take and the share of it reached;
 4. main path: ``Pipeline.build`` at the ColBERTer widths on a 1M-doc corpus,
    4 batches of 64 queries through ``espn`` and one through ``gds``, then,
    through ``Pipeline.from_artifacts`` on the same corpus, index and layout,
@@ -54,10 +60,13 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 rate and fp32 outside the tensor
-# cores. The kernels here run fp32 FMA, so the fp32 rate is their ceiling.
+# H100 SXM peaks (NVIDIA data sheet): HBM3 rate, fp32 outside the tensor
+# cores (the ceiling of the kernels that run fp32 FMA) and dense fp16 on the
+# tensor cores (fdescan's wgmma kernel).
 HBM_BYTES_S = 3.35e12
 FP32_FLOPS_S = 67e12
+FP16_TC_FLOPS_S = 989e12
+GRAPH_CALLS = 20    # calls captured into one CUDA graph for device_ms
 
 KERNELS = {
     "maxsim": {"source": "src/repro_torch/kernels/maxsim/csrc/maxsim.cu",
@@ -114,8 +123,100 @@ def time_ms(fn, reps=50, warmup=5) -> float:
     return float(np.median(times))
 
 
-def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
-    t_bytes, t_ops = n_bytes / HBM_BYTES_S, n_ops / FP32_FLOPS_S
+def device_ms(fn, calls=GRAPH_CALLS, reps=5) -> float:
+    """Device time of one call: ``calls`` calls captured into one CUDA graph
+    after a warm-up, the graph replayed between one pair of CUDA events
+    (median of ``reps`` replays), divided by ``calls``. Unlike ``time_ms``
+    it holds none of the host's time to reach each launch (the wrapper's
+    checks, allocation, the ctypes call). Every op launches on
+    ``torch.cuda.current_stream()``, which is the capture stream inside
+    ``torch.cuda.graph``; the launch counters are restored afterwards, so
+    no path's count holds capture calls."""
+    import torch
+    saved = read_counts()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / calls)
+    del graph
+    restore_counts(saved)
+    return float(np.median(times))
+
+
+def profiler_ms(fn, calls=5):
+    """Cross-check of ``device_ms``: the CUDA kernels' own durations (CUPTI,
+    through ``torch.profiler``) over ``calls`` calls, per call; None where
+    the profiler reports no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    saved = read_counts()
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    restore_counts(saved)
+    us = sum(ev.time_range.elapsed_us() for ev in prof.events()
+             if str(ev.device_type).endswith("CUDA"))
+    return us / calls / 1e3 if us > 0 else None
+
+
+def timings(kernel, plain, library, n_bytes, n_ops, flops=FP32_FLOPS_S,
+            suffix="") -> dict:
+    """A row's times: per call (``ms``, events around one Python call) and
+    on the device alone (``device_ms``, CUDA graph), for the kernel and the
+    library call; the plain version's per-call time; the bound and the
+    share of it the kernel reaches on the device; the profiler's kernel
+    time as a cross-check."""
+    b_ms, by = bound_ms(n_bytes, n_ops, flops)
+    row = {"ms": time_ms(kernel), "device_ms": device_ms(kernel),
+           "plain_ms": time_ms(plain), "bound_ms": b_ms, "bound_by": by,
+           "library_ms": None, "library_device_ms": None,
+           "profiler_ms": profiler_ms(kernel)}
+    if library is not None:
+        row["library_ms"] = time_ms(library)
+        row["library_device_ms"] = device_ms(library)
+    row["bound_share"] = b_ms / row["device_ms"]
+    return {k + suffix: v for k, v in row.items()}
+
+
+def timing_line(what, row, suffix="") -> str:
+    r = {k: row.get(k + suffix) for k in (
+        "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+        "library_device_ms", "profiler_ms", "bound_share")}
+    lib = ("none" if r["library_ms"] is None else
+           f"{r['library_ms']:.4f} ms a call, {r['library_device_ms']:.4f} "
+           f"ms on the device")
+    prof = ("no device time" if r["profiler_ms"] is None
+            else f"{r['profiler_ms']:.4f} ms")
+    return (f"  {what}: kernel {r['ms']:.4f} ms a call, {r['device_ms']:.4f} "
+            f"ms on the device (profiler {prof}), {100 * r['bound_share']:.1f}"
+            f"% of the bound {r['bound_ms']:.4f} ms ({r['bound_by']}); plain "
+            f"{r['plain_ms']:.4f} ms; library {lib}")
+
+
+def bound_ms(n_bytes: float, n_ops: float,
+             flops: float = FP32_FLOPS_S) -> tuple[float, str]:
+    t_bytes, t_ops = n_bytes / HBM_BYTES_S, n_ops / flops
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -172,19 +273,18 @@ def check_maxsim(dev, rng, failures) -> dict:
             failures.append(f"maxsim {name}")
         if timed:                             # the slice's own shape
             n_tok = float(lens_t.clamp(0, T).sum())
-            ms = time_ms(lambda: maxsim(q, qm, docs, lens_t))
-            plain = time_ms(lambda: maxsim_ref(q, qm, docs, lens_t))
             n_bytes = (4 * (lq * D + lq + 2 * K)
                        + docs.element_size() * D * n_tok)
             n_ops = 2 * lq * D * n_tok + lq * n_tok + 2 * K * lq
-            b_ms, by = bound_ms(n_bytes, n_ops)
+            t = timings(lambda: maxsim(q, qm, docs, lens_t),
+                        lambda: maxsim_ref(q, qm, docs, lens_t), None,
+                        n_bytes, n_ops)
             if fp16:
-                row = {"ms": ms, "plain_ms": plain, "bound_ms": b_ms,
-                       "bound_by": by, "library_ms": None}
-            log(f"  maxsim timing (K={K}, T={T}, D={D}, Lq={lq}, "
+                row = t
+            log(timing_line(
+                f"maxsim timing (K={K}, T={T}, D={D}, Lq={lq}, "
                 f"{int(n_tok)} valid tokens, {'fp16' if fp16 else 'fp32'} "
-                f"docs{', the row' if fp16 else ''}): kernel {ms:.4f} ms, "
-                f"plain {plain:.4f} ms, bound {b_ms:.4f} ms ({by})")
+                f"docs{', the row' if fp16 else ''})", t))
     row["max_abs_err"] = worst
     return row
 
@@ -219,15 +319,12 @@ def check_ivf_scan(dev, rng, failures) -> dict:
         if not ok:
             failures.append(f"ivf_scan {name}")
         if row is None:
-            ms = time_ms(lambda: centroid_scores(q, c))
-            plain = time_ms(lambda: ivf_scan_ref(q, c))
-            lib = time_ms(lambda: torch.matmul(q, c.T))
-            b_ms, by = bound_ms(4 * (B * D + N * D + B * N), 2 * B * N * D)
-            row = {"ms": ms, "plain_ms": plain, "bound_ms": b_ms,
-                   "bound_by": by, "library_ms": lib}
-            log(f"  ivf_scan timing (B={B}, N={N}, D={D}): kernel {ms:.4f} "
-                f"ms, plain {plain:.4f} ms, torch.matmul {lib:.4f} ms, "
-                f"bound {b_ms:.4f} ms ({by})")
+            row = timings(lambda: centroid_scores(q, c),
+                          lambda: ivf_scan_ref(q, c),
+                          lambda: torch.matmul(q, c.T),
+                          4 * (B * D + N * D + B * N), 2 * B * N * D)
+            log(timing_line(f"ivf_scan timing (B={B}, N={N}, D={D}; "
+                            f"library torch.matmul)", row))
     row["max_abs_err"] = worst
     return row
 
@@ -277,16 +374,13 @@ def check_bitsim(dev, rng, failures) -> dict:
         if row is None:                       # the bit filter's own shape
             W = docs.shape[2]
             n_tok = float(lens_t.clamp(0, T).sum())
-            ms = time_ms(lambda: bitsim(q, qm, docs, lens_t))
-            plain = time_ms(lambda: bitsim_ref(q, qm, docs, lens_t))
             n_bytes = 4 * (lq * D + lq + 2 * K) + 4 * W * n_tok
             n_ops = 2 * lq * D * n_tok + lq * n_tok + 2 * K * lq
-            b_ms, by = bound_ms(n_bytes, n_ops)
-            row = {"ms": ms, "plain_ms": plain, "bound_ms": b_ms,
-                   "bound_by": by, "library_ms": None}
-            log(f"  bitsim timing (K={K}, T={T}, W={W}, D={D}, Lq={lq}, "
-                f"{int(n_tok)} valid tokens): kernel {ms:.4f} ms, plain "
-                f"{plain:.4f} ms, bound {b_ms:.4f} ms ({by})")
+            row = timings(lambda: bitsim(q, qm, docs, lens_t),
+                          lambda: bitsim_ref(q, qm, docs, lens_t), None,
+                          n_bytes, n_ops)
+            log(timing_line(f"bitsim timing (K={K}, T={T}, W={W}, D={D}, "
+                            f"Lq={lq}, {int(n_tok)} valid tokens)", row))
     row["max_abs_err"] = worst
     return row
 
@@ -294,13 +388,17 @@ def check_bitsim(dev, rng, failures) -> dict:
 def check_fdescan(dev, rng, failures) -> dict:
     import torch
 
-    from repro_torch.kernels.fdescan.ops import fdescan
+    from repro_torch.kernels.fdescan.ops import fdescan, kernel_for
     from repro_torch.kernels.fdescan.ref import fdescan_ref
+    # the slice's case and the tensor-core kernel's edges (B 1/33/64/70,
+    # ragged N, D 128/256), then the SIMT kernel's (an fp32 table, D=100)
     cases = [("slice B=64 N=1,000,000 D=256 fp16", 64, N_DOCS, 256, True),
              ("B=1 N=1000 D=256 fp16", 1, 1000, 256, True),
              ("B=33 N=1037 D=128 fp16", 33, 1037, 128, True),
              ("B=70 N=3001 D=256 fp16", 70, 3001, 256, True),
-             ("B=8 N=300 D=100 fp32", 8, 300, 100, False)]
+             ("B=8 N=300 D=100 fp32", 8, 300, 100, False),
+             ("B=8 N=300 D=100 fp16", 8, 300, 100, True)]
+    want = {True: "wgmma", False: "simt"}
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     row = None
@@ -316,25 +414,27 @@ def check_fdescan(dev, rng, failures) -> dict:
         torch.cuda.synchronize()
         err = float((out - ref).abs().max())
         tol = REL_TOL * max(1.0, float(ref.abs().max()))
-        ok = err <= tol and out.shape == (B, N)
+        route = kernel_for(q, docs)
+        ok = (err <= tol and out.shape == (B, N)
+              and route == want[fp16 and D % 8 == 0])
         worst = max(worst, err)
-        log(f"  fdescan {name}: max_abs_err={err:.3g} tol={tol:.3g} "
-            f"-> {'ok' if ok else 'FAIL'}")
+        log(f"  fdescan {name} ({route} kernel): max_abs_err={err:.3g} "
+            f"tol={tol:.3g} -> {'ok' if ok else 'FAIL'}")
         if not ok:
             failures.append(f"fdescan {name}")
         if row is None:
-            ms = time_ms(lambda: fdescan(q, docs))
-            plain = time_ms(lambda: fdescan_ref(q, docs))
+            # bound: the table and q read once, the scores written once;
+            # the tensor cores' two fp16 passes (q in two parts)
             docs32 = docs.float()
-            lib = time_ms(lambda: torch.matmul(q, docs32.T))
+            row = timings(lambda: fdescan(q, docs),
+                          lambda: fdescan_ref(q, docs),
+                          lambda: torch.matmul(q, docs32.T),
+                          4 * B * D + docs.element_size() * N * D + 4 * B * N,
+                          2 * 2 * B * N * D, FP16_TC_FLOPS_S)
             del docs32
-            b_ms, by = bound_ms(4 * B * D + docs.element_size() * N * D
-                                + 4 * B * N, 2 * B * N * D)
-            row = {"ms": ms, "plain_ms": plain, "bound_ms": b_ms,
-                   "bound_by": by, "library_ms": lib}
-            log(f"  fdescan timing (B={B}, N={N}, D={D}, fp16 table): "
-                f"kernel {ms:.4f} ms, plain {plain:.4f} ms, torch.matmul "
-                f"on an fp32 copy {lib:.4f} ms, bound {b_ms:.4f} ms ({by})")
+            log(timing_line(f"fdescan timing (B={B}, N={N}, D={D}, fp16 "
+                            f"table; library torch.matmul on an fp32 copy)",
+                            row))
         del q, docs, out, ref
     torch.cuda.empty_cache()
     row["max_abs_err"] = worst
@@ -394,23 +494,21 @@ def check_gather_pack(dev, rng, failures) -> dict:
         if not same:
             failures.append(f"gather_pack {name}")
         if row is None:                       # the rerank's own shape
-            ms = time_ms(lambda: gather_pack(pool, idx))
-            plain = time_ms(lambda: gather_pack_ref(pool, idx))
             # one library call for the same function: index_select over
             # the pool with a zero row appended and -1 mapped to it
             padded = torch.cat([pool, pool.new_zeros(1, D)])
             flat = torch.where(idx >= 0, idx, R).view(-1).long()
-            lib = time_ms(lambda: torch.index_select(padded, 0, flat))
             elt = pool.element_size()
             n_valid = int((idx >= 0).sum())
             n_bytes = K * T * D * elt + n_valid * D * elt + 4 * K * T
-            b_ms, by = bound_ms(n_bytes, 0)
-            row = {"ms": ms, "plain_ms": plain, "bound_ms": b_ms,
-                   "bound_by": by, "library_ms": lib}
-            log(f"  gather_pack timing (K={K}, T={T}, D={D} fp16, "
-                f"{n_valid} valid rows, {n_bytes / 1e6:.2f} MB moved): kernel "
-                f"{ms:.4f} ms, plain {plain:.4f} ms, torch.index_select "
-                f"{lib:.4f} ms, bound {b_ms:.4f} ms ({by})")
+            row = timings(lambda: gather_pack(pool, idx),
+                          lambda: gather_pack_ref(pool, idx),
+                          lambda: torch.index_select(padded, 0, flat),
+                          n_bytes, 0)
+            log(timing_line(
+                f"gather_pack timing (K={K}, T={T}, D={D} fp16, {n_valid} "
+                f"valid rows, {n_bytes / 1e6:.2f} MB moved; library "
+                f"torch.index_select)", row))
     row["max_abs_err"] = worst
     return row
 
@@ -450,22 +548,26 @@ def check_flash_decode(dev, rng, failures) -> dict:
     for name, b, s, kv, g, dh, dtype, lens in cases:
         q, kc, vc = inputs(b, s, kv, g, dh, dtype)
         lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+        before = flash_decode.launches
         out = flash_decode(q, kc, vc, lens_t)
+        again = flash_decode(q, kc, vc, lens_t)
+        one_launch = flash_decode.launches == before + 2
         ref = flash_decode_ref(q, kc, vc, lens_t)
         torch.cuda.synchronize()
         err = float((out.float() - ref.float()).abs().max())
         tol = ulp[dtype] * max(1.0, float(ref.float().abs().max()))
-        ok = err <= tol and out.shape == ref.shape and out.dtype == dtype
+        same = torch.equal(out, again)      # the fixed combine order
+        ok = (err <= tol and out.shape == ref.shape and out.dtype == dtype
+              and same and one_launch)
         worst = max(worst, err)
-        split, n_splits = split_slots(s, b * kv, sms)
+        split, n_splits = split_slots(s, b, sms)
         log(f"  flash_decode {name} ({n_splits} splits of {split}): "
-            f"max_abs_err={err:.3g} tol={tol:.3g} -> {'ok' if ok else 'FAIL'}")
+            f"max_abs_err={err:.3g} tol={tol:.3g}, same bits twice "
+            f"{same} -> {'ok' if ok else 'FAIL'}")
         if not ok:
             failures.append(f"flash_decode {name}")
         if not name.startswith(("path", "decode_32k")):
             continue
-        ms = time_ms(lambda: flash_decode(q, kc, vc, lens_t))
-        plain = time_ms(lambda: flash_decode_ref(q, kc, vc, lens_t))
         # one library call for the same function: SDPA over the same cache,
         # its (B, KV, S, Dh) operands strided views of it (made inside the
         # timed call, no copy), q as (B, H, 1, Dh), a (B, 1, 1, S) mask
@@ -477,22 +579,20 @@ def check_flash_decode(dev, rng, failures) -> dict:
             return F.scaled_dot_product_attention(
                 q4, kc.transpose(1, 2), vc.transpose(1, 2), attn_mask=mask,
                 enable_gqa=True)
-        lib = time_ms(sdpa)
         lib_err = float((sdpa().reshape(out.shape).float()
                          - ref.float()).abs().max())
         n = int(lens_t.clamp(0, s).sum())
         elt = kc.element_size()
         n_bytes = 2 * kv * n * dh * elt + 2 * b * kv * g * dh * elt + 4 * b
-        b_ms, by = bound_ms(n_bytes, 4 * kv * g * n * dh)
         key = "" if name.startswith("path") else "_32k"
-        row.update({"ms" + key: ms, "plain_ms" + key: plain,
-                    "bound_ms" + key: b_ms, "bound_by" + key: by,
-                    "library_ms" + key: lib})
-        log(f"  flash_decode timing ({name}, {n_bytes / 1e6:.2f} MB of "
-            f"k/v read): kernel {ms:.4f} ms, plain {plain:.4f} ms, SDPA "
-            f"(enable_gqa, boolean mask, strided cache views) {lib:.4f} ms "
-            f"(its max_abs_err {lib_err:.3g}), bound {b_ms:.4f} ms ({by})")
-        del q, kc, vc, out, ref, mask, q4
+        row.update(timings(lambda: flash_decode(q, kc, vc, lens_t),
+                           lambda: flash_decode_ref(q, kc, vc, lens_t), sdpa,
+                           n_bytes, 4 * kv * g * n * dh, suffix=key))
+        log(timing_line(
+            f"flash_decode timing ({name}, {n_bytes / 1e6:.2f} MB of k/v "
+            f"read; library SDPA with enable_gqa, a boolean mask and strided "
+            f"cache views, its max_abs_err {lib_err:.3g})", row, key))
+        del q, kc, vc, out, again, ref, mask, q4
     torch.cuda.empty_cache()
     row["max_abs_err"] = worst
     return row
@@ -655,6 +755,11 @@ def reset_counts():
 
 def read_counts() -> dict:
     return {k: fn.launches for k, fn in counters().items()}
+
+
+def restore_counts(saved: dict):
+    for k, fn in counters().items():
+        fn.launches = saved[k]
 
 
 def check_ranked(resp, n_docs, failures, what):

@@ -11,18 +11,39 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.fdescan.ref import fdescan_ref
 
 
+_LIB = None
+
+
 def _lib():
-    lib = _build.load("fdescan")
-    lib.fdescan_launch.argtypes = [ctypes.c_void_p] * 3 \
-        + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    lib.fdescan_launch.restype = ctypes.c_int
-    return lib
+    """The kernel's library, its C signatures set once, at load."""
+    global _LIB
+    if _LIB is None:
+        lib = _build.load("fdescan")
+        lib.fdescan_launch.argtypes = [ctypes.c_void_p] * 3 \
+            + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.fdescan_launch.restype = ctypes.c_int
+        lib.fdescan_kernel_for.argtypes = [ctypes.c_void_p] * 2 \
+            + [ctypes.c_int] * 2
+        lib.fdescan_kernel_for.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
+
+
+def kernel_for(q: torch.Tensor, docs: torch.Tensor) -> str:
+    """Which of the two CUDA kernels ``fdescan`` launches for these CUDA
+    tensors: ``"wgmma"`` (tensor cores: an fp16 table, D a multiple of 8 up
+    to 256, 16-byte aligned rows) or ``"simt"`` (every other case). The
+    launch makes the same choice, in the same C function."""
+    return "wgmma" if _lib().fdescan_kernel_for(
+        q.data_ptr(), docs.data_ptr(), q.shape[1],
+        int(docs.dtype == torch.float16)) else "simt"
 
 
 def fdescan(q: torch.Tensor, docs: torch.Tensor) -> torch.Tensor:
     """(B, N) fp32 scores ``q @ docs.T``; q (B, D) fp32, docs (N, D) fp16
-    (the resident FDE table) or fp32, widened inside the kernel. Exactly
-    (B, N): no pad columns."""
+    (the resident FDE table) or fp32. Exactly (B, N): no pad columns. On
+    the card an fp16 table runs on the tensor cores (``kernel_for``), with
+    q in two fp16 parts so that the scores keep fp32 accuracy."""
     if docs.device.type == "cpu":
         return fdescan_ref(q, docs)
     if docs.device.type != "cuda":

@@ -12,24 +12,60 @@ from repro_torch.kernels.flash_decode.ref import flash_decode_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _HEAD_DIMS = (16, 32, 64, 128)
-_BLOCKS_PER_SM = 4      # split the slots until the grid has ~4 blocks an SM
-_MIN_SPLIT = 64         # ... but give no block fewer slots than this
+_BLOCKS_PER_SM = 2      # the kernel fits two blocks on an SM: one wave
+_MIN_SPLIT = 64         # no block gets fewer slots than this
+_SPLIT_ALIGN = 16       # a split is a whole number of 16-slot steps
+
+_LIB = None
+_SMS: dict[int, int] = {}
+_COUNTERS: dict[int, torch.Tensor] = {}
 
 
 def _lib():
-    lib = _build.load("flash_decode")
-    lib.flash_decode_launch.argtypes = [ctypes.c_void_p] * 8 \
-        + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
-    lib.flash_decode_launch.restype = ctypes.c_int
-    return lib
+    """The kernel's library, its C signature set once, at load."""
+    global _LIB
+    if _LIB is None:
+        lib = _build.load("flash_decode")
+        lib.flash_decode_launch.argtypes = [ctypes.c_void_p] * 7 \
+            + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+        lib.flash_decode_launch.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
 
 
-def split_slots(s: int, pairs: int, sms: int) -> tuple[int, int]:
-    """(slots per block, number of splits) for a cache of ``s`` slots shared
-    by ``pairs`` (b, kv) pairs on a card with ``sms`` SMs."""
-    n = max(1, min(-(-_BLOCKS_PER_SM * sms // pairs), -(-s // _MIN_SPLIT)))
+def _index(device: torch.device) -> int:
+    return device.index if device.index is not None \
+        else torch.cuda.current_device()
+
+
+def _sms(device: torch.device) -> int:
+    """The card's SM count, looked up once a device."""
+    idx = _index(device)
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
+
+
+def _counters(device: torch.device, n: int) -> torch.Tensor:
+    """The kernel's per-(b, head tile) arrival counters: int32 zeros, made
+    once a device (and again only to grow); each launch leaves them zero.
+    Calls that share them run on one stream."""
+    idx = _index(device)
+    buf = _COUNTERS.get(idx)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _COUNTERS[idx] = buf
+    return buf
+
+
+def split_slots(s: int, groups: int, sms: int) -> tuple[int, int]:
+    """(slots per block, number of splits) for a cache of ``s`` slots read
+    by ``groups`` blocks a split (one per sequence and head tile) on a card
+    with ``sms`` SMs: enough splits for ``_BLOCKS_PER_SM`` blocks an SM, no
+    split under ``_MIN_SPLIT`` slots, each a multiple of ``_SPLIT_ALIGN``."""
+    n = max(1, min(-(-_BLOCKS_PER_SM * sms // groups), -(-s // _MIN_SPLIT)))
     split = -(-s // n)
-    split = -(-split // _MIN_SPLIT) * _MIN_SPLIT
+    split = -(-split // _SPLIT_ALIGN) * _SPLIT_ALIGN
     return split, -(-s // split)
 
 
@@ -40,7 +76,10 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
 
     q (B, KV, G, Dh); k_cache/v_cache (B, S, KV, Dh), the same dtype as q
     (fp32, bf16 or fp16); lengths (B,) int32, the valid prefix of each
-    sequence's cache (see ``ref.py`` for lengths of 0 and above S).
+    sequence's cache (see ``ref.py`` for lengths of 0 and above S). On the
+    card one call is one kernel launch, its splits combined in a fixed
+    order (the same bits on every call); calls that share a device share
+    its arrival counters, so they run on one stream.
     """
     if k_cache.device.type == "cpu":
         return flash_decode_ref(q, k_cache, v_cache, lengths)
@@ -80,18 +119,14 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     out = torch.empty_like(q)
     if b == 0 or kv == 0 or g == 0:
         return out
-    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    split, n_splits = split_slots(s, b * kv, sms)
-    part_m = torch.empty(b, kv, g, n_splits, dtype=torch.float32,
-                         device=q.device)
-    part_l = torch.empty_like(part_m)
-    part_acc = torch.empty(b, kv, g, n_splits, dh, dtype=torch.float32,
-                           device=q.device)
+    split, n_splits = split_slots(s, b, _sms(q.device))
+    part = torch.empty(b, kv, g, n_splits, dh + 4, dtype=torch.float32,
+                       device=q.device)
     err = _lib().flash_decode_launch(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        lengths.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
-        part_acc.data_ptr(), out.data_ptr(), b, s, kv, g, dh, split,
-        n_splits, _DTYPES[q.dtype], dh ** -0.5,
+        lengths.data_ptr(), part.data_ptr(),
+        _counters(q.device, b * kv * g).data_ptr(), out.data_ptr(), b, s, kv,
+        g, dh, split, n_splits, _DTYPES[q.dtype], dh ** -0.5,
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_decode kernel launch failed: CUDA error "

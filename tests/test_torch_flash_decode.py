@@ -140,13 +140,20 @@ def test_op_rejects_other_devices():
                          torch.empty(2, dtype=torch.int32, device="meta"))
 
 
-@pytest.mark.parametrize("s,pairs,sms", [(4128, 24, 132), (32_768, 24, 132),
-                                         (100, 2, 132), (1, 1, 132),
-                                         (300, 600, 132), (4097, 8, 16)])
-def test_split_slots_cover_the_cache(s, pairs, sms):
-    split, n = ops.split_slots(s, pairs, sms)
-    assert split % 64 == 0 and n >= 1
-    assert (n - 1) * split < s <= n * split
-    assert pairs * n <= max(pairs, 4 * sms + pairs)
-    if (s, pairs, sms) == (4128, 24, 132):      # the decode path's cache
-        assert (split, n) == (192, 22)
+@pytest.mark.parametrize("s,groups,sms", [(4128, 8, 132), (32_768, 8, 132),
+                                          (100, 2, 132), (1, 1, 132),
+                                          (300, 600, 132), (4097, 8, 16),
+                                          (4128, 24, 132), (32_768, 24, 132)])
+def test_split_slots_cover_the_cache(s, groups, sms):
+    """Every slot in exactly one split; one wave of two blocks an SM at
+    most; the decode path's two contexts (B=8 sequences, one head tile
+    each) put at least two blocks on each of the H100's 132 SMs."""
+    split, n = ops.split_slots(s, groups, sms)
+    assert split % 16 == 0 and n >= 1
+    owner = np.zeros(s, np.int64)
+    for sp in range(n):
+        owner[sp * split:min((sp + 1) * split, s)] += 1
+    assert (owner == 1).all() and (n - 1) * split < s
+    assert groups * n <= max(groups, 2 * sms + groups)
+    if (s, groups, sms) in ((4128, 8, 132), (32_768, 8, 132)):
+        assert groups * n >= 2 * 132 and split >= 64
