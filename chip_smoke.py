@@ -61,11 +61,13 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 rate, fp32 outside the tensor
-# cores (the ceiling of the kernels that run fp32 FMA) and dense fp16 on the
-# tensor cores (fdescan's wgmma kernel).
+# cores (the ceiling of the kernels that run fp32 FMA), dense fp16 on the
+# tensor cores (fdescan's wgmma kernel, maxsim's mma kernel) and dense TF32
+# on the tensor cores (ivf_scan's 3xTF32 products).
 HBM_BYTES_S = 3.35e12
 FP32_FLOPS_S = 67e12
 FP16_TC_FLOPS_S = 989e12
+TF32_TC_FLOPS_S = 495e12
 GRAPH_CALLS = 20    # calls captured into one CUDA graph for device_ms
 
 KERNELS = {
@@ -84,8 +86,10 @@ KERNELS = {
         "source": "src/repro_torch/kernels/flash_decode/csrc/flash_decode.cu",
         "replaces": "src/repro/kernels/flash_decode/flash_decode.py:62"},
 }
-REL_TOL = 1e-5      # fp32 FMA sums taken in another order than the plain
-                    # version's cuBLAS product: |err| <= 1e-5 * max(1, |ref|)
+REL_TOL = 1e-5      # fp32 sums taken in another order than the plain
+                    # version's cuBLAS product (on the tensor cores, of
+                    # operands split in two parts that keep fp32's
+                    # accuracy): |err| <= 1e-5 * max(1, |ref|)
 AGREE_TOL = 1e-5    # card path vs CPU path: aggregate scores (~25 in size)
                     # after the same fp32 reordering
 N_DOCS = 1_000_000  # main-path corpus
@@ -226,37 +230,63 @@ def bound_ms(n_bytes: float, n_ops: float,
 # ---------------------------------------------------------------------------
 
 def check_maxsim(dev, rng, failures) -> dict:
+    """Both kernels, each case naming the one it takes (``mma``, the tensor
+    cores, for fp16 docs with D of 16/32/64 and Lq <= 32; ``simt`` else),
+    the same bits twice; at D=32, Lq=24 and fp16 docs, K is chosen so
+    that the ``mma`` kernel's four instances (1, 2, 4 and 8 docs a block)
+    all run. Timed at the rerank's shape (K=1,000, fp16 docs: the row;
+    fp32 docs beside it) and at the sizes the path calls it at
+    (``time_path_sizes``)."""
     import torch
 
-    from repro_torch.kernels.maxsim.ops import maxsim
+    from repro_torch.kernels.maxsim.ops import (kernel_for, maxsim,
+                                                mma_docs_per_block)
     from repro_torch.kernels.maxsim.ref import maxsim_ref
     T, D = 180, 32
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    k2, k4 = 2 * sms - 7, 4 * sms - 9
     slice_lens = np.clip((rng.pareto(2.5, 1000) + 1) * 36, 8, T)
-    cases = [  # name, K, Lq, lens, fp16 docs, query mask, timed
+    cases = [  # name, K, Lq, D, lens, fp16 docs, query mask, timed
         # the rerank's shape: the path feeds fp16 tiles (the row); the
         # fp32 case is timed too, for comparison
-        ("slice K=1000 Lq=24 fp32 docs", 1000, 24, slice_lens, False, False,
-         True),
-        ("slice K=1000 Lq=24 fp16 docs", 1000, 24, slice_lens, True, False,
-         True),
-        ("K=37 Lq=24 lens 0..T", 37, 24, np.r_[0, T, rng.integers(0, T + 1, 35)],
-         False, True, False),
-        ("K=1000 Lq=1", 1000, 1, rng.integers(0, T + 1, 1000), False, False,
-         False),
-        ("K=1000 Lq=24 fp16 docs", 1000, 24, rng.integers(0, T + 1, 1000),
+        ("slice K=1000 Lq=24 fp32 docs", 1000, 24, D, slice_lens, False,
+         False, True),
+        ("slice K=1000 Lq=24 fp16 docs", 1000, 24, D, slice_lens, True,
+         False, True),
+        ("K=37 Lq=24 lens 0..T", 37, 24, D,
+         np.r_[0, T, rng.integers(0, T + 1, 35)], False, True, False),
+        ("K=37 Lq=24 fp16 lens 0, T, above T", 37, 24, D,
+         np.r_[0, T, T + 5, rng.integers(0, T + 1, 34)], True, True, False),
+        ("K=1000 Lq=1", 1000, 1, D, rng.integers(0, T + 1, 1000), False,
+         False, False),
+        ("K=1000 Lq=1 fp16", 1000, 1, D, rng.integers(0, T + 1, 1000), True,
+         False, False),
+        ("K=1000 Lq=24 fp16 docs", 1000, 24, D, rng.integers(0, T + 1, 1000),
          True, True, False),
+        (f"K={k2} Lq=24 fp16 docs", k2, 24, D, rng.integers(0, T + 1, k2),
+         True, True, False),
+        (f"K={k4} Lq=24 fp16 docs", k4, 24, D, rng.integers(0, T + 1, k4),
+         True, True, False),
+        ("K=300 Lq=32 D=16 fp16", 300, 32, 16, rng.integers(0, T + 1, 300),
+         True, True, False),
+        ("K=300 Lq=33 D=32 fp16 (Lq above 32)", 300, 33, D,
+         rng.integers(0, T + 1, 300), True, True, False),
+        ("K=100 Lq=24 D=100 fp16 (D no multiple of 16)", 100, 24, 100,
+         rng.integers(0, T + 1, 100), True, True, False),
     ]
     row = None
     worst = 0.0
-    for name, K, lq, lens, fp16, masked, timed in cases:
-        q = torch.tensor(unit(rng.standard_normal((lq, D))), device=dev)
+    per_block = set()        # mma instances run at D=32, Lq=24
+    for name, K, lq, d, lens, fp16, masked, timed in cases:
+        q = torch.tensor(unit(rng.standard_normal((lq, d))), device=dev)
         qm = torch.tensor((rng.random(lq) > 0.2) if masked else np.ones(lq),
                           dtype=torch.float32, device=dev)
-        docs = torch.tensor(unit(rng.standard_normal((K, T, D))), device=dev)
+        docs = torch.tensor(unit(rng.standard_normal((K, T, d))), device=dev)
         if fp16:
             docs = docs.half()
         lens_t = torch.tensor(np.asarray(lens, np.int32), device=dev)
         out = maxsim(q, qm, docs, lens_t)
+        again = maxsim(q, qm, docs, lens_t)
         ref = maxsim_ref(q, qm, docs, lens_t)
         torch.cuda.synchronize()
         live = lens_t > 0
@@ -264,32 +294,122 @@ def check_maxsim(dev, rng, failures) -> dict:
         tol = REL_TOL * max(1.0, float(ref[live].abs().max()))
         empty_ok = bool(torch.allclose(out[~live], ref[~live], rtol=1e-6,
                                        atol=0))
-        ok = err <= tol and empty_ok and out.shape == (K,)
+        route = kernel_for(q, docs)
+        want = "mma" if fp16 and d in (16, 32, 64) and lq <= 32 else "simt"
+        same = torch.equal(out, again)
+        ok = (err <= tol and empty_ok and out.shape == (K,) and same
+              and route == want)
         worst = max(worst, err)
-        log(f"  maxsim {name}: max_abs_err={err:.3g} tol={tol:.3g} "
-            f"zero-length docs {'match' if empty_ok else 'DIFFER'} "
+        if route == "mma":
+            if (d, lq) == (D, 24):
+                per_block.add(mma_docs_per_block(K))
+            route += f", {mma_docs_per_block(K)} docs a block"
+        log(f"  maxsim {name} ({route} kernel): max_abs_err={err:.3g} "
+            f"tol={tol:.3g} zero-length docs "
+            f"{'match' if empty_ok else 'DIFFER'}, same bits twice {same} "
             f"-> {'ok' if ok else 'FAIL'}")
         if not ok:
             failures.append(f"maxsim {name}")
-        if timed:                             # the slice's own shape
-            n_tok = float(lens_t.clamp(0, T).sum())
-            n_bytes = (4 * (lq * D + lq + 2 * K)
-                       + docs.element_size() * D * n_tok)
-            n_ops = 2 * lq * D * n_tok + lq * n_tok + 2 * K * lq
+        if not timed:
+            continue
+
+        def n_work(lens_part, k):
+            """Bytes (each valid token row, q, the mask, lens, the output
+            once) and operations: the tensor cores' two fp16 passes (q in
+            two parts), and the fp32 products the first port counted."""
+            n_tok = float(lens_part.clamp(0, T).sum())
+            n_bytes = (4 * (lq * d + lq + 2 * k)
+                       + docs.element_size() * d * n_tok)
+            return n_tok, n_bytes, 2 * 2 * lq * d * n_tok, \
+                2 * lq * d * n_tok + lq * n_tok + 2 * k * lq
+        n_tok, n_bytes, tc_ops, fp32_ops = n_work(lens_t, K)
+        if fp16:
             t = timings(lambda: maxsim(q, qm, docs, lens_t),
                         lambda: maxsim_ref(q, qm, docs, lens_t), None,
-                        n_bytes, n_ops)
-            if fp16:
-                row = t
-            log(timing_line(
-                f"maxsim timing (K={K}, T={T}, D={D}, Lq={lq}, "
-                f"{int(n_tok)} valid tokens, {'fp16' if fp16 else 'fp32'} "
-                f"docs{', the row' if fp16 else ''})", t))
+                        n_bytes, tc_ops, FP16_TC_FLOPS_S)
+        else:
+            t = timings(lambda: maxsim(q, qm, docs, lens_t),
+                        lambda: maxsim_ref(q, qm, docs, lens_t), None,
+                        n_bytes, fp32_ops)
+        t["bound_fp32_ops_ms"] = bound_ms(n_bytes, fp32_ops)[0]
+        log(timing_line(
+            f"maxsim timing (K={K}, T={T}, D={d}, Lq={lq}, {int(n_tok)} "
+            f"valid tokens, {'fp16' if fp16 else 'fp32'} docs, "
+            f"{route} kernel{', the row' if fp16 else ''}; no one PyTorch "
+            f"call computes a length-masked max-then-sum; bound by fp32 "
+            f"operations {t['bound_fp32_ops_ms']:.4f} ms)", t))
+        if fp16:
+            row = t
+            row.update(time_path_sizes(q, qm, docs, lens_t, n_work,
+                                       failures))
+    if per_block != {1, 2, 4, 8}:
+        failures.append(f"maxsim: the mma kernel ran at {sorted(per_block)}"
+                        " docs a block, not at each of 1, 2, 4 and 8")
     row["max_abs_err"] = worst
     return row
 
 
+# K of the path's maxsim calls (``main_path`` logs them): cascade 64,
+# bitvec 128, espn's min, quartiles and max, and 1,000 for the other modes
+PATH_K = (64, 128, 213, 334, 500, 666, 787, 1000)
+
+
+def time_path_sizes(q, qm, docs, lens, n_work, failures) -> dict:
+    """maxsim on the card at the sizes the path calls it at: the first K
+    of the timed case's docs for each of ``PATH_K``, and espn's split of a
+    query's 1,000 candidates (666 prefetched hits, then 334 misses, its
+    quartiles) in one timed call; 900 then 100 beside it (a 90% hit rate,
+    the guess before the path's K were logged). Each is first held to the
+    plain version."""
+    from repro_torch.kernels.maxsim.ops import maxsim
+    from repro_torch.kernels.maxsim.ref import maxsim_ref
+    ref = maxsim_ref(q, qm, docs, lens)
+    tol = REL_TOL * max(1.0, float(ref.abs().max()))
+    out = {"path_sizes": {}}
+
+    def check(got, k0, k1, what):
+        err = float((got - ref[k0:k1]).abs().max())
+        if err > tol:
+            failures.append(f"maxsim {what}: err {err:.3g} > {tol:.3g}")
+        return err
+    for k in PATH_K:
+        err = check(maxsim(q, qm, docs[:k], lens[:k]), 0, k, f"K={k}")
+        _, n_bytes, tc_ops, _ = n_work(lens[:k], k)
+        out["path_sizes"][k] = {
+            "device_ms": device_ms(lambda k=k: maxsim(q, qm, docs[:k],
+                                                      lens[:k])),
+            "bound_ms": bound_ms(n_bytes, tc_ops, FP16_TC_FLOPS_S)[0],
+            "max_abs_err": err}
+    log("  maxsim on the device at the path's K: " + ", ".join(
+        f"K={k} {v['device_ms']:.4f} ms (bound {v['bound_ms']:.4f})"
+        for k, v in out["path_sizes"].items()))
+
+    def split(hits):
+        """A query's hits, then its misses: two launches, both checked."""
+        parts = ((docs[:hits], lens[:hits]), (docs[hits:], lens[hits:]))
+        got = [maxsim(q, qm, dd, ll) for dd, ll in parts]
+        check(got[0], 0, hits, f"split {hits}: hits")
+        check(got[1], hits, len(docs), f"split {hits}: misses")
+        return parts, lambda: [maxsim(q, qm, dd, ll) for dd, ll in parts]
+    parts, call = split(666)
+    work = [n_work(ll, len(ll)) for _, ll in parts]
+    out.update(timings(
+        call, lambda: [maxsim_ref(q, qm, dd, ll) for dd, ll in parts], None,
+        sum(w[1] for w in work), sum(w[2] for w in work), FP16_TC_FLOPS_S,
+        suffix="_split"))
+    out["device_ms_split_900"] = device_ms(split(900)[1])
+    log(timing_line(
+        "maxsim timing at espn's split (K=666 hits then K=334 misses, two "
+        f"launches; 900 then 100: {out['device_ms_split_900']:.4f} ms on "
+        "the device)", out, "_split"))
+    return out
+
+
 def check_ivf_scan(dev, rng, failures) -> dict:
+    """The slice's shape and ragged edges (B, N and D past a tile; D=37,
+    the 4-byte copies; D past 128, in rounds of four chunks through two
+    buffers), the same bits twice; timed at the slice's shape,
+    torch.matmul in full fp32 as the library yardstick."""
     import torch
 
     from repro_torch.kernels.ivf_scan.ops import centroid_scores
@@ -297,7 +417,12 @@ def check_ivf_scan(dev, rng, failures) -> dict:
     cases = [("slice B=64 N=3703 D=128", 64, 3703, 128, True),
              ("B=1 N=37 D=32", 1, 37, 32, False),
              ("B=33 N=130 D=100", 33, 130, 100, False),
-             ("B=70 N=3703 D=128", 70, 3703, 128, False)]
+             ("B=70 N=3703 D=128", 70, 3703, 128, False),
+             ("B=5 N=77 D=37 (4-byte copies)", 5, 77, 37, False),
+             ("B=33 N=130 D=160 (2 rounds)", 33, 130, 160, False),
+             ("B=70 N=3703 D=300 (3 rounds)", 70, 3703, 300, False),
+             ("B=5 N=77 D=258 (3 rounds, 4-byte copies)", 5, 77, 258, False),
+             ("B=64 N=130 D=520 (5 rounds)", 64, 130, 520, False)]
     row = None
     worst = 0.0
     for name, B, N, D, is_unit in cases:
@@ -308,23 +433,31 @@ def check_ivf_scan(dev, rng, failures) -> dict:
         q = torch.tensor(qn, device=dev)
         c = torch.tensor(cn, device=dev)
         out = centroid_scores(q, c)
+        again = centroid_scores(q, c)
         ref = ivf_scan_ref(q, c)
         torch.cuda.synchronize()
         err = float((out - ref).abs().max())
         tol = REL_TOL * max(1.0, float(ref.abs().max()))
-        ok = err <= tol and out.shape == (B, N)
+        same = torch.equal(out, again)
+        ok = err <= tol and out.shape == (B, N) and same
         worst = max(worst, err)
-        log(f"  ivf_scan {name}: max_abs_err={err:.3g} tol={tol:.3g} "
-            f"-> {'ok' if ok else 'FAIL'}")
+        log(f"  ivf_scan {name}: max_abs_err={err:.3g} tol={tol:.3g}, same "
+            f"bits twice {same} -> {'ok' if ok else 'FAIL'}")
         if not ok:
             failures.append(f"ivf_scan {name}")
         if row is None:
+            # bound: q and the centroids read once, the scores written
+            # once; the TF32 tensor cores' three products (3xTF32)
+            n_bytes = 4 * (B * D + N * D + B * N)
             row = timings(lambda: centroid_scores(q, c),
                           lambda: ivf_scan_ref(q, c),
                           lambda: torch.matmul(q, c.T),
-                          4 * (B * D + N * D + B * N), 2 * B * N * D)
+                          n_bytes, 3 * 2 * B * N * D, TF32_TC_FLOPS_S)
+            row["bound_fp32_ops_ms"] = bound_ms(n_bytes, 2 * B * N * D)[0]
             log(timing_line(f"ivf_scan timing (B={B}, N={N}, D={D}; "
-                            f"library torch.matmul)", row))
+                            f"library torch.matmul, TF32 off; bound by fp32 "
+                            f"operations {row['bound_fp32_ops_ms']:.4f} ms)",
+                            row))
     row["max_abs_err"] = worst
     return row
 
@@ -612,6 +745,9 @@ class StageClock:
     def __init__(self):
         self.s = defaultdict(float)
         self.tiles: set = set()
+        self.mode = ""                   # the path being run, for maxsim_k
+        self.maxsim_k: dict = defaultdict(list)   # K of each maxsim call
+        self.maxsim_kernels: dict = defaultdict(int)   # kernel_for's names
 
     def wrap(self, owner, name, key, sync=False):
         import torch
@@ -668,11 +804,15 @@ class StageClock:
         self.wrap(rerank, "_maxsim_np", "maxsim_call")
         self.wrap(rerank, "gather_pack", "gather_pack_kernel", sync=True)
         self.wrap(rerank, "maxsim", "maxsim_kernel", sync=True)
-        # where the tiles that reach maxsim lie, and in which dtype
+        # where the tiles that reach maxsim lie, in which dtype, how many
+        # docs each call scores and which of maxsim's kernels it launches
+        from repro_torch.kernels.maxsim.ops import kernel_for
         timed = rerank.maxsim
 
         def watched(q, q_mask, docs, doc_lens):
             self.tiles.add((docs.device.type, str(docs.dtype)))
+            self.maxsim_k[self.mode].append(docs.shape[0])
+            self.maxsim_kernels[kernel_for(q, docs)] += 1
             return timed(q, q_mask, docs, doc_lens)
         rerank.maxsim = watched
 
@@ -777,6 +917,7 @@ def check_ranked(resp, n_docs, failures, what):
 def run_batches(pipe, corpus, batches, bs, clock, failures, what):
     from repro_torch.core.metrics import mrr_at_k, recall_at_k
     ranked, hits = [], []
+    clock.mode = what
     for i in range(batches):
         sl = slice(i * bs, (i + 1) * bs)
         clock.s.clear()
@@ -1007,6 +1148,22 @@ def main_path(dev, failures, profile=False) -> dict:
         if not clock.tiles or any(d != "cuda" for d, _ in clock.tiles):
             failures.append(f"the rerank's tiles were not all on the card: "
                             f"{sorted(clock.tiles)}")
+        # every maxsim launch of the path on the tensor-core kernel; the
+        # sizes it is called at
+        kernels = dict(clock.maxsim_kernels)
+        log(f"  maxsim calls on the path by kernel: {kernels}")
+        if set(kernels) != {"mma"}:
+            failures.append(f"maxsim calls on the path took {kernels}, "
+                            "not the tensor-core kernel alone")
+        out["maxsim_kernels"] = kernels
+        out["maxsim_k_calls"] = sum(clock.maxsim_k.values(), [])
+        out["maxsim_k"] = {}
+        for mode, ks in [("all", sum(clock.maxsim_k.values(), []))] + \
+                sorted(clock.maxsim_k.items()):
+            qs = np.percentile(ks, [0, 25, 50, 75, 100]).tolist()
+            out["maxsim_k"][mode] = {"calls": len(ks), "quartiles": qs}
+            log(f"  maxsim K over {mode}'s {len(ks)} calls: min, quartiles, "
+                f"max {[round(v, 1) for v in qs]}")
         if profile:
             profile_batch(pipe, corpus, bs)
     base = out["espn"]["batch0"]
@@ -1344,10 +1501,24 @@ def kernel_rows(rows) -> list[dict]:
                       for mode, names in PATH_KERNELS.items()
                       if name in names}
                for name in KERNELS}
+    # maxsim over the path's calls: each call's device_ms and bound taken
+    # at the timed K nearest its own (``PATH_K``)
+    sizes = rows["maxsim"]["path_sizes"]
+    near = [min(sizes, key=lambda s: abs(s - k))
+            for k in rows["path"]["maxsim_k_calls"]]
+    extra = {"maxsim": {"path_kernels": rows["path"]["maxsim_kernels"],
+                        "path_k": rows["path"]["maxsim_k"]["all"],
+                        "path_device_ms_sum": sum(sizes[s]["device_ms"]
+                                                  for s in near),
+                        "path_bound_ms_sum": sum(sizes[s]["bound_ms"]
+                                                 for s in near)}}
+    log(f"  maxsim over the path's {len(near)} calls, at the nearest timed "
+        f"K: {extra['maxsim']['path_device_ms_sum']:.4f} ms on the device, "
+        f"bound {extra['maxsim']['path_bound_ms_sum']:.4f} ms")
     return [{"name": name, "route": "cuda", **meta,
              "launches": sum(by_path[name].values()),
              "launches_by_path": by_path[name], **rows[name],
-             "kernel_ms": rows[name]["ms"]}
+             "kernel_ms": rows[name]["ms"], **extra.get(name, {})}
             for name, meta in KERNELS.items()]
 
 

@@ -1,20 +1,20 @@
 #!/usr/bin/env python3
-"""Old against new, in one process on one card: the redesigned fdescan and
-flash_decode kernels against earlier versions of their CUDA sources.
+"""Old against new, in one process on one card: redesigned CUDA kernels
+against an earlier commit's sources.
 
     python3 kernel_ab.py OLD_DIR
 
-OLD_DIR holds ``fdescan/csrc/fdescan.cu`` and
-``flash_decode/csrc/flash_decode.cu`` as an earlier commit had them (for
+Compares ``maxsim`` and ``ivf_scan``. OLD_DIR holds
+``<name>/csrc/<name>.cu`` for each, as an earlier commit had them (for
 example ``src/repro_torch/kernels`` of a ``git archive`` of that commit,
-unpacked under ``build/``). Both sources must keep that commit's C
-interface: ``fdescan_launch`` as today, ``flash_decode_launch`` with three
-partial buffers (m, l, acc) and a separate combine launch. The old kernels
-are built with the same ``nvcc`` flags into ``build/kernels_old/`` and
-called as that commit's wrappers called them. Each shape is timed in turns
-(old, new, new, old), by ``device_ms`` (20 calls in one CUDA graph) and by
-the per-call ``ms`` of ``chip_smoke.py``; every call is first held to the
-plain version. Prints the card line and one JSON line, last.
+unpacked under ``build/``); each old source keeps the C interface its
+wrapper below calls, ``maxsim_launch`` and ``ivf_scan_launch`` as today
+(any commit since the port began). The old kernels are built with the same
+``nvcc`` flags into ``build/kernels_old/`` and called as their wrappers
+called them. Each shape is timed in turns (old, new, new, old), by
+``device_ms`` (20 calls in one CUDA graph) and by the per-call ``ms`` of
+``chip_smoke.py``; every call is first held to the plain version. Prints
+the card line and one JSON line, last.
 """
 from __future__ import annotations
 
@@ -41,66 +41,6 @@ def build_old(old_dir: str, name: str) -> ctypes.CDLL:
     return ctypes.CDLL(out)
 
 
-def old_fdescan(lib):
-    """The earlier wrapper's launch: argtypes set on every call."""
-    import torch
-
-    def call(q, docs):
-        lib.fdescan_launch.argtypes = [ctypes.c_void_p] * 3 \
-            + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        lib.fdescan_launch.restype = ctypes.c_int
-        b, d = q.shape
-        out = torch.empty(b, docs.shape[0], dtype=torch.float32,
-                          device=q.device)
-        err = lib.fdescan_launch(
-            q.data_ptr(), docs.data_ptr(), out.data_ptr(), b, docs.shape[0],
-            d, int(docs.dtype == torch.float16),
-            torch.cuda.current_stream(q.device).cuda_stream)
-        if err:
-            raise RuntimeError(f"old fdescan: CUDA error {err}")
-        return out
-    return call
-
-
-def old_split_slots(s: int, pairs: int, sms: int) -> tuple[int, int]:
-    """The earlier rule: ~4 blocks an SM over (b, kv) pairs, 64-slot
-    multiples."""
-    n = max(1, min(-(-4 * sms // pairs), -(-s // 64)))
-    split = -(-s // n)
-    split = -(-split // 64) * 64
-    return split, -(-s // split)
-
-
-def old_flash_decode(lib):
-    """The earlier wrapper's launch: the SM count looked up, three partial
-    buffers allocated and argtypes set on every call; two kernels."""
-    import torch
-    dtypes = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-
-    def call(q, kc, vc, lengths):
-        lib.flash_decode_launch.argtypes = [ctypes.c_void_p] * 8 \
-            + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
-        lib.flash_decode_launch.restype = ctypes.c_int
-        b, kv, g, dh = q.shape
-        s = kc.shape[1]
-        out = torch.empty_like(q)
-        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-        split, n = old_split_slots(s, b * kv, sms)
-        pm = torch.empty(b, kv, g, n, dtype=torch.float32, device=q.device)
-        pl = torch.empty_like(pm)
-        pa = torch.empty(b, kv, g, n, dh, dtype=torch.float32,
-                         device=q.device)
-        err = lib.flash_decode_launch(
-            q.data_ptr(), kc.data_ptr(), vc.data_ptr(), lengths.data_ptr(),
-            pm.data_ptr(), pl.data_ptr(), pa.data_ptr(), out.data_ptr(), b,
-            s, kv, g, dh, split, n, dtypes[q.dtype], dh ** -0.5,
-            torch.cuda.current_stream(q.device).cuda_stream)
-        if err:
-            raise RuntimeError(f"old flash_decode: CUDA error {err}")
-        return out
-    return call
-
-
 def in_turns(old, new, check) -> dict:
     """old, new, new, old: each version's device_ms and per-call ms."""
     import chip_smoke
@@ -114,65 +54,135 @@ def in_turns(old, new, check) -> dict:
     return res
 
 
+def old_maxsim(lib):
+    """The earlier wrapper's launch (this commit's C interface)."""
+    import torch
+
+    def call(q, qm, docs, lens):
+        lib.maxsim_launch.argtypes = [ctypes.c_void_p] * 5 \
+            + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        lib.maxsim_launch.restype = ctypes.c_int
+        k, t, d = docs.shape
+        out = torch.empty(k, dtype=torch.float32, device=docs.device)
+        err = lib.maxsim_launch(
+            q.data_ptr(), qm.data_ptr(), docs.data_ptr(), lens.data_ptr(),
+            out.data_ptr(), k, t, d, q.shape[0],
+            int(docs.dtype == torch.float16),
+            torch.cuda.current_stream(docs.device).cuda_stream)
+        if err:
+            raise RuntimeError(f"old maxsim: CUDA error {err}")
+        return out
+    return call
+
+
+def old_ivf_scan(lib):
+    """The earlier wrapper's launch (this commit's C interface)."""
+    import torch
+
+    def call(q, c):
+        lib.ivf_scan_launch.argtypes = [ctypes.c_void_p] * 3 \
+            + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        lib.ivf_scan_launch.restype = ctypes.c_int
+        b, d = q.shape
+        out = torch.empty(b, c.shape[0], dtype=torch.float32,
+                          device=q.device)
+        err = lib.ivf_scan_launch(
+            q.data_ptr(), c.data_ptr(), out.data_ptr(), b, c.shape[0], d,
+            torch.cuda.current_stream(q.device).cuda_stream)
+        if err:
+            raise RuntimeError(f"old ivf_scan: CUDA error {err}")
+        return out
+    return call
+
+
+def compare_maxsim(old_dir, dev, failures, results):
+    """The rerank's shape (K=1,000 fp16 docs) and espn's split of a
+    query's candidates as the path logs it (666 prefetched hits, then 334
+    misses: two launches in one timed call)."""
+    import numpy as np
+    import torch
+
+    import chip_smoke
+    from repro_torch.kernels.maxsim.ops import maxsim
+    from repro_torch.kernels.maxsim.ref import maxsim_ref
+    old = old_maxsim(build_old(old_dir, "maxsim"))
+    rng = np.random.default_rng(0)
+    t, d, lq = 180, 32, 24
+    q = torch.tensor(chip_smoke.unit(rng.standard_normal((lq, d))),
+                     device=dev)
+    qm = torch.ones(lq, device=dev)
+    docs = torch.tensor(chip_smoke.unit(rng.standard_normal((1000, t, d))),
+                        device=dev).half()
+    lens = torch.tensor(np.clip((rng.pareto(2.5, 1000) + 1) * 36, 8, t)
+                        .astype(np.int32), device=dev)
+    ref = maxsim_ref(q, qm, docs, lens)
+    tol = 1e-5 * max(1.0, float(ref.abs().max()))
+
+    def check(fn, which, name):
+        got = fn()
+        got = torch.cat(got) if isinstance(got, tuple) else got
+        err = float((got - ref).abs().max())
+        if err > tol:
+            failures.append(f"maxsim {name} {which}: err {err:.3g} > "
+                            f"{tol:.3g}")
+    name = "maxsim K=1000 T=180 D=32 Lq=24 fp16"
+    results[name] = in_turns(
+        lambda: old(q, qm, docs, lens), lambda: maxsim(q, qm, docs, lens),
+        lambda fn, which: check(fn, which, name))
+    parts = ((docs[:666], lens[:666]), (docs[666:], lens[666:]))
+    name = "maxsim espn split K=666 then K=334"
+    results[name] = in_turns(
+        lambda: tuple(old(q, qm, dd, ll) for dd, ll in parts),
+        lambda: tuple(maxsim(q, qm, dd, ll) for dd, ll in parts),
+        lambda fn, which: check(fn, which, name))
+
+
+def compare_ivf_scan(old_dir, dev, failures, results):
+    """The query path's shape, (64, 3,703, 128) fp32."""
+    import numpy as np
+    import torch
+
+    import chip_smoke
+    from repro_torch.kernels.ivf_scan.ops import centroid_scores
+    from repro_torch.kernels.ivf_scan.ref import ivf_scan_ref
+    old = old_ivf_scan(build_old(old_dir, "ivf_scan"))
+    rng = np.random.default_rng(0)
+    q = torch.tensor(chip_smoke.unit(rng.standard_normal((64, 128))),
+                     device=dev)
+    c = torch.tensor(chip_smoke.unit(rng.standard_normal((3703, 128))),
+                     device=dev)
+    ref = ivf_scan_ref(q, c)
+    tol = 1e-5 * max(1.0, float(ref.abs().max()))
+
+    def check(fn, which):
+        err = float((fn() - ref).abs().max())
+        if err > tol:
+            failures.append(f"ivf_scan {which}: err {err:.3g} > {tol:.3g}")
+    results["ivf_scan B=64 N=3703 D=128"] = in_turns(
+        lambda: old(q, c), lambda: centroid_scores(q, c), check)
+    results["ivf_scan B=64 N=3703 D=128"]["torch.matmul device_ms"] = \
+        chip_smoke.device_ms(lambda: torch.matmul(q, c.T))
+
+
+COMPARE = {"maxsim": compare_maxsim, "ivf_scan": compare_ivf_scan}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("old_dir")
     args = ap.parse_args(argv)
-    import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("kernel_ab.py: no CUDA device visible", file=sys.stderr)
         return 2
     from repro_torch.kernels import _build
-    from repro_torch.kernels.fdescan.ops import fdescan
-    from repro_torch.kernels.fdescan.ref import fdescan_ref
-    from repro_torch.kernels.flash_decode.ops import flash_decode
-    from repro_torch.kernels.flash_decode.ref import flash_decode_ref
-    _build.build(["fdescan", "flash_decode"])
-    old_fd = old_fdescan(build_old(args.old_dir, "fdescan"))
-    old_fl = old_flash_decode(build_old(args.old_dir, "flash_decode"))
+    _build.build(list(COMPARE))
     dev = torch.device("cuda")
     failures: list[str] = []
-    results = {}
-
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
-    rng = np.random.default_rng(0)
-    q = torch.tensor(rng.standard_normal((64, 256)).astype(np.float32),
-                     device=dev)
-    docs = (0.1 * torch.randn(1_000_000, 256, device=dev,
-                              generator=gen)).half()
-    ref = fdescan_ref(q, docs)
-    tol = 1e-5 * max(1.0, float(ref.abs().max()))
-
-    def check_fd(fn, which):
-        err = float((fn() - ref).abs().max())
-        if err > tol:
-            failures.append(f"fdescan {which}: err {err:.3g} > {tol:.3g}")
-    results["fdescan B=64 N=1,000,000 D=256 fp16"] = in_turns(
-        lambda: old_fd(q, docs), lambda: fdescan(q, docs), check_fd)
-    del q, docs, ref
-
-    for name, s, lens in (("path S=4128 lens 4097", 4128, 4097),
-                          ("decode_32k S=32768", 32_768, 32_768)):
-        qd, kc, vc = (torch.randn(shape, generator=gen, device=dev)
-                      .to(torch.bfloat16)
-                      for shape in ((8, 3, 3, 64), (8, s, 3, 64),
-                                    (8, s, 3, 64)))
-        lt = torch.full((8,), lens, dtype=torch.int32, device=dev)
-        ref = flash_decode_ref(qd, kc, vc, lt).float()
-        tol = 2**-7 * max(1.0, float(ref.abs().max()))
-
-        def check_fl(fn, which, ref=ref, tol=tol, name=name):
-            err = float((fn().float() - ref).abs().max())
-            if err > tol:
-                failures.append(f"flash_decode {name} {which}: err "
-                                f"{err:.3g} > {tol:.3g}")
-        results[f"flash_decode B=8 KV=3 G=3 Dh=64 bf16 {name}"] = in_turns(
-            lambda qd=qd, kc=kc, vc=vc, lt=lt: old_fl(qd, kc, vc, lt),
-            lambda qd=qd, kc=kc, vc=vc, lt=lt: flash_decode(qd, kc, vc, lt),
-            check_fl)
-        del qd, kc, vc, ref
+    results: dict = {}
+    for compare in COMPARE.values():
+        compare(args.old_dir, dev, failures, results)
+        torch.cuda.empty_cache()
 
     for shape, r in results.items():
         print(f"{shape}: " + "; ".join(

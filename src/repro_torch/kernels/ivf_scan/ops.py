@@ -11,17 +11,26 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ivf_scan.ref import ivf_scan_ref
 
 
+_LIB = None
+
+
 def _lib():
-    lib = _build.load("ivf_scan")
-    lib.ivf_scan_launch.argtypes = [ctypes.c_void_p] * 3 \
-        + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    lib.ivf_scan_launch.restype = ctypes.c_int
-    return lib
+    """The kernel's library, its C signature set once, at load."""
+    global _LIB
+    if _LIB is None:
+        lib = _build.load("ivf_scan")
+        lib.ivf_scan_launch.argtypes = [ctypes.c_void_p] * 3 \
+            + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        lib.ivf_scan_launch.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
 
 
 def centroid_scores(q: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
     """(B, N) fp32 scores ``q @ centroids.T``; q (B, D), centroids (N, D)
-    fp32. Exactly (B, N): no pad columns."""
+    fp32. Exactly (B, N): no pad columns. On the card the products run on
+    the TF32 tensor cores with each operand in two TF32 parts ("3xTF32"),
+    so that the scores keep fp32 accuracy."""
     if centroids.device.type == "cpu":
         return ivf_scan_ref(q, centroids)
     if centroids.device.type != "cuda":

@@ -1,4 +1,4 @@
-"""MaxSim op: the hand-written CUDA kernel for CUDA tensors, the plain
+"""MaxSim op: the hand-written CUDA kernels for CUDA tensors, the plain
 PyTorch version for CPU tensors. Dispatch goes by the tensors' device only;
 a CUDA tensor never reaches the plain version."""
 from __future__ import annotations
@@ -11,16 +11,44 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.maxsim.ref import maxsim_ref
 
 _SMEM_LIMIT = 227 * 1024       # shared memory a block may use on Hopper
+_LIB = None
 
 
 def _lib():
-    lib = _build.load("maxsim")
-    lib.maxsim_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 \
-        + [ctypes.c_void_p]
-    lib.maxsim_launch.restype = ctypes.c_int
-    lib.maxsim_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.maxsim_smem_bytes.restype = ctypes.c_size_t
-    return lib
+    """The kernels' library, its C signatures set once, at load."""
+    global _LIB
+    if _LIB is None:
+        lib = _build.load("maxsim")
+        lib.maxsim_launch.argtypes = [ctypes.c_void_p] * 5 \
+            + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        lib.maxsim_launch.restype = ctypes.c_int
+        lib.maxsim_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.maxsim_smem_bytes.restype = ctypes.c_size_t
+        lib.maxsim_kernel_for.argtypes = [ctypes.c_void_p] + \
+            [ctypes.c_int] * 4
+        lib.maxsim_kernel_for.restype = ctypes.c_int
+        lib.maxsim_mma_docs_per_block.argtypes = [ctypes.c_int]
+        lib.maxsim_mma_docs_per_block.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
+
+
+def kernel_for(q: torch.Tensor, docs: torch.Tensor) -> str:
+    """Which of the two CUDA kernels ``maxsim`` launches for these CUDA
+    tensors: ``"mma"`` (tensor cores: fp16 docs, D of 16, 32 or 64, Lq of
+    1 to 32, T up to 1,024, 16-byte aligned docs) or ``"simt"`` (every
+    other case). The launch makes the same choice, in the same C function.
+    """
+    return "mma" if _lib().maxsim_kernel_for(
+        docs.data_ptr(), q.shape[1], q.shape[0], docs.shape[1],
+        int(docs.dtype == torch.float16)) else "simt"
+
+
+def mma_docs_per_block(k: int) -> int:
+    """Docs a block of the ``mma`` kernel takes for K docs on this card
+    (1, 2, 4 or 8, from K and the SM count): each is its own instance of
+    the kernel, chosen by the launch in the same C function."""
+    return _lib().maxsim_mma_docs_per_block(k)
 
 
 def maxsim(q: torch.Tensor, q_mask: torch.Tensor, docs: torch.Tensor,
@@ -29,6 +57,8 @@ def maxsim(q: torch.Tensor, q_mask: torch.Tensor, docs: torch.Tensor,
 
     q (Lq, D) fp32, q_mask (Lq,) fp32, docs (K, T, D) fp32 or fp16,
     doc_lens (K,) int32. Tokens at or past ``doc_lens[k]`` never count.
+    On the card fp16 docs run on the tensor cores (``kernel_for``), with q
+    in two fp16 parts so that the scores keep fp32 accuracy.
     """
     if docs.device.type == "cpu":
         return maxsim_ref(q, q_mask, docs, doc_lens)
@@ -58,7 +88,8 @@ def maxsim(q: torch.Tensor, q_mask: torch.Tensor, docs: torch.Tensor,
     if max(k, t * d, lq * d) >= 2**31:
         raise ValueError("maxsim: input too large for 32-bit sizes")
     lib = _lib()
-    if lib.maxsim_smem_bytes(d, lq) > _SMEM_LIMIT:
+    if kernel_for(q, docs) == "simt" \
+            and lib.maxsim_smem_bytes(d, lq) > _SMEM_LIMIT:
         raise ValueError(f"maxsim: Lq={lq}, D={d} needs more shared memory "
                          "than a block has")
     out = torch.empty(k, dtype=torch.float32, device=docs.device)

@@ -15,6 +15,10 @@ from repro_torch.kernels.fdescan import ops as fdescan_ops
 from repro_torch.kernels.fdescan.ref import fdescan_ref
 from repro_torch.kernels.flash_decode import ops
 from repro_torch.kernels.flash_decode.ref import flash_decode_ref
+from repro_torch.kernels.ivf_scan import ops as ivf_ops
+from repro_torch.kernels.ivf_scan.ref import ivf_scan_ref
+from repro_torch.kernels.maxsim import ops as maxsim_ops
+from repro_torch.kernels.maxsim.ref import maxsim_ref
 
 
 @pytest.fixture
@@ -82,5 +86,82 @@ def test_fdescan_matches_plain_version_on_the_card(card, b, n, d, fp16,
     torch.cuda.synchronize()
     assert fdescan_ops.fdescan.launches == before + 1
     assert out.shape == (b, n) and out.dtype == torch.float32
+    err = float((out - ref).abs().max())
+    assert err <= 1e-5 * max(1.0, float(ref.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fp16", [True, False])
+@pytest.mark.parametrize("d", [32, 16, 100])
+@pytest.mark.parametrize("lq", [1, 24, 32, 33])
+def test_maxsim_matches_plain_version_on_the_card(card, lq, d, fp16):
+    """Both kernels at ragged shapes: K of 1 and 37, two K taken from the
+    card's SM count and 1,000, so that the ``mma`` kernel's four instances
+    (a block of 1, 2, 4 or 8 docs) all run; lengths with 0, T and above T,
+    Lq up to 33, D of 16, 32 and 100, fp16 and fp32 docs; each case names
+    the kernel it takes (``mma``: fp16 docs, D of 16/32/64, Lq <= 32). Docs
+    with a token within 1e-5 x max(1, |ref|), zero-length docs within 1e-6
+    relative; a second call gives the same bits."""
+    t = 180
+    want = "mma" if fp16 and d in (16, 32, 64) and lq <= 32 else "simt"
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    ks = (1, 37, 2 * sms - 7, 4 * sms - 9, 1000)
+    assert {maxsim_ops.mma_docs_per_block(k) for k in ks} == {1, 2, 4, 8}
+    for k in ks:
+        r = np.random.default_rng(k * 131 + lq * 7 + d)
+        q = r.standard_normal((lq, d)).astype(np.float32)
+        q /= np.linalg.norm(q, axis=1, keepdims=True)
+        qm = (r.random(lq) > 0.2).astype(np.float32)
+        docs = r.standard_normal((k, t, d)).astype(np.float32)
+        docs /= np.linalg.norm(docs, axis=2, keepdims=True)
+        lens = np.clip((r.pareto(2.5, k) + 1) * 36, 8, t).astype(np.int32)
+        lens[:min(k, 4)] = [0, t, t + 1, 1][:min(k, 4)]
+        args = [torch.from_numpy(a).to(card) for a in (q, qm, docs, lens)]
+        if fp16:
+            args[2] = args[2].half()
+        assert maxsim_ops.kernel_for(args[0], args[2]) == want
+        before = maxsim_ops.maxsim.launches
+        out = maxsim_ops.maxsim(*args)
+        again = maxsim_ops.maxsim(*args)
+        ref = maxsim_ref(*args)
+        torch.cuda.synchronize()
+        assert maxsim_ops.maxsim.launches == before + 2
+        assert out.shape == (k,) and out.dtype == torch.float32
+        assert torch.equal(out, again)
+        live = args[3] > 0
+        if live.any():
+            err = float((out[live] - ref[live]).abs().max())
+            assert err <= 1e-5 * max(1.0, float(ref[live].abs().max()))
+        assert torch.allclose(out[~live], ref[~live], rtol=1e-6, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,d", [
+    (b, n, d) for b in (1, 33, 64, 70) for n in (37, 130, 3703)
+    for d in (32, 100, 128)] + [(5, 77, 37)] + [
+    (b, n, d) for b in (1, 70) for n in (130, 3703)
+    for d in (130, 160, 256, 258, 300, 520)])
+def test_ivf_scan_matches_plain_version_on_the_card(card, b, n, d):
+    """B of 1, 33, 64 and 70 (row groups of 32, ragged), N of 37, 130 and
+    3,703 (column tiles of 32, ragged), D of 32, 100 and 128 (chunks of
+    32, a ragged one), and D = 37 (4-byte copies). D past 128 goes in
+    rounds of four chunks through two buffers: 2 rounds (D 130, 160, 256),
+    3 (D 258, 300: the first buffer's barriers on their second phase) and
+    5 (D 520), on 16-byte copies and on 4-byte ones (D 130, 258). Each
+    within 1e-5 x max(1, |ref|) of the plain version, exactly (B, N), the
+    same bits twice."""
+    r = np.random.default_rng(b * 1000 + n + d)
+    q = torch.from_numpy(r.standard_normal((b, d)).astype(np.float32)).to(
+        card)
+    c = torch.from_numpy(r.standard_normal((n, d)).astype(np.float32)).to(
+        card)
+    before = ivf_ops.centroid_scores.launches
+    out = ivf_ops.centroid_scores(q, c)
+    again = ivf_ops.centroid_scores(q, c)
+    ref = ivf_scan_ref(q, c)
+    torch.cuda.synchronize()
+    assert ivf_ops.centroid_scores.launches == before + 2
+    assert out.shape == (b, n) and out.dtype == torch.float32
+    assert torch.equal(out, again)
     err = float((out - ref).abs().max())
     assert err <= 1e-5 * max(1.0, float(ref.abs().max()))

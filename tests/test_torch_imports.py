@@ -46,7 +46,8 @@ def test_every_module_imports_with_jax_and_repro_blocked():
 def test_sources_name_no_jax_or_reference_import():
     pattern = re.compile(r"^\s*(import\s+(jax|repro)\b(?!_torch)"
                          r"|from\s+(jax|repro)(\.|\s)(?!_torch))", re.M)
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, "chip_smoke.py"),
+             os.path.join(REPO, "kernel_ab.py")]
     for root, _, names in os.walk(PORT):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     hits = []
