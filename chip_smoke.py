@@ -8,15 +8,16 @@ Phases, each of which must pass:
 1. card: the ``nvidia-smi`` name and power limit; no CUDA device -> exit 2;
 2. build: the six CUDA kernels from the checkout's sources, in parallel;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the paths' shapes and at ragged edges (``fdescan`` on both of its
-   kernels, each case naming the one it took; ``flash_decode`` one launch a
-   call and the same bits twice), with its time two ways: ``ms`` (CUDA
-   events around one Python call, median of 50 after warm-up: the host's
-   time to reach the launch is inside) and ``device_ms`` (20 calls in one
-   CUDA graph replayed between two events, / 20: the card's own time, with
-   the profiler's kernel time beside it as a cross-check); the plain
-   version's time, a one-call PyTorch yardstick where there is one (both
-   ways), the least time the card could take and the share of it reached;
+   the paths' shapes and at ragged edges (``fdescan``, ``maxsim`` and
+   ``bitsim`` on both of their kernels, each case naming the one it took;
+   ``flash_decode`` one launch a call and the same bits twice), with its
+   time two ways: ``ms`` (CUDA events around one Python call, median of 50
+   after warm-up: the host's time to reach the launch is inside) and
+   ``device_ms`` (20 calls in one CUDA graph replayed between two events,
+   / 20: the card's own time, with the profiler's kernel time beside it as
+   a cross-check); the plain version's time, a one-call PyTorch yardstick
+   where there is one (both ways), the least time the card could take and
+   the share of it reached;
 4. main path: ``Pipeline.build`` at the ColBERTer widths on a 1M-doc corpus,
    4 batches of 64 queries through ``espn`` and one through ``gds``, then,
    through ``Pipeline.from_artifacts`` on the same corpus, index and layout,
@@ -25,8 +26,10 @@ Phases, each of which must pass:
    build time), and one ``cspn`` batch on the corpus pooled to 32 tokens a
    doc in the ``fixed_stride`` layout, with the same index; every kernel's
    launch count read around each mode's run, the device the rerank's tiles
-   lie on, quality, the simulated latency breakdown, and the wall time per
-   batch split by stage;
+   lie on, the K and the kernel of each maxsim and bitsim call (every one
+   on the tensor cores, or the run fails; bitsim then timed on the device
+   at the K it was called at), quality, the simulated latency breakdown,
+   and the wall time per batch split by stage;
 5. agreement: on a small corpus, at the main path's retrieval settings,
    the card path ranks, scores and bills as the CPU path does in every
    mode (``fde`` in both branches, ``cspn`` on a pooled fixed layout), and
@@ -462,34 +465,91 @@ def check_ivf_scan(dev, rng, failures) -> dict:
     return row
 
 
-def check_bitsim(dev, rng, failures) -> dict:
+def bitsim_inputs(dev, rng, K, T, lq, D, lens, lanes="uint32",
+                  masked=False):
+    """Unit q, its mask (all ones unless ``masked``) and the signs of normal
+    doc tokens in 32-bit lanes (``lanes``: the packing's own lane dtype,
+    re-viewed), on the card."""
     import torch
 
     from repro_torch.core.quantize import binary_pack, to_uint32_lanes
-    from repro_torch.kernels.bitsim.ops import bitsim
+    q = torch.tensor(unit(rng.standard_normal((lq, D))), device=dev)
+    qm = torch.tensor((rng.random(lq) > 0.2) if masked else np.ones(lq),
+                      dtype=torch.float32, device=dev)
+    packed = to_uint32_lanes(binary_pack(
+        rng.standard_normal((K, T, D)).astype(np.float32), dtype=lanes))
+    docs = torch.tensor(packed.view(np.int32), device=dev)
+    lens_t = torch.tensor(np.asarray(lens, np.int32), device=dev)
+    return q, qm, docs, lens_t
+
+
+def bitsim_work(q, docs, lens) -> tuple[float, float, float]:
+    """Bytes (each valid token's lanes, q, the mask, lens, the output once),
+    the tensor cores' operations (two fp16 parts of q against each valid
+    token, as maxsim counts them: no padding of tokens or dims) and the
+    fp32 operations the first port counted."""
+    lq, d = q.shape
+    k, t, w = docs.shape
+    n_tok = float(lens.clamp(0, t).sum())
+    n_bytes = 4 * (lq * d + lq + 2 * k) + 4 * w * n_tok
+    tc_ops = 2 * 2 * lq * d * n_tok
+    fp32_ops = 2 * lq * d * n_tok + lq * n_tok + 2 * k * lq
+    return n_bytes, tc_ops, fp32_ops
+
+
+def check_bitsim(dev, rng, failures) -> dict:
+    """Both kernels, each case naming the one it takes (``mma``, the tensor
+    cores, for Lq of 1 to 32, D up to 64 and T up to 1,024; ``simt`` else),
+    one launch a call and the same bits twice; at D=32, Lq=24, K is chosen
+    so that the ``mma`` kernel's four docs-a-block choices (1, 2, 4 and 8
+    warps) all run. Timed at the bit filter's shape (K=1,000, T=180, W=1,
+    D=32, Lq=24: the row)."""
+    import torch
+
+    from repro_torch.kernels.bitsim.ops import (bitsim, kernel_for,
+                                                mma_docs_per_block)
     from repro_torch.kernels.bitsim.ref import bitsim_ref
     T = 180
-    cases = [  # name, K, Lq, D, lens, lane dtype, query mask
-        ("slice K=1000 W=1 D=32 Lq=24", 1000, 24, 32,
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    k2, k4 = 2 * sms - 7, 4 * sms - 9
+
+    def ragged(k, t=T):
+        return np.r_[0, t, t + 5, rng.integers(0, t + 1, k - 3)]
+    cases = [  # name, K, T, Lq, D, lens, lane dtype, query mask
+        ("slice K=1000 W=1 D=32 Lq=24", 1000, T, 24, 32,
          np.clip((rng.pareto(2.5, 1000) + 1) * 36, 8, T), "uint32", False),
-        ("K=37 lens 0..T masked", 37, 24, 32,
-         np.r_[0, T, rng.integers(0, T + 1, 35)], "uint32", True),
-        ("K=333 W=2 D=40 Lq=7", 333, 7, 40, rng.integers(0, T + 1, 333),
+        ("K=1 Lq=24", 1, T, 24, 32, [T - 3], "uint32", False),
+        ("K=37 lens 0, T, above T, masked", 37, T, 24, 32, ragged(37),
          "uint32", True),
-        ("K=1000 uint8 lanes re-viewed", 1000, 24, 32,
-         rng.integers(0, T + 1, 1000), "uint8", False),
+        (f"K={k2} Lq=24", k2, T, 24, 32, ragged(k2), "uint32", True),
+        (f"K={k4} Lq=24", k4, T, 24, 32, ragged(k4), "uint32", True),
+        ("K=1000 Lq=1", 1000, T, 1, 32, ragged(1000), "uint32", False),
+        ("K=1000 Lq=32 W=2 D=64", 1000, T, 32, 64, ragged(1000), "uint32",
+         True),
+        ("K=333 W=2 D=40 Lq=7", 333, T, 7, 40, ragged(333), "uint32", True),
+        ("K=200 W=1 D=16 Lq=24", 200, T, 24, 16, ragged(200), "uint32",
+         True),
+        ("K=200 W=1 D=8 Lq=24", 200, T, 24, 8, ragged(200), "uint32", True),
+        ("K=200 W=1 D=1 Lq=7", 200, T, 7, 1, ragged(200), "uint8", True),
+        ("K=1000 uint8 lanes re-viewed", 1000, T, 24, 32, ragged(1000),
+         "uint8", False),
+        ("K=300 T=1024", 300, 1024, 24, 32, ragged(300, 1024), "uint32",
+         True),
+        ("K=300 Lq=33 (Lq above 32)", 300, T, 33, 32, ragged(300), "uint32",
+         True),
+        ("K=50 T=1100 (T above 1,024)", 50, 1100, 24, 32, ragged(50, 1100),
+         "uint32", True),
     ]
     row = None
     worst = 0.0
-    for name, K, lq, D, lens, lanes, masked in cases:
-        q = torch.tensor(unit(rng.standard_normal((lq, D))), device=dev)
-        qm = torch.tensor((rng.random(lq) > 0.2) if masked else np.ones(lq),
-                          dtype=torch.float32, device=dev)
-        packed = to_uint32_lanes(binary_pack(
-            rng.standard_normal((K, T, D)).astype(np.float32), dtype=lanes))
-        docs = torch.tensor(packed.view(np.int32), device=dev)
-        lens_t = torch.tensor(np.asarray(lens, np.int32), device=dev)
+    per_block = set()        # mma instances run at D=32, Lq=24
+    for name, K, t, lq, D, lens, lanes, masked in cases:
+        q, qm, docs, lens_t = bitsim_inputs(dev, rng, K, t, lq, D, lens,
+                                            lanes, masked)
+        before = bitsim.launches
         out = bitsim(q, qm, docs, lens_t)
+        again = bitsim(q, qm, docs, lens_t)
+        launched = bitsim.launches - before
         ref = bitsim_ref(q, qm, docs, lens_t)
         torch.cuda.synchronize()
         live = lens_t > 0
@@ -497,25 +557,78 @@ def check_bitsim(dev, rng, failures) -> dict:
         tol = REL_TOL * max(1.0, float(ref[live].abs().max()))
         empty_ok = bool(torch.allclose(out[~live], ref[~live], rtol=1e-6,
                                        atol=0))
-        ok = err <= tol and empty_ok and out.shape == (K,)
+        route = kernel_for(q, docs)
+        want = "mma" if 1 <= lq <= 32 and D <= 64 and t <= 1024 else "simt"
+        same = torch.equal(out, again)
+        ok = (err <= tol and empty_ok and out.shape == (K,) and same
+              and route == want and launched == 2)
         worst = max(worst, err)
-        log(f"  bitsim {name}: max_abs_err={err:.3g} tol={tol:.3g} "
-            f"zero-length docs {'match' if empty_ok else 'DIFFER'} "
-            f"-> {'ok' if ok else 'FAIL'}")
+        if route == "mma":
+            if (D, lq) == (32, 24):
+                per_block.add(mma_docs_per_block(K))
+            route += f", {mma_docs_per_block(K)} docs a block"
+        log(f"  bitsim {name} ({route} kernel): max_abs_err={err:.3g} "
+            f"tol={tol:.3g} zero-length docs "
+            f"{'match' if empty_ok else 'DIFFER'}, same bits twice {same}, "
+            f"{launched} launches for 2 calls -> {'ok' if ok else 'FAIL'}")
         if not ok:
             failures.append(f"bitsim {name}")
         if row is None:                       # the bit filter's own shape
-            W = docs.shape[2]
-            n_tok = float(lens_t.clamp(0, T).sum())
-            n_bytes = 4 * (lq * D + lq + 2 * K) + 4 * W * n_tok
-            n_ops = 2 * lq * D * n_tok + lq * n_tok + 2 * K * lq
+            n_bytes, tc_ops, fp32_ops = bitsim_work(q, docs, lens_t)
             row = timings(lambda: bitsim(q, qm, docs, lens_t),
                           lambda: bitsim_ref(q, qm, docs, lens_t), None,
-                          n_bytes, n_ops)
-            log(timing_line(f"bitsim timing (K={K}, T={T}, W={W}, D={D}, "
-                            f"Lq={lq}, {int(n_tok)} valid tokens)", row))
+                          n_bytes, tc_ops, FP16_TC_FLOPS_S)
+            row["bound_fp32_ops_ms"] = bound_ms(n_bytes, fp32_ops)[0]
+            log(timing_line(
+                f"bitsim timing (K={K}, T={t}, W={docs.shape[2]}, D={D}, "
+                f"Lq={lq}, {int(lens_t.clamp(0, t).sum())} valid tokens, "
+                f"{route} kernel; no one PyTorch call computes a "
+                f"length-masked max-then-sum; bound by fp32 operations "
+                f"{row['bound_fp32_ops_ms']:.4f} ms)", row))
+    if per_block != {1, 2, 4, 8}:
+        failures.append(f"bitsim: the mma kernel ran at {sorted(per_block)}"
+                        " docs a block, not at each of 1, 2, 4 and 8")
     row["max_abs_err"] = worst
     return row
+
+
+def time_bitsim_path(dev, ks, failures) -> dict:
+    """bitsim on the card at the K the bit filter called it at: the logged
+    calls' min, median and max, on the slice's distribution (Lq=24, T=180,
+    W=1, D=32), each first held to the plain version; the path's calls
+    summed on the device, each at the nearest of them."""
+    from repro_torch.kernels.bitsim.ops import bitsim
+    from repro_torch.kernels.bitsim.ref import bitsim_ref
+    rng = np.random.default_rng(1)
+    T = 180
+    timed = sorted({int(v) for v in np.percentile(ks, [0, 50, 100],
+                                                   method="nearest")})
+    q, qm, docs, lens = bitsim_inputs(
+        dev, rng, max(timed), T, 24, 32,
+        np.clip((rng.pareto(2.5, max(timed)) + 1) * 36, 8, T))
+    ref = bitsim_ref(q, qm, docs, lens)
+    tol = REL_TOL * max(1.0, float(ref.abs().max()))
+    sizes = {}
+    for k in timed:
+        err = float((bitsim(q, qm, docs[:k], lens[:k]) - ref[:k]).abs().max())
+        if err > tol:
+            failures.append(f"bitsim path K={k}: err {err:.3g} > {tol:.3g}")
+        n_bytes, tc_ops, _ = bitsim_work(q, docs[:k], lens[:k])
+        sizes[k] = {"device_ms": device_ms(
+                        lambda k=k: bitsim(q, qm, docs[:k], lens[:k])),
+                    "bound_ms": bound_ms(n_bytes, tc_ops,
+                                         FP16_TC_FLOPS_S)[0],
+                    "max_abs_err": err}
+    near = [min(sizes, key=lambda s: abs(s - k)) for k in ks]
+    out = {"path_sizes": sizes,
+           "path_device_ms_sum": sum(sizes[s]["device_ms"] for s in near),
+           "path_bound_ms_sum": sum(sizes[s]["bound_ms"] for s in near)}
+    log("  bitsim on the device at the path's K: " + ", ".join(
+        f"K={k} {v['device_ms']:.4f} ms (bound {v['bound_ms']:.4f})"
+        for k, v in sizes.items()) + f"; the path's {len(ks)} calls "
+        f"{out['path_device_ms_sum']:.4f} ms on the device, bound "
+        f"{out['path_bound_ms_sum']:.4f} ms")
+    return out
 
 
 def check_fdescan(dev, rng, failures) -> dict:
@@ -748,6 +861,8 @@ class StageClock:
         self.mode = ""                   # the path being run, for maxsim_k
         self.maxsim_k: dict = defaultdict(list)   # K of each maxsim call
         self.maxsim_kernels: dict = defaultdict(int)   # kernel_for's names
+        self.bitsim_k: dict = defaultdict(list)   # K of each bitsim call
+        self.bitsim_kernels: dict = defaultdict(int)
 
     def wrap(self, owner, name, key, sync=False):
         import torch
@@ -815,6 +930,15 @@ class StageClock:
             self.maxsim_kernels[kernel_for(q, docs)] += 1
             return timed(q, q_mask, docs, doc_lens)
         rerank.maxsim = watched
+        # the same for the bit filter's bitsim calls
+        from repro_torch.kernels.bitsim import ops as bitsim_ops
+        timed_bits = backends.bitsim
+
+        def watched_bits(q, q_mask, docs_packed, doc_lens):
+            self.bitsim_k[self.mode].append(docs_packed.shape[0])
+            self.bitsim_kernels[bitsim_ops.kernel_for(q, docs_packed)] += 1
+            return timed_bits(q, q_mask, docs_packed, doc_lens)
+        backends.bitsim = watched_bits
 
     def split(self, wall: float) -> dict:
         s = self.s
@@ -1164,6 +1288,23 @@ def main_path(dev, failures, profile=False) -> dict:
             out["maxsim_k"][mode] = {"calls": len(ks), "quartiles": qs}
             log(f"  maxsim K over {mode}'s {len(ks)} calls: min, quartiles, "
                 f"max {[round(v, 1) for v in qs]}")
+        # the same for the bit filter (bitvec, cascade), and bitsim on the
+        # device at the K it was called at
+        kernels = dict(clock.bitsim_kernels)
+        log(f"  bitsim calls on the path by kernel: {kernels}")
+        if set(kernels) != {"mma"}:
+            failures.append(f"bitsim calls on the path took {kernels}, "
+                            "not the tensor-core kernel alone")
+        out["bitsim_kernels"] = kernels
+        out["bitsim_k"] = {}
+        for mode, ks in [("all", sum(clock.bitsim_k.values(), []))] + \
+                sorted(clock.bitsim_k.items()):
+            qs = np.percentile(ks, [0, 50, 100]).tolist()
+            out["bitsim_k"][mode] = {"calls": len(ks), "min_median_max": qs}
+            log(f"  bitsim K over {mode}'s {len(ks)} calls: min, median, "
+                f"max {[round(v, 1) for v in qs]}")
+        out["bitsim_path"] = time_bitsim_path(
+            dev, sum(clock.bitsim_k.values(), []), failures)
         if profile:
             profile_batch(pipe, corpus, bs)
     base = out["espn"]["batch0"]
@@ -1515,6 +1656,9 @@ def kernel_rows(rows) -> list[dict]:
     log(f"  maxsim over the path's {len(near)} calls, at the nearest timed "
         f"K: {extra['maxsim']['path_device_ms_sum']:.4f} ms on the device, "
         f"bound {extra['maxsim']['path_bound_ms_sum']:.4f} ms")
+    extra["bitsim"] = {"path_kernels": rows["path"]["bitsim_kernels"],
+                       "path_k": rows["path"]["bitsim_k"]["all"],
+                       **rows["path"]["bitsim_path"]}
     return [{"name": name, "route": "cuda", **meta,
              "launches": sum(by_path[name].values()),
              "launches_by_path": by_path[name], **rows[name],

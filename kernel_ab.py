@@ -4,17 +4,17 @@ against an earlier commit's sources.
 
     python3 kernel_ab.py OLD_DIR
 
-Compares ``maxsim`` and ``ivf_scan``. OLD_DIR holds
+Compares ``bitsim``, ``maxsim`` and ``ivf_scan``. OLD_DIR holds
 ``<name>/csrc/<name>.cu`` for each, as an earlier commit had them (for
 example ``src/repro_torch/kernels`` of a ``git archive`` of that commit,
 unpacked under ``build/``); each old source keeps the C interface its
-wrapper below calls, ``maxsim_launch`` and ``ivf_scan_launch`` as today
-(any commit since the port began). The old kernels are built with the same
-``nvcc`` flags into ``build/kernels_old/`` and called as their wrappers
-called them. Each shape is timed in turns (old, new, new, old), by
-``device_ms`` (20 calls in one CUDA graph) and by the per-call ``ms`` of
-``chip_smoke.py``; every call is first held to the plain version. Prints
-the card line and one JSON line, last.
+wrapper below calls, ``bitsim_launch``, ``maxsim_launch`` and
+``ivf_scan_launch`` as today (any commit since the port began). The old
+kernels are built with the same ``nvcc`` flags into ``build/kernels_old/``
+and called as their wrappers called them. Each shape is timed in turns
+(old, new, new, old), by ``device_ms`` (20 calls in one CUDA graph) and by
+the per-call ``ms`` of ``chip_smoke.py``; every call is first held to the
+plain version. Prints the card line and one JSON line, last.
 """
 from __future__ import annotations
 
@@ -95,6 +95,63 @@ def old_ivf_scan(lib):
     return call
 
 
+def old_bitsim(lib):
+    """The earlier wrapper's launch (this commit's C interface)."""
+    import torch
+
+    def call(q, qm, docs, lens):
+        lib.bitsim_launch.argtypes = [ctypes.c_void_p] * 5 \
+            + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        lib.bitsim_launch.restype = ctypes.c_int
+        k, t, w = docs.shape
+        out = torch.empty(k, dtype=torch.float32, device=docs.device)
+        err = lib.bitsim_launch(
+            q.data_ptr(), qm.data_ptr(), docs.data_ptr(), lens.data_ptr(),
+            out.data_ptr(), k, t, w, q.shape[1], q.shape[0],
+            torch.cuda.current_stream(docs.device).cuda_stream)
+        if err:
+            raise RuntimeError(f"old bitsim: CUDA error {err}")
+        return out
+    return call
+
+
+def compare_bitsim(old_dir, dev, failures, results):
+    """The bit filter's shape (K=1,000 docs of T=180 sign-packed tokens,
+    W=1, D=32, Lq=24, Pareto lengths), K=1,000 at Lq=7, D=40 (W=2), and the
+    bit filter's shape with every length 0, 16 or 180 (no tile, one 16-row
+    tile or twelve a doc: the fixed cost of a launch and the cost of a
+    tile)."""
+    import numpy as np
+    import torch
+
+    import chip_smoke
+    from repro_torch.kernels.bitsim.ops import bitsim
+    from repro_torch.kernels.bitsim.ref import bitsim_ref
+    old = old_bitsim(build_old(old_dir, "bitsim"))
+    rng = np.random.default_rng(0)
+    t = 180
+    for lq, d, fill in ((24, 32, None), (7, 40, None), (24, 32, 0),
+                        (24, 32, 16), (24, 32, 180)):
+        lens = np.clip((rng.pareto(2.5, 1000) + 1) * 36, 8, t) \
+            if fill is None else np.full(1000, fill)
+        q, qm, docs, lens = chip_smoke.bitsim_inputs(dev, rng, 1000, t, lq,
+                                                     d, lens)
+        ref = bitsim_ref(q, qm, docs, lens)
+        tol = 1e-5 * max(1.0, float(ref.abs().max()))
+        name = f"bitsim K=1000 T=180 W={docs.shape[2]} D={d} Lq={lq}" + (
+            "" if fill is None else f" lengths all {fill}")
+
+        def check(fn, which, name=name, ref=ref, tol=tol):
+            err = float((fn() - ref).abs().max())
+            if err > tol:
+                failures.append(f"{name} {which}: err {err:.3g} > {tol:.3g}")
+        results[name] = in_turns(
+            lambda q=q, qm=qm, docs=docs, lens=lens: old(q, qm, docs, lens),
+            lambda q=q, qm=qm, docs=docs, lens=lens: bitsim(q, qm, docs,
+                                                            lens),
+            check)
+
+
 def compare_maxsim(old_dir, dev, failures, results):
     """The rerank's shape (K=1,000 fp16 docs) and espn's split of a
     query's candidates as the path logs it (666 prefetched hits, then 334
@@ -164,7 +221,8 @@ def compare_ivf_scan(old_dir, dev, failures, results):
         chip_smoke.device_ms(lambda: torch.matmul(q, c.T))
 
 
-COMPARE = {"maxsim": compare_maxsim, "ivf_scan": compare_ivf_scan}
+COMPARE = {"bitsim": compare_bitsim, "maxsim": compare_maxsim,
+           "ivf_scan": compare_ivf_scan}
 
 
 def main(argv=None) -> int:

@@ -1,11 +1,11 @@
 """Build and load the port's CUDA kernels.
 
-Each kernel is one ``csrc/<name>.cu`` file with a plain C interface. It is
-compiled by ``nvcc`` for ``sm_90a`` into a shared library under
+Each kernel is one ``csrc/<name>.cu`` file with a plain C interface; it may
+include the headers in ``kernels/csrc/``. It is compiled by ``nvcc`` for ``sm_90a`` into a shared library under
 ``build/kernels/`` at the repository root (listed in ``.gitignore``) the
 first time it is needed, and loaded with ``ctypes``. The library name
-carries a hash of the source and the flags, so an edited source is rebuilt
-and an unchanged one is reused. A failed build raises; nothing is
+carries a hash of the source, the shared headers and the flags, so an edited
+source or header is rebuilt and an unchanged one is reused. A failed build raises; nothing is
 downloaded.
 
 Nothing here runs at import time: the CPU tests import every module on a
@@ -23,6 +23,7 @@ import time
 from pathlib import Path
 
 KERNELS_DIR = Path(__file__).resolve().parent
+HEADERS_DIR = KERNELS_DIR / "csrc"     # headers the sources include
 BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
@@ -48,6 +49,8 @@ def _source(name: str) -> Path:
 
 def _target(name: str) -> Path:
     h = hashlib.sha1(_source(name).read_bytes())
+    for header in sorted(HEADERS_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 

@@ -1,4 +1,4 @@
-"""Packed-bit MaxSim op: the hand-written CUDA kernel for CUDA tensors, the
+"""Packed-bit MaxSim op: the hand-written CUDA kernels for CUDA tensors, the
 plain PyTorch version for CPU tensors. Dispatch goes by the tensors' device
 only; a CUDA tensor never reaches the plain version."""
 from __future__ import annotations
@@ -11,16 +11,41 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.bitsim.ref import bitsim_ref
 
 _SMEM_LIMIT = 227 * 1024       # shared memory a block may use on Hopper
+_LIB = None
 
 
 def _lib():
-    lib = _build.load("bitsim")
-    lib.bitsim_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 \
-        + [ctypes.c_void_p]
-    lib.bitsim_launch.restype = ctypes.c_int
-    lib.bitsim_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.bitsim_smem_bytes.restype = ctypes.c_size_t
-    return lib
+    """The kernels' library, its C signatures set once, at load."""
+    global _LIB
+    if _LIB is None:
+        lib = _build.load("bitsim")
+        lib.bitsim_launch.argtypes = [ctypes.c_void_p] * 5 \
+            + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        lib.bitsim_launch.restype = ctypes.c_int
+        lib.bitsim_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.bitsim_smem_bytes.restype = ctypes.c_size_t
+        lib.bitsim_kernel_for.argtypes = [ctypes.c_int] * 3
+        lib.bitsim_kernel_for.restype = ctypes.c_int
+        lib.bitsim_mma_docs_per_block.argtypes = [ctypes.c_int]
+        lib.bitsim_mma_docs_per_block.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
+
+
+def kernel_for(q: torch.Tensor, docs_packed: torch.Tensor) -> str:
+    """Which of the two CUDA kernels ``bitsim`` launches for these CUDA
+    tensors: ``"mma"`` (tensor cores: Lq of 1 to 32, D up to 64, T up to
+    1,024) or ``"simt"`` (every other case). The launch makes the same
+    choice, in the same C function."""
+    return "mma" if _lib().bitsim_kernel_for(
+        q.shape[1], q.shape[0], docs_packed.shape[1]) else "simt"
+
+
+def mma_docs_per_block(k: int) -> int:
+    """Docs (one warp each) a block of the ``mma`` kernel takes for K docs
+    on this card (1, 2, 4 or 8, from K and the SM count), as the launch
+    chooses it in the same C function."""
+    return _lib().bitsim_mma_docs_per_block(k)
 
 
 def bitsim(q: torch.Tensor, q_mask: torch.Tensor, docs_packed: torch.Tensor,
@@ -31,6 +56,9 @@ def bitsim(q: torch.Tensor, q_mask: torch.Tensor, docs_packed: torch.Tensor,
     q (Lq, D) fp32, q_mask (Lq,) fp32, docs_packed (K, T, W) int32 or
     uint32 lanes with 32 * W >= D (bit i of lane w is dim 32w + i),
     doc_lens (K,) int32. Tokens at or past ``doc_lens[k]`` never count.
+    On the card the bit filter's shapes run on the tensor cores
+    (``kernel_for``), with q in two fp16 parts so that the scores keep
+    fp32 accuracy.
     """
     if docs_packed.device.type == "cpu":
         return bitsim_ref(q, q_mask, docs_packed, doc_lens)
@@ -62,7 +90,8 @@ def bitsim(q: torch.Tensor, q_mask: torch.Tensor, docs_packed: torch.Tensor,
     if max(k, t * w, lq * d) >= 2**31:
         raise ValueError("bitsim: input too large for 32-bit sizes")
     lib = _lib()
-    if lib.bitsim_smem_bytes(d, lq) > _SMEM_LIMIT:
+    if kernel_for(q, docs_packed) == "simt" \
+            and lib.bitsim_smem_bytes(d, lq) > _SMEM_LIMIT:
         raise ValueError(f"bitsim: Lq={lq}, D={d} needs more shared memory "
                          "than a block has")
     out = torch.empty(k, dtype=torch.float32, device=docs_packed.device)

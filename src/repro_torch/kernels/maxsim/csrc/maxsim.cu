@@ -21,14 +21,8 @@
 //     the ones past Lq skipped), K is D in 16-deep steps. Only the 16-row
 //     tiles below lens[k] are read and multiplied: a doc wastes at most 15
 //     rows, where wgmma's 64-row tiles would pad a 65-token doc to 128.
-//   - q in two fp16 parts, as fdescan's wgmma kernel splits it. q is fp32;
-//     one rounding to fp16 costs ~2^-12 of sum|q_i d_i| per query token.
-//     Query token i is scaled by the power of two that puts its largest
-//     |q| in [1, 2) (from the float's exponent bits, clamped to the normal
-//     range; exact), hi = fp16(q'), lo = fp16((q' - hi) * 2^11); two fp32
-//     accumulators, v = acc_hi + 2^-11 acc_lo. The max over doc tokens
-//     commutes with the positive scale, so v is unscaled once per query
-//     token, after the max.
+//   - q in two fp16 parts under a power-of-two scale, unscaled after the
+//     max (../../csrc/mma_common.cuh, which bitsim.cu shares).
 //   - A block of 16 warps takes 1, 2, 4 or 8 consecutive docs: as few as
 //     still give every SM a block at this K (fewer tiles a warp, a shorter
 //     chain of latencies), 8 from K = 8 x 132 on. The docs' 16-row tiles
@@ -56,6 +50,8 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "../../csrc/mma_common.cuh"
 
 namespace {
 
@@ -196,15 +192,17 @@ cudaError_t launch_simt(const float* q, const float* qmask, const DocT* docs,
 // Tensor-core kernel (fp16 docs)
 // --------------------------------------------------------------------------
 
-constexpr int kMmaWarps = 16;
-constexpr int kMmaThreads = 32 * kMmaWarps;
-constexpr int kMaxDocs = 8;            // docs a block, at most
-constexpr int kNT = 4;                 // n-tiles of 8 query tokens
-constexpr int kMaxLq = 8 * kNT;
+using mma_common::kLoScale;
+using mma_common::kMaxDocs;
+using mma_common::kMaxLq;
+using mma_common::kMmaThreads;
+using mma_common::kMmaWarps;
+using mma_common::kNT;
+using mma_common::mma_16816;
+
 constexpr int kSlots = 4;              // 16-row tiles a warp has in flight
 // doc tokens (T) the kernel takes: a warp's items fit its 32 lanes
 constexpr int kMaxT = 16 * 32 * kMmaWarps / kMaxDocs;
-constexpr float kLoScale = 2048.f;     // 2^11
 
 // Staged doc row pitch in bytes: 16 bytes of padding put the 8 rows an
 // ldmatrix phase reads in 8 different 16-byte bank groups. q's rows are
@@ -243,17 +241,6 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], uint32_t addr) {
       : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
       : "r"(addr)
       : "memory");
-}
-
-// d (16 x 8, fp32) += a (16 x 16, fp16, row) . b (16 x 8, fp16, col). Not
-// volatile: the compiler may interleave independent products.
-__device__ __forceinline__ void mma_16816(float (&d)[4],
-                                          const uint32_t (&a)[4],
-                                          const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 template <int KS, int kDocs>   // D = 16 * KS; kDocs docs a block
@@ -350,27 +337,19 @@ maxsim_mma(const float* __restrict__ q, const float* __restrict__ qmask,
     float mx = 0.f;
 #pragma unroll
     for (int u = 0; u < kPerLane; ++u) mx = fmaxf(mx, fabsf(qv[r][u]));
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-    // mx = 1.f * 2^(be - 127): the scale 2^(127 - be) puts it in [1, 2)
-    const int be = min(253, max(1, static_cast<int>(
-                                       (__float_as_uint(mx) >> 23) & 0xff)));
-    const float scale = __uint_as_float(static_cast<uint32_t>(254 - be)
-                                        << 23);
+    float inv;
+    const float scale = mma_common::warp_pow2_scale(mx, inv);
     if (lane == 0) {
-      unscale[i] = __uint_as_float(static_cast<uint32_t>(be) << 23);
+      unscale[i] = inv;
       qm[i] = mv[r];
     }
 #pragma unroll
     for (int u = 0; u < kPerLane; ++u) {
       const int d = lane + 32 * u;
       if (d >= D) break;
-      const float v = qv[r][u] * scale;
-      const __half h = __float2half_rn(v);
-      reinterpret_cast<__half*>(q_hi + i * kPitch)[d] = h;
-      reinterpret_cast<__half*>(q_lo + i * kPitch)[d] =
-          __float2half_rn((v - __half2float(h)) * kLoScale);
+      mma_common::split_hi_lo(qv[r][u] * scale,
+                              reinterpret_cast<__half*>(q_hi + i * kPitch)[d],
+                              reinterpret_cast<__half*>(q_lo + i * kPitch)[d]);
     }
   }
   __syncthreads();
@@ -461,13 +440,10 @@ cudaError_t launch_mma_docs(const float* q, const float* qmask,
                             const __half* docs, const int* lens, float* out,
                             int K, int T, int Lq, cudaStream_t stream) {
   static bool smem_set = false;       // once: the largest T it takes
-  if (!smem_set) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        maxsim_mma<KS, kDocs>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        mma_smem_bytes(16 * KS, kMaxT, kDocs));
-    if (e != cudaSuccess) return e;
-    smem_set = true;
-  }
+  const cudaError_t e = mma_common::allow_smem(
+      maxsim_mma<KS, kDocs>, mma_smem_bytes(16 * KS, kMaxT, kDocs),
+      smem_set);
+  if (e != cudaSuccess) return e;
   maxsim_mma<KS, kDocs>
       <<<(K + kDocs - 1) / kDocs, kMmaThreads,
          mma_smem_bytes(16 * KS, T, kDocs), stream>>>(q, qmask, docs, lens,
@@ -475,52 +451,25 @@ cudaError_t launch_mma_docs(const float* q, const float* qmask,
   return cudaGetLastError();
 }
 
-int sm_count() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  return sms;
-}
-
-}  // namespace
-
-extern "C" {
-
-// Docs a block of the tensor-core kernel takes for K docs: as few as still
-// give one block an SM (fewer items a warp, a shorter chain of latencies),
-// 1, 2, 4 or kMaxDocs.
-int maxsim_mma_docs_per_block(int K) {
-  const int per_sm = (K + sm_count() - 1) / sm_count();
-  return per_sm <= 1 ? 1 : per_sm <= 2 ? 2 : per_sm <= 4 ? 4 : kMaxDocs;
-}
-
-}  // extern "C"
-
-namespace {
-
 template <int KS>
 cudaError_t launch_mma(const float* q, const float* qmask, const __half* docs,
                        const int* lens, float* out, int K, int T, int Lq,
                        cudaStream_t s) {
-  switch (maxsim_mma_docs_per_block(K)) {
-    case 1:
-      return launch_mma_docs<KS, 1>(q, qmask, docs, lens, out, K, T, Lq, s);
-    case 2:
-      return launch_mma_docs<KS, 2>(q, qmask, docs, lens, out, K, T, Lq, s);
-    case 4:
-      return launch_mma_docs<KS, 4>(q, qmask, docs, lens, out, K, T, Lq, s);
-    default:
-      return launch_mma_docs<KS, kMaxDocs>(q, qmask, docs, lens, out, K, T,
-                                           Lq, s);
-  }
+  return mma_common::launch_docs_per_block(K, [&](auto docs_a_block) {
+    return launch_mma_docs<KS, decltype(docs_a_block)::value>(
+        q, qmask, docs, lens, out, K, T, Lq, s);
+  });
 }
 
 }  // namespace
 
 extern "C" {
+
+// Docs a block of the tensor-core kernel takes for K docs (1, 2, 4 or 8,
+// from K and the SM count: mma_common::docs_per_block).
+int maxsim_mma_docs_per_block(int K) {
+  return mma_common::docs_per_block(K);
+}
 
 // 1 if maxsim_launch takes the tensor-core kernel for these inputs, 0 if
 // the SIMT one.

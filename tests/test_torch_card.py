@@ -11,6 +11,9 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.quantize import binary_pack, to_uint32_lanes
+from repro_torch.kernels.bitsim import ops as bitsim_ops
+from repro_torch.kernels.bitsim.ref import bitsim_ref
 from repro_torch.kernels.fdescan import ops as fdescan_ops
 from repro_torch.kernels.fdescan.ref import fdescan_ref
 from repro_torch.kernels.flash_decode import ops
@@ -165,3 +168,74 @@ def test_ivf_scan_matches_plain_version_on_the_card(card, b, n, d):
     assert torch.equal(out, again)
     err = float((out - ref).abs().max())
     assert err <= 1e-5 * max(1.0, float(ref.abs().max()))
+
+
+def bitsim_case(card, k, t, d, lq, seed, lanes="uint32"):
+    """Unit q, a query mask, the signs of normal doc tokens (in uint8 lanes
+    re-viewed as 32-bit ones, or uint32), Pareto lengths with 0, T, above
+    T and 1 first."""
+    r = np.random.default_rng(seed)
+    q = r.standard_normal((lq, d)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    qm = (r.random(lq) > 0.2).astype(np.float32)
+    packed = to_uint32_lanes(binary_pack(
+        r.standard_normal((k, t, d)).astype(np.float32), dtype=lanes))
+    lens = np.clip((r.pareto(2.5, k) + 1) * 36, 8, t).astype(np.int32)
+    lens[:min(k, 4)] = [0, t, t + 1, 1][:min(k, 4)]
+    return [torch.from_numpy(a).to(card)
+            for a in (q, qm, packed.view(np.int32), lens)]
+
+
+def check_bitsim(args, want):
+    """The kernel ``kernel_for`` names, one launch a call, the same bits
+    twice; docs with a token within 1e-5 x max(1, |ref|), zero-length docs
+    within 1e-6 relative."""
+    k = args[2].shape[0]
+    assert bitsim_ops.kernel_for(args[0], args[2]) == want
+    before = bitsim_ops.bitsim.launches
+    out = bitsim_ops.bitsim(*args)
+    again = bitsim_ops.bitsim(*args)
+    ref = bitsim_ref(*args)
+    torch.cuda.synchronize()
+    assert bitsim_ops.bitsim.launches == before + 2
+    assert out.shape == (k,) and out.dtype == torch.float32
+    assert torch.equal(out, again)
+    live = args[3] > 0
+    if live.any():
+        err = float((out[live] - ref[live]).abs().max())
+        assert err <= 1e-5 * max(1.0, float(ref[live].abs().max()))
+    assert torch.allclose(out[~live], ref[~live], rtol=1e-6, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 8, 16, 32, 40, 64])
+@pytest.mark.parametrize("lq", [1, 7, 24, 32, 33])
+def test_bitsim_matches_plain_version_on_the_card(card, lq, d):
+    """Both kernels at ragged shapes: K of 1 and 37, two K taken from the
+    card's SM count and 1,000, so that the ``mma`` kernel's four docs-a-
+    block choices (1, 2, 4 and 8 warps) all run; lengths with 0, T and
+    above T; D of 1, 8, 16, 32 (one lane: 2 steps of 16), 40 and 64 (two
+    lanes: 3 and 4 steps), Lq of 1, 7, 24, 32 (``mma``) and 33
+    (``simt``)."""
+    t = 180
+    want = "mma" if lq <= 32 else "simt"
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    ks = (1, 37, 2 * sms - 7, 4 * sms - 9, 1000)
+    assert {bitsim_ops.mma_docs_per_block(k) for k in ks} == {1, 2, 4, 8}
+    for k in ks:
+        check_bitsim(bitsim_case(card, k, t, d, lq, k * 131 + lq * 7 + d),
+                     want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,t,d,lq,lanes,want", [
+    (1000, 180, 32, 24, "uint8", "mma"), (333, 180, 40, 7, "uint8", "mma"),
+    (1000, 1024, 32, 24, "uint32", "mma"),
+    (50, 1100, 32, 24, "uint32", "simt"), (50, 1100, 64, 7, "uint8", "simt"),
+    (60, 180, 96, 24, "uint32", "simt")])
+def test_bitsim_lanes_and_long_docs_on_the_card(card, k, t, d, lq, lanes,
+                                                 want):
+    """uint8 lanes re-viewed as 32-bit ones on the ``mma`` kernel; T of
+    1,024 (its longest: four rounds of loads) and, past it, 1,100 on the
+    ``simt`` kernel, as is D = 96."""
+    check_bitsim(bitsim_case(card, k, t, d, lq, k + t + d + lq, lanes), want)
