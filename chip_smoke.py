@@ -25,21 +25,43 @@ Phases, each of which must pass:
    and ``cascade`` (their bit and FDE tables built once, with size and
    build time), and one ``cspn`` batch on the corpus pooled to 32 tokens a
    doc in the ``fixed_stride`` layout, with the same index; every kernel's
-   launch count read around each mode's run, the device the rerank's tiles
+   launch count read around each mode's run (and, in phases 5-7, around
+   each of their paths), the device the rerank's tiles
    lie on, the K and the kernel of each maxsim and bitsim call (every one
    on the tensor cores, or the run fails; bitsim then timed on the device
    at the K it was called at), quality, the simulated latency breakdown,
    and the wall time per batch split by stage;
-5. agreement: on a small corpus, at the main path's retrieval settings,
+5. persist: the main path's index, layout, bit and FDE tables saved (no
+   corpus) under ``build/``, loaded back onto the card with
+   ``Pipeline.load``, one espn and one cascade batch held bit for bit to
+   the unsaved pipeline's; bytes written, save and load seconds;
+6. serve: ``RetrievalServer`` on the loaded espn pipeline (batches of up to
+   32): 128 requests through ``query_async``, each held to
+   ``Pipeline.search`` of its query alone, the server's latency summary
+   and throughput; then a gds server under ``SLOPolicy`` offered a
+   Poisson stream (``serve/workload.py``) at twice that throughput, under
+   a 50 ms deadline and under twice the static median latency: the shed
+   fraction and goodput under the SLO;
+7. faults: the layout's crc32 pass timed, two espn batches with seeded
+   read errors, stalls and corruptions (checksums on, degraded answers
+   on): the counters, the degraded queries, and maxsim launched for the
+   non-degraded queries alone; a batch whose every read fails (no maxsim,
+   no gather_pack); one traced server batch exported to Perfetto and read
+   back by ``analyze_trace``;
+8. agreement: on a small corpus, at the main path's retrieval settings,
    the card path ranks, scores and bills as the CPU path does in every
    mode (``fde`` in both branches, ``cspn`` on a pooled fixed layout), and
-   the card builds the FDE table the CPU builds;
-6. decode path: SmolLM-135M at full width and depth (random weights from a
+   the card builds the FDE table the CPU builds and builds its IVF index
+   and FDE table the same twice; with faults on, the card
+   and the CPU give equal ids, degraded flags, counters and bills in every
+   single-tier mode; tracing changes no bit on the card; and a directory
+   saved on the card loads on the CPU and answers as the card does;
+9. decode path: SmolLM-135M at full width and depth (random weights from a
    numpy seed), 8 requests of 4,096 tokens prefilled, then 32 greedy
    decode steps over the KV cache, every step's attention on the
    ``flash_decode`` kernel (30 launches a step, 960 in all, or the run
    fails); prefill and step wall, the step's split, tokens/s, peak memory;
-7. decode agreement: the same model in fp32 at 2 layers, its logits and
+10. decode agreement: the same model in fp32 at 2 layers, its logits and
    greedy tokens on the card against the CPU path.
 
 It then prints the card line, the ``{"kernels": [...]}`` line and, last,
@@ -48,6 +70,7 @@ the ``{"ok": ...}`` line. Any failed phase exits non-zero without them.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import mmap
 import multiprocessing
@@ -1038,6 +1061,13 @@ def check_ranked(resp, n_docs, failures, what):
             return
 
 
+#: the main path's artifacts, for the serving phases that follow it (no
+#: rebuild): corpus, index, layout, config, resident tables, and each
+#: mode's first response (``FIRST``)
+CTX: dict = {}
+FIRST: dict = {}
+
+
 def run_batches(pipe, corpus, batches, bs, clock, failures, what):
     from repro_torch.core.metrics import mrr_at_k, recall_at_k
     ranked, hits = [], []
@@ -1050,6 +1080,8 @@ def run_batches(pipe, corpus, batches, bs, clock, failures, what):
                            corpus.query_lens[sl])
         wall = time.perf_counter() - t0
         check_ranked(resp, corpus.n_docs, failures, f"{what} batch {i}")
+        if i == 0:
+            FIRST[what] = resp
         ranked += [r.doc_ids for r in resp.ranked]
         hits.append(resp.breakdown.hit_rate)
         split = {k: round(v, 4) for k, v in clock.split(wall).items() if v}
@@ -1263,6 +1295,8 @@ def main_path(dev, failures, profile=False) -> dict:
         if tables.get("fde") is None \
                 or tables["fde"].vecs.device.type != dev.type:
             failures.append("the FDE table was not built on the card")
+        CTX.update(corpus=corpus, index=idx, layout=pipe.layout, cfg=cfg,
+                   tables=dict(tables))
         tables.clear()
         cspn_mode(cfg, idx, corpus, dev, clock, failures, out)
         tf32_off(failures, "after the new modes")
@@ -1327,6 +1361,332 @@ def main_path(dev, failures, profile=False) -> dict:
         log(f"  claim {mode} {metric} >= {frac} x espn's: {got:.4f} vs "
             f"{want:.4f} -> {'met' if got >= want else 'NOT met'}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# phases 5-7: serving the main path's index (persist, serve, faults)
+# ---------------------------------------------------------------------------
+
+SERVE_REQUESTS, SERVE_MAX_BATCH = 128, 32
+WAIT_S = 120.0          # any one request's wait; a request not done fails
+SLO_SECONDS = 3.0       # the SLO runs' offered stream
+SLO_DEFAULT_MS = 50.0   # the reference's SLOPolicy and WorkloadConfig
+                        # default deadline
+FAULTS = dict(read_error_rate=0.05, stall_rate=0.05, corruption_rate=0.05,
+              checksum=True, degrade=True, seed=0)
+# the phases' own paths, each driven with the counts at 0 and read after
+SERVING_KERNELS = {"persist_espn": IVF_RERANK,
+                   "persist_cascade": PATH_KERNELS["cascade"],
+                   "serve": IVF_RERANK, "serve_slo50": IVF_RERANK,
+                   "serve_slo": IVF_RERANK,
+                   "faults": IVF_RERANK}
+
+
+def require_launches(out, failures, *paths):
+    """Each of the phase's paths launched every kernel it runs."""
+    for path in paths:
+        for name in SERVING_KERNELS[path]:
+            if out[path]["launches"][name] <= 0:
+                failures.append(f"{path}: kernel {name} was never launched")
+
+
+def mode_cfg(cfg, mode, **sections):
+    import dataclasses
+    return dataclasses.replace(cfg, retrieval=dataclasses.replace(
+        cfg.retrieval, mode=mode), **sections)
+
+
+def first_queries(corpus, n=BATCH_SIZE):
+    return (corpus.queries_cls[:n], corpus.queries_bow[:n],
+            corpus.query_lens[:n])
+
+
+def same_bits(want, got) -> bool:
+    """Two responses equal bit for bit: ids, scores, flags and bill."""
+    return (want.breakdown.as_dict() == got.breakdown.as_dict()
+            and all(np.array_equal(w.doc_ids, g.doc_ids)
+                    and np.array_equal(w.scores, g.scores)
+                    and w.degraded == g.degraded
+                    for w, g in zip(want.ranked, got.ranked)))
+
+
+def dir_bytes(path) -> int:
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+
+
+def persist_phase(dev, failures, out):
+    """Save the 1M-doc index, layout and resident tables (no corpus), load
+    them back onto the card, and hold one espn and one cascade batch of
+    the loaded pipeline to the unsaved one's bit for bit."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.pipeline import Pipeline
+    corpus, idx, layout, cfg = (CTX[k] for k in ("corpus", "index",
+                                                 "layout", "cfg"))
+    tables = CTX["tables"]
+    need = (layout.nbytes + idx.memory_bytes() + tables["bits"].nbytes
+            + tables["fde"].nbytes)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="persist-", dir=os.path.join(ROOT, "build"))
+    free = shutil.disk_usage(root).free
+    log(f"  to write ~{need / 2**30:.2f} GiB; {free / 2**30:.1f} GiB free "
+        f"under {os.path.relpath(root, ROOT)}")
+    if free < 1.2 * need:
+        failures.append(f"persist: {free / 2**30:.1f} GiB free, "
+                        f"{need / 2**30:.2f} GiB needed")
+        return
+    try:
+        with Pipeline.from_artifacts(mode_cfg(cfg, "cascade"), index=idx,
+                                     layout=layout, device=dev,
+                                     **tables) as saved:
+            t0 = time.perf_counter()
+            saved.save(root)
+            t_save = time.perf_counter() - t0
+        n_bytes = dir_bytes(root)
+        files = sorted(f for f in os.listdir(root) if f.endswith(".npz"))
+        t0 = time.perf_counter()
+        loaded = Pipeline.load(root, device=dev)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"  saved {files} + config.json: {n_bytes:,} bytes in {t_save:.2f} "
+        f"s; loaded onto {loaded.device} in {t_load:.2f} s")
+    if files != ["bits.npz", "fde.npz", "index.npz", "layout.npz"]:
+        failures.append(f"persist: the directory held {files}")
+    if loaded.device.type != "cuda" or loaded.tier.fde.vecs.device.type \
+            != "cuda":
+        failures.append("persist: the loaded index or FDE table is not on "
+                        "the card")
+    out["persist"] = {"bytes": n_bytes, "save_s": t_save, "load_s": t_load,
+                      "free_bytes": free}
+    espn = loaded.with_mode("espn")
+    for mode, pipe in (("espn", espn), ("cascade", loaded)):
+        reset_counts()
+        got = pipe.search(*first_queries(corpus))
+        out[f"persist_{mode}"] = {"launches": read_counts()}
+        same = same_bits(FIRST[mode], got)
+        log(f"  loaded {mode} batch of {BATCH_SIZE} vs the unsaved "
+            f"pipeline's: ids, scores and bill "
+            f"{'equal bit for bit' if same else 'DIFFER'}; launches "
+            f"{out[f'persist_{mode}']['launches']}")
+        if not same:
+            failures.append(f"persist: loaded {mode} differs from unsaved")
+    loaded.close()
+    CTX["served"] = espn          # the serve phase's pipeline
+    require_launches(out, failures, "persist_espn", "persist_cascade")
+
+
+def serve_phase(dev, failures, out):
+    """``RetrievalServer`` on the loaded espn pipeline: 128 requests
+    through ``query_async``, each held to ``Pipeline.search`` of its query
+    alone; then a gds server under ``SLOPolicy`` offered a Poisson stream
+    at twice the static run's throughput."""
+    from repro_torch.serve import workload as W
+    from repro_torch.serve.scheduler import BatchPolicy
+    corpus, cfg = CTX["corpus"], CTX["cfg"]
+    pipe = CTX.pop("served")
+    n = SERVE_REQUESTS
+    qs = [(corpus.queries_cls[i], corpus.queries_bow[i],
+           int(corpus.query_lens[i])) for i in range(n)]
+    with pipe:
+        t0 = time.perf_counter()
+        want = [pipe.search(c[None], b[None], np.array([ln], np.int32))
+                for c, b, ln in qs]
+        log(f"  {n} single-query searches in "
+            f"{time.perf_counter() - t0:.2f} s")
+        reset_counts()
+        srv = pipe.serve(BatchPolicy(max_batch=SERVE_MAX_BATCH,
+                                     max_wait_s=cfg.serve.max_wait_s))
+        try:
+            t0 = time.perf_counter()
+            reqs = [srv.query_async(*q) for q in qs]
+            late = [r.rid for r in reqs if not r.done.wait(WAIT_S)]
+            wall = time.perf_counter() - t0
+        finally:
+            srv.shutdown()
+        out["serve"] = {"launches": read_counts(), "wall_s": wall,
+                        "qps": n / wall, "summary": srv.stats.summary()}
+    if late or any(r.error is not None or r.shed for r in reqs):
+        failures.append(f"serve: {len(late)} requests not done in "
+                        f"{WAIT_S:.0f} s, "
+                        f"{sum(r.error is not None for r in reqs)} failed")
+        return
+    worst, swaps, bad = 0.0, 0, 0
+    for r, w in zip(reqs, want):
+        resp = type(w)(ranked=[r.result], breakdown=w.breakdown)
+        d, sw, b = same_ranking(w, resp)
+        worst, swaps, bad = max(worst, d), swaps + sw, bad + b
+    ok = worst <= AGREE_TOL and bad == 0
+    log(f"  server: {n} requests in {wall:.2f} s ({n / wall:.1f} "
+        f"requests/s); each against search of its query alone: max score "
+        f"diff {worst:.3g}, {swaps} near-tie swaps, {bad} other id "
+        f"differences -> {'ok' if ok else 'FAIL'}")
+    log(f"  server stats {json.dumps(srv.stats.summary())}")
+    log(f"  server launches {out['serve']['launches']}")
+    if not ok:
+        failures.append("serve: answers differ from Pipeline.search")
+    # the SLO runs: a gds pipeline on the same artifacts offered twice the
+    # static run's throughput, under the reference's default deadline
+    # (SLOPolicy.slo_ms = 50 ms) and under twice the static run's median
+    # request latency (wall + device share)
+    from repro_torch.pipeline import Pipeline
+    s = srv.stats
+    rate = 2.0 * n / wall
+    for path, slo_ms in (
+            ("serve_slo50", SLO_DEFAULT_MS),
+            ("serve_slo", 2.0 * (s.percentile(50, sim=False)
+                                 + s.percentile(50)))):
+        scfg = mode_cfg(cfg, "gds")
+        scfg.serve.slo_ms, scfg.serve.max_batch = slo_ms, SERVE_MAX_BATCH
+        w = W.generate(W.WorkloadConfig(duration_s=SLO_SECONDS,
+                                        rate_qps=rate, slo_ms=slo_ms,
+                                        seed=0), corpus)
+        with Pipeline.from_artifacts(scfg, index=CTX["index"],
+                                     layout=CTX["layout"], device=dev) as gds:
+            reset_counts()
+            slo = gds.serve()
+            try:
+                reqs = W.replay(slo, w)
+                done = W.drain(reqs, timeout_s=WAIT_S)
+            finally:
+                slo.shutdown()
+            launches = read_counts()
+        st = slo.stats
+        out[path] = {"launches": launches, "slo_ms": slo_ms,
+                     "offered_qps": w.offered_qps(), "offered": st.offered,
+                     "shed": st.shed, "served_in_slo": st.served_in_slo,
+                     "violations": st.slo_violations,
+                     "shed_frac": st.shed / max(st.offered, 1),
+                     "goodput_under_slo": st.goodput_under_slo(),
+                     "summary": st.summary()}
+        log(f"  SLO run (gds, SLOPolicy, slo {slo_ms:.1f} ms): {w.n} Poisson "
+            f"arrivals at {w.offered_qps():.1f}/s over {SLO_SECONDS:.0f} s; "
+            f"shed {st.shed} ({100 * st.shed / max(st.offered, 1):.1f}%), "
+            f"in SLO {st.served_in_slo}, violations {st.slo_violations}, "
+            f"goodput under SLO {st.goodput_under_slo():.4f}, mean batch "
+            f"{st.summary()['mean_batch']}, SLO latency p50/p99 "
+            f"{st.slo_percentile(50):.1f}/{st.slo_percentile(99):.1f} ms; "
+            f"launches {launches}")
+        if done != w.n or st.errors:
+            failures.append(f"serve: SLO run finished {done} of {w.n}, "
+                            f"{st.errors} errors")
+    require_launches(out, failures, "serve", "serve_slo50", "serve_slo")
+
+
+def faults_phase(dev, failures, out):
+    """The espn pipeline with seeded faults: the checksum pass over the
+    layout, two batches (degraded queries launch no maxsim), a batch whose
+    every read fails, and one traced server batch exported to Perfetto."""
+    import tempfile
+
+    from repro_torch.kernels.maxsim.ops import maxsim as maxsim_op
+    from repro_torch.obs import analyze_trace
+    from repro_torch.pipeline import Pipeline, backends
+    from repro_torch.storage.faults import FaultConfig, add_checksums
+    corpus, idx, layout, cfg = (CTX[k] for k in ("corpus", "index",
+                                                 "layout", "cfg"))
+    t0 = time.perf_counter()
+    add_checksums(layout)
+    t_sum = time.perf_counter() - t0
+    log(f"  crc32 of {layout.n_docs:,} records ({layout.nbytes / 2**30:.2f} "
+        f"GiB) in {t_sum:.2f} s")
+    out["faults"] = {"checksum_s": t_sum}
+    # each query's maxsim launches, read around its rerank
+    per_query = []
+    orig = backends.rerank_query
+
+    def counted(*a, **kw):
+        n0 = maxsim_op.launches
+        res = orig(*a, **kw)
+        per_query.append((res.degraded, maxsim_op.launches - n0))
+        return res
+    backends.rerank_query = counted
+    try:
+        fcfg = mode_cfg(cfg, "espn", faults=FaultConfig(**FAULTS))
+        with Pipeline.from_artifacts(fcfg, index=idx, layout=layout,
+                                     device=dev) as p:
+            reset_counts()
+            resps = [p.search(corpus.queries_cls[sl], corpus.queries_bow[sl],
+                              corpus.query_lens[sl])
+                     for sl in (slice(0, BATCH_SIZE),
+                                slice(BATCH_SIZE, 2 * BATCH_SIZE))]
+            out["faults"]["launches"] = read_counts()
+            counters = {k: v for k, v in p.tier.stats.items()
+                        if k in ("retries", "read_errors", "stalls",
+                                 "replica_flaps", "corruptions_injected",
+                                 "checksum_failures", "repairs",
+                                 "repair_bytes", "faults_injected")}
+            degraded = sum(r.breakdown.degraded_queries for r in resps)
+            # one traced server batch, exported and read back; a 50 ms
+            # deadline, no shedding: every request is served and each
+            # violation is attributed to its dominant stage
+            p.cfg.serve.slo_ms, p.cfg.serve.shed = 50.0, False
+            build = os.path.join(ROOT, "build")
+            os.makedirs(build, exist_ok=True)
+            with tempfile.TemporaryDirectory(prefix="trace-",
+                                             dir=build) as tmp:
+                path = os.path.join(tmp, "faults.json")
+                srv = p.serve(trace_path=path)
+                try:
+                    reqs = [srv.query_async(corpus.queries_cls[i],
+                                            corpus.queries_bow[i],
+                                            int(corpus.query_lens[i]))
+                            for i in range(SERVE_MAX_BATCH)]
+                    late = sum(not r.done.wait(WAIT_S) for r in reqs)
+                finally:
+                    srv.shutdown()
+                n_events = srv.export_trace(path)
+                rep = analyze_trace(path)
+        all_fail = mode_cfg(cfg, "espn", faults=FaultConfig(
+            read_error_rate=1.0, read_retries=0, seed=0))
+        with Pipeline.from_artifacts(all_fail, index=idx, layout=layout,
+                                     device=dev) as p:
+            reset_counts()
+            dead = p.search(*first_queries(corpus))
+            dead_launches = read_counts()
+    finally:
+        backends.rerank_query = orig
+    mx = out["faults"]["launches"]["maxsim"]
+    first = per_query[:2 * BATCH_SIZE]
+    ok_counts = (all(n == 0 for d, n in first if d)
+                 and all(n > 0 for d, n in first if not d)
+                 and mx == sum(n for _, n in first))
+    log(f"  2 faulted espn batches: counters {json.dumps(counters)}, "
+        f"degraded queries {degraded}; maxsim launches {mx} = those of the "
+        f"{sum(not d for d, _ in first)} non-degraded queries "
+        f"({'ok' if ok_counts else 'FAIL'}); launches "
+        f"{out['faults']['launches']}")
+    log(f"  bills {[r.breakdown.as_dict()['total_ms'] for r in resps]} ms")
+    log(f"  traced server batch of {SERVE_MAX_BATCH}: {n_events} Perfetto "
+        f"events; analyze_trace: requests {rep['requests']}, violations "
+        f"{rep['violations']}, by stage {rep['by_stage']}")
+    n_dead = dead.breakdown.degraded_queries
+    ok_dead = (n_dead == BATCH_SIZE and dead_launches["maxsim"] == 0
+               and dead_launches["gather_pack"] == 0
+               and dead_launches["ivf_scan"] > 0)
+    log(f"  every read failing: {n_dead} of {BATCH_SIZE} queries degraded, "
+        f"launches {dead_launches} -> {'ok' if ok_dead else 'FAIL'}")
+    out["faults"].update(counters=counters, degraded=degraded,
+                         trace_events=n_events, all_fail=dead_launches)
+    if not (ok_counts and ok_dead) or late or srv.stats.errors \
+            or rep["requests"] != SERVE_MAX_BATCH:
+        failures.append("faults: degraded routing or the traced run failed")
+    require_launches(out, failures, "faults")
+
+
+def free_main_path():
+    """After the last phase on the main path's artifacts: drop them (the
+    servers' threads hold their pipelines in reference cycles, so collect
+    those too), so the LM phases' peak device memory holds none of the
+    retrieval index."""
+    CTX.clear()
+    FIRST.clear()
+    gc.collect()
 
 
 # ---------------------------------------------------------------------------
@@ -1459,6 +1819,138 @@ def agreement(dev, failures):
         if not ok:
             failures.append(f"{what}: card path disagrees with CPU path")
     check_fde_table(tables["fde"], ragged, dev, failures)
+    check_reproducible_builds(corpus, ragged, base, tables["fde"].cfg, dev,
+                              failures)
+    agreement_serving(dev, failures, base, corpus, index, ragged, fixed,
+                      tables)
+
+
+def check_reproducible_builds(corpus, layout, cfg, fde_cfg, dev, failures):
+    """The card's IVF index and FDE table, each built twice from the same
+    input, are the same bits: their sums run in a fixed order (segment
+    sums, no atomics), so a saved index can be rebuilt exactly."""
+    import torch
+
+    from repro_torch.core.fde import fde_from_layout
+    from repro_torch.core.ivf import build_ivf
+    ix = cfg.index
+    a, b = (build_ivf(corpus.cls, ncells=ix.ncells, iters=ix.iters,
+                      device=dev) for _ in range(2))
+    same_ivf = (torch.equal(a.centroids, b.centroids)
+                and torch.equal(a.cell_ids, b.cell_ids)
+                and torch.equal(a.cell_vecs, b.cell_vecs))
+    f, g = (fde_from_layout(layout, fde_cfg, device=dev).vecs
+            for _ in range(2))
+    same_fde = torch.equal(f, g)
+    log(f"  card builds twice from the same input: IVF index "
+        f"{'equal' if same_ivf else 'DIFFERS'}, FDE table "
+        f"{'equal' if same_fde else 'DIFFERS'}")
+    if not (same_ivf and same_fde):
+        failures.append("a card build is not reproducible")
+
+
+# high fault rates, so every mode's reads see errors, retries, stalls and
+# corruptions; half the modes without checksums (undetected sign flips)
+AGREE_FAULTS = dict(read_error_rate=0.5, stall_rate=0.3, corruption_rate=0.5,
+                    read_retries=1, seed=1)
+
+
+def agreement_serving(dev, failures, base, corpus, index, ragged, fixed,
+                      tables):
+    """On the 20,000 docs: with faults on, the card and the CPU give equal
+    ids, degraded flags, fault counters and bills in every single-tier
+    mode; tracing changes nothing on the card; and a directory saved on
+    the card loads on the CPU and answers as the card does."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from repro_torch.pipeline import Pipeline
+    from repro_torch.storage.faults import FaultConfig
+    halves = [(corpus.queries_cls[sl], corpus.queries_bow[sl],
+               corpus.query_lens[sl]) for sl in (slice(0, 16),
+                                                 slice(16, 32))]
+
+    def cfg_for(mode, **sections):
+        cfg = dataclasses.replace(base, retrieval=dataclasses.replace(
+            base.retrieval, mode=mode), **sections)
+        if mode == "cspn":
+            cfg.storage = dataclasses.replace(
+                cfg.storage, layout_mode="fixed_stride", pool_k=POOL_K)
+        return cfg
+
+    def run(cfg, device, mode):
+        with Pipeline.from_artifacts(
+                cfg, index=index, layout=fixed if mode == "cspn" else ragged,
+                corpus=corpus, device=device, **tables) as p:
+            return [p.search(*q) for q in halves], dict(p.tier.stats)
+
+    modes = ("espn", "gds", "mmap", "swap", "dram", "bitvec", "fde",
+             "cascade", "cspn")
+    events = defaultdict(int)
+    for i, mode in enumerate(modes):
+        cfg = cfg_for(mode, faults=FaultConfig(**AGREE_FAULTS,
+                                               checksum=bool(i % 2)))
+        (want, w_stats), (got, g_stats) = run(cfg, "cpu", mode), \
+            run(cfg, dev, mode)
+        worst, bad, same = 0.0, 0, w_stats == g_stats
+        for w, g in zip(want, got):
+            d, _, b = same_ranking(w, g)
+            worst, bad = max(worst, d), bad + b
+            same &= (w.breakdown.as_dict() == g.breakdown.as_dict()
+                     and [r.degraded for r in w.ranked]
+                     == [r.degraded for r in g.ranked])
+        for k in ("read_errors", "retries", "stalls", "checksum_failures",
+                  "corruptions_injected"):
+            events[k] += w_stats[k]
+        events["degraded"] += sum(r.breakdown.degraded_queries for r in want)
+        ok = worst <= AGREE_TOL and bad == 0 and same
+        log(f"  {mode} with faults (checksums {'on' if i % 2 else 'off'}) "
+            f"card vs CPU: max score diff {worst:.3g}, {bad} id "
+            f"differences, degraded flags, counters and bills "
+            f"{'equal' if same else 'DIFFER'} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"{mode} with faults: card disagrees with CPU")
+    log(f"  fault events over the faulted modes (CPU side): "
+        f"{dict(events)}")
+    if not (events["degraded"] and events["corruptions_injected"]
+            and events["retries"]):
+        failures.append("faulted agreement: some fault kind never fired")
+    for mode in ("espn", "bitvec"):
+        plain, _ = run(cfg_for(mode), dev, mode)
+        traced_cfg = cfg_for(mode)
+        traced_cfg.obs = dataclasses.replace(traced_cfg.obs, trace=True)
+        traced, _ = run(traced_cfg, dev, mode)
+        same = all(same_bits(a, b) for a, b in zip(plain, traced))
+        log(f"  {mode} on the card traced vs untraced: "
+            f"{'bitwise equal' if same else 'DIFFER'}")
+        if not same:
+            failures.append(f"{mode}: tracing changed the card's answers")
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="agree-", dir=os.path.join(ROOT, "build"))
+    try:
+        with Pipeline.from_artifacts(cfg_for("cascade"), index=index,
+                                     layout=ragged, corpus=corpus,
+                                     device=dev, **tables) as card:
+            card.save(root)
+            with card.with_mode("espn") as espn:
+                want = {"cascade": card.search(), "espn": espn.search()}
+        for mode in ("cascade", "espn"):
+            with Pipeline.load(root, mode=mode, device="cpu") as cpu:
+                got = cpu.search()
+            worst, swaps, bad = same_ranking(want[mode], got)
+            same_bill = (want[mode].breakdown.as_dict()
+                         == got.breakdown.as_dict())
+            ok = worst <= AGREE_TOL and bad == 0 and same_bill
+            log(f"  {mode} saved on the card, loaded on the CPU: max score "
+                f"diff {worst:.3g}, {swaps} near-tie swaps, {bad} other id "
+                f"differences, bill {'equal' if same_bill else 'DIFFERS'} "
+                f"-> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"{mode}: card-saved directory answers "
+                                "otherwise on the CPU")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1637,9 +2129,10 @@ def kernel_rows(rows) -> list[dict]:
     """The ``{"kernels": [...]}`` line's rows. Each kernel's launches are
     those of the paths that run it (the retrieval modes, the LM decode),
     each path's count read around its own run."""
-    paths = {**rows["path"], "decode": rows["decode"]}
+    paths = {**rows["path"], **rows["serving"], "decode": rows["decode"]}
     by_path = {name: {mode: paths[mode]["launches"][name]
-                      for mode, names in PATH_KERNELS.items()
+                      for mode, names in {**PATH_KERNELS,
+                                          **SERVING_KERNELS}.items()
                       if name in names}
                for name in KERNELS}
     # maxsim over the path's calls: each call's device_ms and bound taken
@@ -1700,7 +2193,8 @@ def main(argv=None) -> int:
         f"{json.dumps({k: round(v, 1) for k, v in _build.build_seconds.items()})}")
 
     rng = np.random.default_rng(0)
-    rows = {}
+    serving: dict = {}
+    rows = {"serving": serving}
     phases = [("kernels", lambda: rows.update(
                   maxsim=check_maxsim(dev, rng, failures),
                   ivf_scan=check_ivf_scan(dev, rng, failures),
@@ -1710,6 +2204,10 @@ def main(argv=None) -> int:
                   flash_decode=check_flash_decode(dev, rng, failures))),
               ("main path", lambda: rows.update(
                   path=main_path(dev, failures, args.profile))),
+              ("persist", lambda: persist_phase(dev, failures, serving)),
+              ("serve", lambda: serve_phase(dev, failures, serving)),
+              ("faults", lambda: (faults_phase(dev, failures, serving),
+                                  free_main_path())),
               ("agreement", lambda: agreement(dev, failures)),
               ("decode path", lambda: rows.update(
                   decode=decode_path(dev, failures))),

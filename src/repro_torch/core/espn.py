@@ -3,13 +3,19 @@ simulated compute clock, the per-stage latency breakdown and the response.
 
 Every stage contributes to a per-query latency breakdown on the simulated
 device clock, reproducing the paper's Tables 4/5 and Figures 8-10. The
-per-mode query paths live in ``repro_torch.pipeline.backends``.
+per-mode query paths live in ``repro_torch.pipeline.backends`` behind the
+``RetrievalBackend`` registry; ``ESPNRetriever`` is the thin
+mode-dispatching entry point over it.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
+import numpy as np
+
+from repro_torch.core.ivf import ANNCostModel, IVFIndex
 from repro_torch.core.rerank import RerankOutput
+from repro_torch.storage.io_engine import StorageTier
 
 
 @dataclass(frozen=True)
@@ -59,8 +65,11 @@ class ESPNConfig:
 
 @dataclass
 class LatencyBreakdown:
-    """The reference's breakdown, field for field. The fault, hedging and
-    degraded-mode counters belong to layers not ported yet and stay 0."""
+    """The reference's breakdown, field for field. ``hedge_bytes_read``
+    belongs to the storage cluster (ROADMAP Queue A item 4) and stays 0; the
+    fault counters are this batch's deltas of the tier's, and
+    ``degraded_queries`` counts the queries answered from candidate scores
+    after a failed read."""
     encode_s: float = 0.0
     ann_s: float = 0.0
     hidden_s: float = 0.0              # overlapped prefetch+early-rerank work
@@ -99,3 +108,56 @@ class LatencyBreakdown:
 class RetrievalResponse:
     ranked: list[RerankOutput]
     breakdown: LatencyBreakdown
+    per_query: list = field(default_factory=list)
+
+
+class ESPNRetriever:
+    """Mode-dispatching retriever: resolves ``cfg.mode`` against the backend
+    registry and delegates the query path to the backend instance."""
+
+    def __init__(self, index: IVFIndex, tier: StorageTier, cfg: ESPNConfig,
+                 *, cost_model: ANNCostModel | None = None,
+                 compute: ComputeModel | None = None,
+                 doc_bytes=None, tracer=None):
+        # late import: repro_torch.pipeline.backends imports this module
+        from repro_torch.pipeline.backends import get_backend
+        self.backend = get_backend(cfg.mode)(
+            index, tier, cfg, cost_model=cost_model, compute=compute,
+            doc_bytes=doc_bytes, tracer=tracer)
+
+    @property
+    def index(self):
+        return self.backend.index
+
+    @property
+    def tier(self):
+        return self.backend.tier
+
+    @property
+    def cfg(self):
+        return self.backend.cfg
+
+    @property
+    def cost(self):
+        return self.backend.cost
+
+    @property
+    def compute(self):
+        return self.backend.compute
+
+    @property
+    def doc_bytes(self):
+        return self.backend.doc_bytes
+
+    @property
+    def tracer(self):
+        return self.backend.tracer
+
+    @tracer.setter
+    def tracer(self, tr):
+        self.backend.tracer = tr
+        self.backend.tier.tracer = tr
+
+    def query_batch(self, q_cls: np.ndarray, q_bow: np.ndarray,
+                    q_lens: np.ndarray) -> RetrievalResponse:
+        return self.backend.query_batch(q_cls, q_bow, q_lens)

@@ -36,6 +36,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.storage.layout import CHUNK_DOCS, bow_rows, token_scales
 
 
@@ -69,9 +70,9 @@ class FDEEncoder:
     ``device`` and encodes queries (sum aggregation) and documents (average
     + backfill)."""
 
-    def __init__(self, cfg: FDEConfig, device: str | torch.device = "cpu"):
+    def __init__(self, cfg: FDEConfig, device: str | torch.device = "cuda"):
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         rng = np.random.default_rng(cfg.seed)
         planes = rng.standard_normal(
             (cfg.r_reps, cfg.k_sim, cfg.d_bow)).astype(np.float32)
@@ -122,10 +123,14 @@ class FDEEncoder:
         bucket = self._bucketize(flat)                      # (total, r)
         for r in range(cfg.r_reps):
             slot = doc_of * nb + bucket[:, r]
-            agg = torch.zeros(n * nb, d, dtype=torch.float32,
-                              device=self.device).index_add_(0, slot, flat)
-            agg = agg.view(n, nb, d)
-            cnt = torch.bincount(slot, minlength=n * nb).view(n, nb)
+            # each slot's tokens summed in token order, one thread a slot
+            # and lane on CUDA: the same sums on every run and on the CPU
+            # (an atomic index_add_ adds them in no fixed order on CUDA)
+            cnt = torch.bincount(slot, minlength=n * nb)
+            agg = torch.segment_reduce(
+                flat[torch.argsort(slot, stable=True)], "sum", lengths=cnt,
+                axis=0, unsafe=True).view(n, nb, d)
+            cnt = cnt.view(n, nb)
             if average:
                 agg = agg / cnt.clamp_min(1)[..., None].float()
             if fill_empty:
@@ -208,14 +213,14 @@ class FDETable:
 
 def build_fde_table(bows: list[np.ndarray], cfg: FDEConfig, *,
                     dtype: str = "float16",
-                    device: str | torch.device = "cpu") -> FDETable:
+                    device: str | torch.device = "cuda") -> FDETable:
     enc = FDEEncoder(cfg, device)
     return FDETable(vecs=enc.encode_docs(bows).to(getattr(torch, dtype)),
                     cfg=cfg)
 
 
 def fde_from_layout(layout, cfg: FDEConfig, *, dtype: str = "float16",
-                    device: str | torch.device = "cpu",
+                    device: str | torch.device = "cuda",
                     chunk_docs: int = CHUNK_DOCS) -> FDETable:
     """Build the resident FDE table from an already-packed disk layout,
     decoding the blob ``chunk_docs`` docs at a time (the stored dtype goes

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.maxsim import topk_stable
+from repro_torch.device import resolve_device
 from repro_torch.kernels.ivf_scan.ops import centroid_scores
 
 NEG = -1e30
@@ -84,14 +85,17 @@ def _kmeans(x: torch.Tensor, init_idx: np.ndarray, *, ncells: int,
     """Spherical k-means: ``iters`` assign/mean/renormalize steps from the
     rows ``init_idx``. Empty cells keep their previous centroid."""
     cent = _normalize(x[torch.as_tensor(init_idx, device=x.device)])
-    ones = torch.ones(x.shape[0], dtype=x.dtype, device=x.device)
     for _ in range(iters):
         assign = _assign_chunked(x, cent)
-        sums = torch.zeros_like(cent).index_add_(0, assign, x)
-        cnt = torch.zeros(ncells, dtype=x.dtype,
-                          device=x.device).index_add_(0, assign, ones)
-        new = torch.where(cnt[:, None] > 0, sums / cnt.clamp_min(1)[:, None],
-                          cent)
+        # each cell's rows summed in row order, one thread a cell and lane
+        # on CUDA: the same sums on every run and on the CPU (an atomic
+        # index_add_ adds them in no fixed order on CUDA)
+        cnt = torch.bincount(assign, minlength=ncells)
+        sums = torch.segment_reduce(
+            x[torch.argsort(assign, stable=True)], "sum", lengths=cnt,
+            axis=0, unsafe=True)
+        new = torch.where(cnt[:, None] > 0,
+                          sums / cnt.clamp_min(1)[:, None].to(x.dtype), cent)
         cent = _normalize(new)
     return cent
 
@@ -100,14 +104,17 @@ def build_ivf(cls_embs: np.ndarray, ncells: int, *, iters: int = 8,
               seed: int = 0, quant: str = "fp32",
               max_cell_factor: float = 3.0,
               train_sample: int | None = 200_000,
-              device: str | torch.device = "cpu") -> IVFIndex:
-    """Cluster ``cls_embs`` into ``ncells`` padded cells on ``device``.
+              device: str | torch.device = "cuda") -> IVFIndex:
+    """Cluster ``cls_embs`` into ``ncells`` padded cells on ``device`` (the
+    card unless the caller asks for the CPU).
 
     The subsample and the initial centroids come from numpy's
     ``default_rng(seed)`` exactly as in the reference, so both packages
-    start from the same rows. The k-means sums (``index_add_``) run in
-    another order than the reference's, and on CUDA in no fixed order, so
-    the result is held by assignment agreement, not bitwise."""
+    start from the same rows. The k-means sums run in row order (the same
+    on every run, on the CPU and the card), another order than the
+    reference's, so the result is held by assignment agreement, not
+    bitwise."""
+    device = resolve_device(device)
     xs = np.asarray(cls_embs, np.float32)
     x = torch.as_tensor(xs, device=device)
     n, d = xs.shape

@@ -3,10 +3,11 @@
 After δ of η probes the partial top-K is snapshotted and its documents are
 read from the storage tier *while* the remaining λ = η − δ probes run; only
 the misses (final∖prefetched) are fetched in the critical path. Equations
-(2)–(3) of the paper:
+(2)–(4) of the paper:
 
     PrefetchBudget ≅ ANNTime(η) − ANNTime(δ)
     PrefetchStep   = δ/η
+    BatchThreshold = BW·Budget / bytes_per_query
 """
 from __future__ import annotations
 
@@ -45,6 +46,10 @@ class QueryResult:
     miss_rows: dict | None = None  # id -> row in miss_buffers (batch arena)
     wait_io: object | None = None  # callable: block until this query's async
                                    # batch-I/O runs landed (rerank calls it)
+    io_failed: bool = False        # a storage read this query depends on
+                                   # failed: it has no rows; answer
+                                   # degraded from candidate scores, never
+                                   # score it
 
     @classmethod
     def from_batch_view(cls, doc_ids: np.ndarray, cand_scores: np.ndarray,
@@ -63,7 +68,8 @@ class QueryResult:
         return cls(doc_ids=doc_ids, cand_scores=cand_scores,
                    hit_mask=np.zeros(len(doc_ids), bool), stats=stats,
                    prefetched=row_map, buffers=buffers,
-                   wait_io=(lambda: batch.ensure_query(b)))
+                   wait_io=(lambda: batch.ensure_query(b)),
+                   io_failed=batch.query_failed(b))
 
 
 class ANNPrefetcher:
@@ -155,9 +161,23 @@ class ANNPrefetcher:
                 miss_io_s=miss_io,
                 ann_s=ann_total,
             )
+            served_rows_b = (pref_batch.plan.rows_of(
+                miss_lists[b][served_masks[b]])
+                if served_masks and served_masks[b].any()
+                else np.empty(0, np.int64))
+            io_failed = (pref_batch.query_failed(b)
+                         or miss_batch.query_failed(b)
+                         or pref_batch.rows_failed(served_rows_b))
             results.append(QueryResult(
                 doc_ids=fin_ids, cand_scores=fin_scores,
                 hit_mask=hit_mask, stats=stats, prefetched=pref_rows,
                 buffers=buffers, miss_buffers=miss_buffers,
-                miss_rows=miss_rows, wait_io=wait_io))
+                miss_rows=miss_rows, wait_io=wait_io,
+                io_failed=io_failed))
         return results
+
+    # --- paper eq. (4) -----------------------------------------------------
+    def batch_threshold(self, nprobe: int, bytes_per_query: float) -> float:
+        budget = self.cost.prefetch_budget(self.index, nprobe,
+                                           self.delta(nprobe))
+        return self.tier.spec.seq_bw * budget / max(bytes_per_query, 1.0)

@@ -23,6 +23,7 @@ import torch
 from repro_torch.kernels.gather_pack.ops import gather_pack
 from repro_torch.kernels.maxsim.ops import maxsim
 from repro_torch.storage.batch_io import DeviceArena
+from repro_torch.storage.faults import DegradedQueryError
 
 
 @dataclass
@@ -31,6 +32,8 @@ class RerankOutput:
     scores: np.ndarray           # aggregate scores, descending
     n_reranked: int
     bow_bytes_read: int          # bandwidth bill for this query
+    degraded: bool = False       # answered from candidate scores because
+                                 # the SSD rerank read failed
 
 
 def pack_tiles(arena: DeviceArena, rows) -> tuple[torch.Tensor,
@@ -73,9 +76,35 @@ def _maxsim_np(q_bow: np.ndarray, q_len: int, arena: DeviceArena,
     return maxsim(q, qm, tiles, lens).cpu().numpy()
 
 
+def degraded_rerank(result, *, alpha: float = 1.0,
+                    select: np.ndarray | None = None,
+                    degrade: bool = True) -> RerankOutput:
+    """Answer a query whose SSD rerank read failed, without touching its
+    rows (it has none): candidates keep their candidate-stage ordering
+    (alpha*CLS / FDE score); bit-filter survivors (``select``) rank first in
+    bit-score order, the best resident signal there is. No MaxSim runs.
+    ``degrade=False`` raises instead (failed reads fail hard)."""
+    if not degrade:
+        raise DegradedQueryError(
+            "storage read failed and degraded-mode answering is disabled "
+            "(FaultConfig.degrade=False)")
+    ids = result.doc_ids
+    k = len(ids)
+    agg = alpha * np.asarray(result.cand_scores[:k], np.float32)
+    if select is not None and len(select):
+        sel = np.asarray(select, np.int64)
+        rest = np.setdiff1d(np.arange(k), sel)   # candidate order preserved
+        order = np.concatenate([sel, rest])
+    else:
+        order = np.argsort(-agg, kind="stable")
+    return RerankOutput(doc_ids=ids[order], scores=agg[order], n_reranked=0,
+                        bow_bytes_read=0, degraded=True)
+
+
 def rerank_query(q_bow, q_len, result, *, alpha: float = 1.0,
                  rerank_count: int | None = None, doc_bytes=None,
-                 select: np.ndarray | None = None) -> RerankOutput:
+                 select: np.ndarray | None = None,
+                 degrade: bool = True) -> RerankOutput:
     """Score one QueryResult (from ANNPrefetcher.run_batch).
 
     rerank_count=None -> exact (re-rank every candidate, hits scored early,
@@ -84,7 +113,15 @@ def rerank_query(q_bow, q_len, result, *, alpha: float = 1.0,
     select=<positions> -> MaxSim exactly those candidate positions (the
     bit-filter survivors of the bitvec and cascade backends) instead of the
     CLS top-R.
+
+    A query whose storage read failed (``result.io_failed``) launches no
+    kernel: it is answered from candidate-stage scores with
+    ``degraded=True`` (or raises ``DegradedQueryError`` when
+    ``degrade=False``).
     """
+    if result.io_failed:
+        return degraded_rerank(result, alpha=alpha, select=select,
+                               degrade=degrade)
     if result.wait_io is not None:
         # batch I/O engine: block until this query's arena runs have landed
         result.wait_io()

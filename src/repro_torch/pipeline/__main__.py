@@ -4,7 +4,9 @@
 
 Builds the full stack from flags on the card (``--device cpu`` to run on
 the CPU), runs the bundled query set, and prints the latency breakdown and
-quality metrics.
+quality metrics. ``--trace-json PATH`` exports the run's spans,
+``--metrics-out PATH`` the tier's counters and ``--save DIR`` the index,
+layout, tables and corpus (``Pipeline.load(DIR)`` reloads them).
 """
 from __future__ import annotations
 
@@ -20,6 +22,8 @@ def main(argv: list[str] | None = None) -> None:
     PipelineConfig.add_cli_args(ap)
     ap.add_argument("--device", default="cuda",
                     help="device for the index and kernels (cuda or cpu)")
+    ap.add_argument("--save", default="",
+                    help="directory to persist index+layout+corpus")
     args = ap.parse_args(argv)
     cfg = PipelineConfig.from_cli(args)
 
@@ -39,6 +43,17 @@ def main(argv: list[str] | None = None) -> None:
         print(f"mode={cfg.retrieval.mode} breakdown (ms): "
               f"{ev['breakdown_ms']}")
         print(f"MRR@10={ev['mrr@10']:.3f} Recall@100={ev['recall@100']:.3f}")
+        if args.trace_json:
+            n = pipe.export_trace(args.trace_json)
+            print(f"trace: {n} events -> {args.trace_json}")
+        if args.metrics_out:
+            text = pipe.metrics_text()
+            with open(args.metrics_out, "w") as f:
+                f.write(text)
+            print(f"metrics: {len(text.splitlines())} lines -> "
+                  f"{args.metrics_out}")
+        if args.save:
+            print(f"saved -> {pipe.save(args.save)}")
 
 
 if __name__ == "__main__":

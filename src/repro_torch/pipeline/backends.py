@@ -10,6 +10,14 @@ two (``cascade``) and the constant-space SSD rerank over the pooled
 generation, storage reads, re-ranking, and the per-stage latency accounting
 on the simulated device clock. All backends return the same
 ``RetrievalResponse``.
+
+A query whose storage read failed (fault injection, ``storage/faults.py``)
+is answered in degraded mode from its candidate-stage scores and launches
+no MaxSim. With a ``Tracer`` attached (``backend.tracer``), every batch
+records the reference's span tree: ``query_batch`` over ``encode``,
+``candidate_gen``, ``read`` and the per-query ``bit_filter``,
+``hidden_io``/``critical_io``, ``rerank`` and ``degrade`` spans. With none,
+no tracing code runs.
 """
 from __future__ import annotations
 
@@ -34,6 +42,9 @@ from repro_torch.storage.batch_io import consumption_dedup_saved
 from repro_torch.storage.io_engine import StorageTier
 
 _REGISTRY: dict[str, type["RetrievalBackend"]] = {}
+#: the tier's fault counters each batch's breakdown carries as deltas
+_FAULT_KEYS = ("retries", "checksum_failures", "repair_bytes",
+               "faults_injected")
 
 
 def register_backend(name: str):
@@ -79,22 +90,45 @@ class RetrievalBackend(abc.ABC):
 
     def __init__(self, index: IVFIndex, tier: StorageTier, cfg: ESPNConfig,
                  *, cost_model: ANNCostModel | None = None,
-                 compute: ComputeModel | None = None, doc_bytes=None):
+                 compute: ComputeModel | None = None, doc_bytes=None,
+                 tracer=None):
         self.index = index
         self.tier = tier
         self.cfg = cfg
         self.cost = cost_model or ANNCostModel()
         self.compute = compute or ComputeModel()
         self.doc_bytes = doc_bytes or (lambda i: tier.layout.doc_bytes(i))
+        self.tracer = tracer          # repro_torch.obs.Tracer | None (off)
 
     # ------------------------------------------------------------------
     def query_batch(self, q_cls: np.ndarray, q_bow: np.ndarray,
                     q_lens: np.ndarray) -> RetrievalResponse:
+        tr = self.tracer
+        root = None
+        if tr is not None:
+            tr.adopt_batch_qids()
+            root = tr.begin("query_batch", cat="batch", mode=self.name,
+                            n_queries=int(q_cls.shape[0]))
         bd = LatencyBreakdown()
         bd.encode_s = self.compute.encode_time(q_cls.shape[0])
-        ranked = self._retrieve(q_cls, q_bow, q_lens, bd)
+        if tr is not None:
+            tr.add("encode", cat="compute", sim_s=bd.encode_s)
+        # injected faults happen inside the tier: this batch's share is the
+        # delta of the tier's counters
+        f0 = {k: self.tier.stats.get(k, 0) for k in _FAULT_KEYS}
+        try:
+            ranked = self._retrieve(q_cls, q_bow, q_lens, bd)
+        except BaseException:
+            if root is not None and not root.closed:
+                tr.end(root, error=True)
+            raise
+        for k in _FAULT_KEYS:
+            setattr(bd, k, self.tier.stats.get(k, 0) - f0[k])
+        bd.degraded_queries = sum(int(r.degraded) for r in ranked)
         bd.total_s = (bd.encode_s + bd.ann_s + bd.critical_io_s + bd.rerank_s
                       + 0.2e-3)
+        if tr is not None:
+            tr.end(root, sim_s=bd.total_s, breakdown=bd.as_dict())
         return RetrievalResponse(ranked=ranked, breakdown=bd)
 
     @abc.abstractmethod
@@ -109,6 +143,31 @@ class RetrievalBackend(abc.ABC):
                                         float(layout.n_tokens.mean()),
                                         layout.d_bow)
 
+    def _ivf_candidates(self, q_cls, bd: LatencyBreakdown):
+        """Single-phase IVF candidate generation: host (scores, ids)."""
+        cfg = self.cfg
+        tr = self.tracer
+        cspan = tr.begin("candidate_gen", cat="compute") \
+            if tr is not None else None
+        scores, ids = search(self.index, q_cls, cfg.nprobe, cfg.k_candidates)
+        scores, ids = scores.cpu().numpy(), ids.cpu().numpy()
+        bd.ann_s = self.cost.time(self.index, cfg.nprobe)
+        if tr is not None:
+            tr.end(cspan, sim_s=bd.ann_s)
+        return scores, ids
+
+    @staticmethod
+    def _trace_query(tr, b: int, io_s: float, out: RerankOutput,
+                     maxsim_t: float, **io_args) -> None:
+        """Query ``b``'s critical-I/O span, then its rerank span, or a
+        ``degrade`` instant when it was answered from candidate scores."""
+        qid = tr.query_key(b)
+        tr.add("critical_io", cat="io", qid=qid, sim_s=io_s, **io_args)
+        if out.degraded:
+            tr.instant("degrade", cat="fault", qid=qid)
+        else:
+            tr.add("rerank", cat="compute", qid=qid, sim_s=maxsim_t)
+
     def _rerank_candidates(self, q_bow, q_lens, scores, ids,
                            bd: LatencyBreakdown) -> list[RerankOutput]:
         """Shared tail of the single-phase candidate generators: per query,
@@ -118,13 +177,17 @@ class RetrievalBackend(abc.ABC):
         batch pays one coalesced read in the critical path; duplicate
         candidate bytes are billed once (``bd.dedup_bytes_saved``)."""
         cfg = self.cfg
+        tr = self.tracer
         prep = []
         for b in range(len(ids)):
             fin, fin_scores = valid_candidates(ids[b], scores[b])
             rr = len(fin) if cfg.rerank_count is None else min(
                 cfg.rerank_count, len(fin))
             prep.append((fin, fin_scores, rr))
+        rspan = tr.begin("read", cat="io") if tr is not None else None
         batch = self.tier.read_batch([fin[:rr] for fin, _, rr in prep])
+        if tr is not None:
+            tr.end(rspan, sim_s=batch.sim_seconds)
         bd.critical_io_s += batch.sim_seconds
         ranked = []
         for b, (fin, fin_scores, rr) in enumerate(prep):
@@ -132,9 +195,15 @@ class RetrievalBackend(abc.ABC):
                                               ann_s=bd.ann_s)
             out = rerank_query(q_bow[b], int(q_lens[b]), res,
                                alpha=cfg.alpha, rerank_count=rr,
-                               doc_bytes=self.doc_bytes)
+                               doc_bytes=self.doc_bytes,
+                               degrade=self.tier.degrade_reads)
             ranked.append(out)
-            bd.rerank_s += self._maxsim_time(rr, int(q_lens[b]))
+            maxsim_t = 0.0
+            if not out.degraded:       # a degraded query never ran MaxSim
+                maxsim_t = self._maxsim_time(rr, int(q_lens[b]))
+                bd.rerank_s += maxsim_t
+            if tr is not None:
+                self._trace_query(tr, b, batch.io_s(b), out, maxsim_t)
             bd.bytes_read += out.bow_bytes_read
         saved = batch.dedup_bytes_saved(self.doc_bytes)
         bd.bytes_read -= saved
@@ -153,6 +222,7 @@ class RetrievalBackend(abc.ABC):
         Non-survivors keep their candidate-stage ordering (alpha*CLS for
         bitvec, FDE score for cascade)."""
         cfg = self.cfg
+        tr = self.tracer
         dev = self.index.device
         layout = self.tier.layout
         mean_t = float(layout.n_tokens.mean())
@@ -171,8 +241,12 @@ class RetrievalBackend(abc.ABC):
                                          device=dev),
                            torch.from_numpy(packed.view(np.int32)).to(dev),
                            torch.from_numpy(lens).to(dev)).cpu().numpy()
-            bd.rerank_s += self.compute.bitsim_time(len(fin), qlen, mean_t,
-                                                    layout.d_bow)
+            bit_t = self.compute.bitsim_time(len(fin), qlen, mean_t,
+                                             layout.d_bow)
+            bd.rerank_s += bit_t
+            if tr is not None:
+                tr.add("bit_filter", cat="compute", qid=tr.query_key(b),
+                       sim_s=bit_t, n_candidates=len(fin))
             r = min(width, len(fin))
             if r < len(fin):
                 part = np.argpartition(-bit_s, r - 1)[:r]
@@ -182,7 +256,10 @@ class RetrievalBackend(abc.ABC):
             prep.append((fin, fin_scores, sel))
         # 2) ONE coalesced SSD read for every query's survivors, then
         #    full-precision MaxSim per query as its arena rows land
+        rspan = tr.begin("read", cat="io") if tr is not None else None
         batch = self.tier.read_batch([fin[sel] for fin, _, sel in prep])
+        if tr is not None:
+            tr.end(rspan, sim_s=batch.sim_seconds)
         bd.critical_io_s += batch.sim_seconds
         ranked = []
         for b, (fin, fin_scores, sel) in enumerate(prep):
@@ -190,9 +267,15 @@ class RetrievalBackend(abc.ABC):
             res = QueryResult.from_batch_view(fin, fin_scores, batch, b,
                                               ann_s=bd.ann_s)
             out = rerank_query(q_bow[b], qlen, res, alpha=cfg.alpha,
-                               select=sel, doc_bytes=self.doc_bytes)
+                               select=sel, doc_bytes=self.doc_bytes,
+                               degrade=self.tier.degrade_reads)
             ranked.append(out)
-            bd.rerank_s += self._maxsim_time(len(sel), qlen)
+            maxsim_t = 0.0
+            if not out.degraded:
+                maxsim_t = self._maxsim_time(len(sel), qlen)
+                bd.rerank_s += maxsim_t
+            if tr is not None:
+                self._trace_query(tr, b, batch.io_s(b), out, maxsim_t)
             bd.bytes_read += out.bow_bytes_read
         saved = batch.dedup_bytes_saved(self.doc_bytes)
         bd.bytes_read -= saved
@@ -216,16 +299,22 @@ class ESPNBackend(RetrievalBackend):
 
     def _retrieve(self, q_cls, q_bow, q_lens, bd):
         cfg = self.cfg
+        tr = self.tracer
         if q_cls.shape[0] == 0:           # empty batch: nothing to rank,
             return []                     # hit_rate keeps its vacuous default
+        cspan = tr.begin("candidate_gen", cat="compute") \
+            if tr is not None else None
         results = self.prefetcher.run_batch(q_cls, nprobe=cfg.nprobe,
                                             k=cfg.k_candidates)
         bd.ann_s = results[0].stats.ann_s
+        if tr is not None:
+            tr.end(cspan, sim_s=bd.ann_s)
         ranked, hit_rates, hidden, critical = [], [], 0.0, 0.0
         for b, res in enumerate(results):
             out = rerank_query(q_bow[b], int(q_lens[b]), res,
                                alpha=cfg.alpha, rerank_count=cfg.rerank_count,
-                               doc_bytes=self.doc_bytes)
+                               doc_bytes=self.doc_bytes,
+                               degrade=self.tier.degrade_reads)
             ranked.append(out)
             early_t = self._maxsim_time(res.stats.n_hits, int(q_lens[b]))
             miss_t = self._maxsim_time(res.stats.n_misses, int(q_lens[b]))
@@ -233,7 +322,14 @@ class ESPNBackend(RetrievalBackend):
             leaked = max(0.0, hidden_work - res.stats.budget_s)
             hidden += min(hidden_work, res.stats.budget_s)
             critical += leaked + res.stats.miss_io_s
-            bd.rerank_s += miss_t
+            if not out.degraded:       # a degraded query never ran MaxSim
+                bd.rerank_s += miss_t
+            if tr is not None:
+                tr.add("hidden_io", cat="io", qid=tr.query_key(b),
+                       sim_s=min(hidden_work, res.stats.budget_s))
+                self._trace_query(tr, b, leaked + res.stats.miss_io_s, out,
+                                  miss_t,
+                                  hit_rate=round(res.stats.hit_rate, 4))
             hit_rates.append(res.stats.hit_rate)
             bd.bytes_read += out.bow_bytes_read
         bd.hidden_s = hidden
@@ -256,13 +352,10 @@ class DirectBackend(RetrievalBackend):
     the storage stack (which sets the simulated clock in io_engine)."""
 
     def _retrieve(self, q_cls, q_bow, q_lens, bd):
-        cfg = self.cfg
         if q_cls.shape[0] == 0:
             bd.hit_rate = 0.0
             return []
-        scores, ids = search(self.index, q_cls, cfg.nprobe, cfg.k_candidates)
-        scores, ids = scores.cpu().numpy(), ids.cpu().numpy()
-        bd.ann_s = self.cost.time(self.index, cfg.nprobe)
+        scores, ids = self._ivf_candidates(q_cls, bd)
         return self._rerank_candidates(q_bow, q_lens, scores, ids, bd)
 
 
@@ -320,9 +413,7 @@ class BitvecBackend(RetrievalBackend):
         if q_cls.shape[0] == 0:
             bd.hit_rate = 0.0
             return []
-        scores, ids = search(self.index, q_cls, cfg.nprobe, cfg.k_candidates)
-        scores, ids = scores.cpu().numpy(), ids.cpu().numpy()
-        bd.ann_s = self.cost.time(self.index, cfg.nprobe)
+        scores, ids = self._ivf_candidates(q_cls, bd)
         return self._bit_filter_rerank(q_bow, q_lens, scores, ids, bd,
                                        cfg.bit_filter)
 
@@ -391,10 +482,15 @@ class FDEBackend(RetrievalBackend):
         return scores.cpu().numpy(), ids.cpu().numpy()
 
     def _retrieve(self, q_cls, q_bow, q_lens, bd):
+        tr = self.tracer
         if q_cls.shape[0] == 0:
             bd.hit_rate = 0.0
             return []
+        cspan = tr.begin("candidate_gen", cat="compute") \
+            if tr is not None else None
         scores, ids = self._fde_candidates(q_bow, q_lens, bd)
+        if tr is not None:
+            tr.end(cspan, sim_s=bd.ann_s)
         return self._rerank_candidates(q_bow, q_lens, scores, ids, bd)
 
 
@@ -412,15 +508,20 @@ class CascadeBackend(FDEBackend):
 
     def _retrieve(self, q_cls, q_bow, q_lens, bd):
         cfg = self.cfg
+        tr = self.tracer
         if q_cls.shape[0] == 0:
             bd.hit_rate = 0.0
             return []
         width = cfg.cascade_candidates or cfg.k_candidates
         if width != cfg.k_candidates:
             self.cfg = dataclasses.replace(cfg, k_candidates=width)
+        cspan = tr.begin("candidate_gen", cat="compute") \
+            if tr is not None else None
         try:
             scores, ids = self._fde_candidates(q_bow, q_lens, bd)
         finally:
             self.cfg = cfg
+            if tr is not None:
+                tr.end(cspan, sim_s=bd.ann_s)
         return self._bit_filter_rerank(q_bow, q_lens, scores, ids, bd,
                                        cfg.cascade_filter)

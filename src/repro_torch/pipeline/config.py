@@ -1,7 +1,10 @@
 """The ``PipelineConfig`` tree: one declarative description of an ESPN
 retrieval stack (corpus -> IVF index -> packed storage layout -> retrieval
-backend), with dict and argparse round-trips. Field and flag names are the
-reference package's, for the knobs this port carries.
+backend -> serving policy), with dict and argparse round-trips. Sections,
+fields, defaults and flags are the reference package's, so a ``config.json``
+saved by either package loads in the other. The ``cluster`` and ``mutation``
+sections are carried for that exchange; a config that turns them on raises
+at assembly (ROADMAP Queue A item 4).
 """
 from __future__ import annotations
 
@@ -12,6 +15,7 @@ from dataclasses import dataclass, field
 from repro_torch.core.espn import ESPNConfig
 from repro_torch.core.fde import FDEConfig
 from repro_torch.pipeline.backends import get_backend
+from repro_torch.storage.faults import FaultConfig
 from repro_torch.storage.ssd import DEFAULT_BLOCK
 
 
@@ -76,6 +80,11 @@ class RetrievalConfig:
     prefetch_step: float = 0.2
     rerank_count: int | None = None    # None = exact re-rank
     alpha: float = 1.0
+    k_return: int = 100                # the reference's field; no stage
+                                       # reads it in either package
+    use_pallas: bool = False           # the reference's Pallas switch, kept
+                                       # so its configs load: the port runs
+                                       # its CUDA kernels either way
     bit_filter: int = 128              # bitvec: survivors that get full rerank
     fde_k_sim: int = 3                 # fde: 2^k_sim SimHash buckets per rep
     fde_reps: int = 16                 # fde: partition repetitions
@@ -105,14 +114,111 @@ class RetrievalConfig:
 
 
 @dataclass
+class ClusterConfig:
+    """Sharded/replicated storage cluster. The defaults are the single-tier
+    identity; any other setting needs the cluster tier, which the port does
+    not have yet (ROADMAP Queue A item 4)."""
+    n_shards: int = 1                  # layout partitions (one tier each)
+    replication: int = 1               # replicas per shard (clock-only)
+    partition: str = "round_robin"     # round_robin | range (by block mass)
+    hedge_quantile: float = 0.0        # re-issue a lagging shard read past
+                                       # this quantile (0 = no hedging)
+    jitter_sigma: float = 0.0          # lognormal device-clock jitter sigma
+    replica_mults: list = field(default_factory=list)
+                                       # per-replica latency multipliers
+                                       # (empty = all healthy)
+    arena_cache_mb: float = 0.0        # cross-batch doc-row cache budget
+    seed: int = 0                      # per-replica clock RNG seed
+
+    def enabled(self) -> bool:
+        """True when any knob leaves the single-tier identity path."""
+        return (self.n_shards > 1 or self.replication > 1
+                or self.hedge_quantile > 0.0 or self.jitter_sigma > 0.0
+                or self.arena_cache_mb > 0.0
+                or any(m != 1.0 for m in self.replica_mults))
+
+    def arena_cache_bytes(self) -> int:
+        return int(self.arena_cache_mb * 2**20)
+
+
+@dataclass
+class MutationConfig:
+    """Live index mutation. The defaults build the immutable tier; any other
+    setting needs the mutable cluster (ROADMAP Queue A item 4)."""
+    enabled: bool = False              # build the mutable cluster
+    auto_compact_segments: int = 0     # compact a shard at this many
+                                       # segments (0 = off)
+    auto_compact_dead_frac: float = 0.0  # compact past this dead-block
+                                       # fraction (0 = off)
+    compact_interval_s: float = 0.0    # background compactor period
+    rebalance_skew: float = 0.0        # rebalance past this max/min live
+                                       # block mass (0 = off)
+
+    def active(self) -> bool:
+        """True when the pipeline should build the mutable tier."""
+        return (self.enabled or self.auto_compact_segments > 0
+                or self.auto_compact_dead_frac > 0.0
+                or self.compact_interval_s > 0.0
+                or self.rebalance_skew > 0.0)
+
+
+@dataclass
+class ServeConfig:
+    """Serving policy (``repro_torch.serve``). ``slo_ms=0`` keeps the static
+    ``BatchPolicy``; setting it builds a deadline-aware ``SLOPolicy`` (EDF
+    dispatch, slack-aware early dispatch, queue-depth dynamic batch sizing,
+    load-shedding admission control). ``autoscale`` and its knobs drive the
+    cluster tier's replicas (ROADMAP Queue A item 4)."""
+    max_batch: int = 12                # dispatch cap (paper eq. 4 threshold)
+    max_wait_s: float = 0.005
+    slo_ms: float = 0.0                # per-request deadline budget
+                                       # (0 = no SLO: static policy)
+    deadline_aware: bool = True        # EDF + slack-aware dispatch
+    dynamic_batch: bool = True         # size batches from queue depth
+    shed: bool = True                  # admission control (predicted misses
+                                       # rejected, counted as shed)
+    shed_margin: float = 1.0           # forecast multiplier before shedding
+    slack_frac: float = 0.25           # dispatch when slack < frac * budget
+    autoscale: bool = False            # p99-vs-SLO hedge/replica controller
+    autoscale_window: int = 64         # sliding latency window (requests)
+    autoscale_interval_s: float = 0.25  # min seconds between decisions
+    autoscale_fault_trigger: int = 0   # injected-fault events per window
+                                       # that force a scale-up (0 = off)
+
+
+@dataclass
+class ObsConfig:
+    """Observability (``repro_torch.obs``): per-query span tracing and
+    metrics exposition. Off by default; a traced run ranks and bills
+    bitwise as an untraced one (tracing records, it never steers)."""
+    trace: bool = False                # attach a Tracer to the whole stack
+    trace_path: str = ""               # export Chrome/Perfetto trace JSON
+                                       # here after evaluate/serve
+    metrics_path: str = ""             # write Prometheus-style metrics text
+                                       # here after evaluate/serve
+
+    def enabled(self) -> bool:
+        """A tracer should be built and threaded through the stack."""
+        return self.trace or bool(self.trace_path)
+
+
+@dataclass
 class PipelineConfig:
     corpus: CorpusConfig = field(default_factory=CorpusConfig)
     index: IndexConfig = field(default_factory=IndexConfig)
     storage: StorageConfig = field(default_factory=StorageConfig)
     retrieval: RetrievalConfig = field(default_factory=RetrievalConfig)
+    cluster: ClusterConfig = field(default_factory=ClusterConfig)
+    mutation: MutationConfig = field(default_factory=MutationConfig)
+    faults: FaultConfig = field(default_factory=FaultConfig)
+    serve: ServeConfig = field(default_factory=ServeConfig)
+    obs: ObsConfig = field(default_factory=ObsConfig)
 
     _SECTIONS = {"corpus": CorpusConfig, "index": IndexConfig,
-                 "storage": StorageConfig, "retrieval": RetrievalConfig}
+                 "storage": StorageConfig, "retrieval": RetrievalConfig,
+                 "cluster": ClusterConfig, "mutation": MutationConfig,
+                 "faults": FaultConfig, "serve": ServeConfig,
+                 "obs": ObsConfig}
 
     # -- dict round-trip ----------------------------------------------------
     def to_dict(self) -> dict:
@@ -130,8 +236,9 @@ class PipelineConfig:
     # -- argparse round-trip -------------------------------------------------
     @staticmethod
     def add_cli_args(ap: argparse.ArgumentParser) -> argparse.ArgumentParser:
-        c, i, s, r = (CorpusConfig(), IndexConfig(), StorageConfig(),
-                      RetrievalConfig())
+        c, i, s, r, v = (CorpusConfig(), IndexConfig(), StorageConfig(),
+                         RetrievalConfig(), ServeConfig())
+        cl = ClusterConfig()
         ap.add_argument("--docs", type=int, default=c.n_docs)
         ap.add_argument("--queries", type=int, default=c.n_queries)
         ap.add_argument("--d-cls", type=int, default=c.d_cls)
@@ -203,6 +310,120 @@ class PipelineConfig:
                         default=r.cascade_candidates,
                         help="cascade: FDE candidate-generation width "
                              "(0 = reuse --k)")
+        # the cluster and mutation flags need ROADMAP Queue A item 4: a
+        # value off their defaults raises when the pipeline is assembled
+        ap.add_argument("--shards", type=int, default=cl.n_shards,
+                        help="storage cluster: shard the layout across this "
+                             "many tiers (1 = single-tier identity)")
+        ap.add_argument("--replication", type=int, default=cl.replication,
+                        help="storage cluster: replicas per shard")
+        ap.add_argument("--partition", default=cl.partition,
+                        choices=["round_robin", "range"],
+                        help="shard partitioning policy")
+        ap.add_argument("--hedge-quantile", type=float,
+                        default=cl.hedge_quantile,
+                        help="re-issue lagging shard reads on a replica past "
+                             "this latency quantile (0 = no hedging)")
+        ap.add_argument("--cluster-jitter", type=float,
+                        default=cl.jitter_sigma,
+                        help="lognormal device-clock jitter sigma "
+                             "(straggler tail)")
+        ap.add_argument("--replica-mults", default="",
+                        help="comma-separated per-replica latency "
+                             "multipliers, e.g. '4.0,1.0' = degraded primary")
+        ap.add_argument("--arena-cache-mb", type=float,
+                        default=cl.arena_cache_mb,
+                        help="cross-batch arena cache budget in MB (0 = off)")
+        ap.add_argument("--cluster-seed", type=int, default=cl.seed,
+                        help="replica clock RNG seed")
+        m = MutationConfig()
+        ap.add_argument("--mutation", action="store_true",
+                        help="build the mutable storage cluster (online "
+                             "ingest/delete/compact/rebalance)")
+        ap.add_argument("--auto-compact-segments", type=int,
+                        default=m.auto_compact_segments,
+                        help="maintain(): compact a shard at this many "
+                             "append segments (0 = off)")
+        ap.add_argument("--auto-compact-dead-frac", type=float,
+                        default=m.auto_compact_dead_frac,
+                        help="maintain(): compact past this dead-block "
+                             "fraction (0 = off)")
+        ap.add_argument("--compact-interval-s", type=float,
+                        default=m.compact_interval_s,
+                        help="background compactor period in seconds "
+                             "(0 = no daemon)")
+        ap.add_argument("--rebalance-skew", type=float,
+                        default=m.rebalance_skew,
+                        help="maintain(): rebalance shards when max/min "
+                             "live block mass exceeds this (0 = off)")
+        f = FaultConfig()
+        ap.add_argument("--fault-rate", type=float,
+                        default=f.read_error_rate,
+                        help="per-attempt transient read-error probability "
+                             "(0 = fault injection off)")
+        ap.add_argument("--fault-stall-rate", type=float,
+                        default=f.stall_rate,
+                        help="per-read tail-latency stall probability")
+        ap.add_argument("--fault-stall-ms", type=float, default=f.stall_ms,
+                        help="extra device-clock ms a stall adds")
+        ap.add_argument("--fault-corruption-rate", type=float,
+                        default=f.corruption_rate,
+                        help="per-read bit-flip wire-corruption probability")
+        ap.add_argument("--fault-flap-rate", type=float, default=f.flap_rate,
+                        help="per-read replica-flap (momentary outage) "
+                             "probability")
+        ap.add_argument("--fault-seed", type=int, default=f.seed,
+                        help="fault-schedule RNG seed")
+        ap.add_argument("--read-retries", type=int, default=f.read_retries,
+                        help="retry budget per storage read before failover/"
+                             "failure")
+        ap.add_argument("--retry-backoff-ms", type=float,
+                        default=f.retry_backoff_ms,
+                        help="base exponential retry backoff (device-clock "
+                             "ms)")
+        ap.add_argument("--checksum", action="store_true",
+                        help="crc32 per doc record: verify on read, repair "
+                             "corrupted records from a healthy copy")
+        ap.add_argument("--no-degrade", action="store_true",
+                        help="fail queries whose storage read exhausted its "
+                             "retry budget instead of answering degraded "
+                             "from resident scores")
+        ap.add_argument("--max-batch", type=int, default=v.max_batch)
+        ap.add_argument("--max-wait-s", type=float, default=v.max_wait_s)
+        ap.add_argument("--slo-ms", type=float, default=v.slo_ms,
+                        help="per-request deadline budget in ms (0 = no "
+                             "SLO: static batching policy)")
+        ap.add_argument("--static-serve", action="store_true",
+                        help="with --slo-ms: keep the static policy "
+                             "(no EDF / shedding / dynamic batch) — the "
+                             "SLO is still measured, just not acted on")
+        ap.add_argument("--shed-margin", type=float, default=v.shed_margin,
+                        help="admission forecast multiplier (<1 optimistic, "
+                             ">1 conservative)")
+        ap.add_argument("--slack-frac", type=float, default=v.slack_frac,
+                        help="dispatch early when a deadline's slack drops "
+                             "under this fraction of its budget")
+        ap.add_argument("--autoscale", action="store_true",
+                        help="attach the p99-vs-SLO hedge/replica "
+                             "autoscaler (requires cluster knobs)")
+        ap.add_argument("--autoscale-window", type=int,
+                        default=v.autoscale_window,
+                        help="autoscaler sliding latency window (requests)")
+        ap.add_argument("--autoscale-interval-s", type=float,
+                        default=v.autoscale_interval_s,
+                        help="minimum seconds between autoscaler decisions")
+        ap.add_argument("--autoscale-fault-trigger", type=int,
+                        default=v.autoscale_fault_trigger,
+                        help="injected-fault events per window that force a "
+                             "scale-up even at healthy p99 (0 = off)")
+        ap.add_argument("--trace", action="store_true",
+                        help="attach a span tracer to the stack (rankings "
+                             "and bills stay bitwise-identical)")
+        ap.add_argument("--trace-json", default="", metavar="PATH",
+                        help="export the trace as Chrome/Perfetto "
+                             "trace-event JSON to PATH (implies --trace)")
+        ap.add_argument("--metrics-out", default="", metavar="PATH",
+                        help="write Prometheus-style metrics text to PATH")
         return ap
 
     @classmethod
@@ -239,4 +460,45 @@ class PipelineConfig:
                                           args.fde_brute_threshold),
                                       cascade_filter=args.cascade_filter,
                                       cascade_candidates=(
-                                          args.cascade_candidates)))
+                                          args.cascade_candidates)),
+            cluster=ClusterConfig(
+                n_shards=args.shards, replication=args.replication,
+                partition=args.partition,
+                hedge_quantile=args.hedge_quantile,
+                jitter_sigma=args.cluster_jitter,
+                replica_mults=[float(x) for x in
+                               args.replica_mults.split(",") if x],
+                arena_cache_mb=args.arena_cache_mb, seed=args.cluster_seed),
+            mutation=MutationConfig(
+                enabled=args.mutation,
+                auto_compact_segments=args.auto_compact_segments,
+                auto_compact_dead_frac=args.auto_compact_dead_frac,
+                compact_interval_s=args.compact_interval_s,
+                rebalance_skew=args.rebalance_skew),
+            faults=FaultConfig(read_error_rate=args.fault_rate,
+                               stall_rate=args.fault_stall_rate,
+                               stall_ms=args.fault_stall_ms,
+                               corruption_rate=args.fault_corruption_rate,
+                               flap_rate=args.fault_flap_rate,
+                               read_retries=args.read_retries,
+                               retry_backoff_ms=args.retry_backoff_ms,
+                               checksum=args.checksum,
+                               degrade=not args.no_degrade,
+                               seed=args.fault_seed),
+            serve=ServeConfig(max_batch=args.max_batch,
+                              max_wait_s=args.max_wait_s,
+                              slo_ms=args.slo_ms,
+                              deadline_aware=not args.static_serve,
+                              dynamic_batch=not args.static_serve,
+                              shed=not args.static_serve,
+                              shed_margin=args.shed_margin,
+                              slack_frac=args.slack_frac,
+                              autoscale=args.autoscale,
+                              autoscale_window=args.autoscale_window,
+                              autoscale_interval_s=(
+                                  args.autoscale_interval_s),
+                              autoscale_fault_trigger=(
+                                  args.autoscale_fault_trigger)),
+            obs=ObsConfig(trace=args.trace or bool(args.trace_json),
+                          trace_path=args.trace_json,
+                          metrics_path=args.metrics_out))

@@ -5,6 +5,9 @@
     with Pipeline.build(PipelineConfig()) as pipe:   # device="cuda"
         resp = pipe.search()                         # corpus queries
         print(pipe.evaluate())                       # MRR/recall + breakdown
+        pipe.save("artifacts/")                      # index, layout, tables
+    with Pipeline.load("artifacts/") as pipe:        # no re-clustering
+        server = pipe.serve()                        # continuous batching
 
 The retrieval mode is resolved against the backend registry
 (``repro_torch.pipeline.backends``), which also decides the storage-tier
@@ -15,8 +18,18 @@ the paper's ``ragged`` one or, with ``storage.layout_mode="fixed_stride"``,
 the constant-space layout of a corpus pooled to ``storage.pool_k`` tokens a
 doc. The IVF index, the FDE table and each read's token rows live on
 ``device``; the packed layout and the bit table are host arrays.
+
+``cfg.faults`` attaches the seeded fault injector (and record checksums) to
+the storage tier, and ``cfg.obs`` a tracer to the whole stack. The storage
+cluster and live mutation (``cfg.cluster``, ``cfg.mutation``, and
+``cfg.serve.autoscale``, which drives the cluster's replicas) are not
+ported: a config that asks for them raises ``NotImplementedError``.
 """
 from __future__ import annotations
+
+import dataclasses
+import json
+import os
 
 import numpy as np
 import torch
@@ -28,8 +41,11 @@ from repro_torch.core.ivf import ANNCostModel, IVFIndex, build_ivf
 from repro_torch.core.metrics import mrr_at_k, recall_at_k
 from repro_torch.data.synthetic import Corpus, make_corpus
 from repro_torch.device import resolve_device
+from repro_torch.obs import MetricsRegistry, Tracer
+from repro_torch.pipeline import persist
 from repro_torch.pipeline.backends import RetrievalBackend, get_backend
 from repro_torch.pipeline.config import PipelineConfig
+from repro_torch.storage.faults import FaultInjector, add_checksums
 from repro_torch.storage.io_engine import StorageTier
 from repro_torch.storage.layout import (LAYOUT_MODES, BitTable,
                                         EmbeddingLayout, bits_from_layout,
@@ -51,8 +67,17 @@ def _pack_layout(cfg: PipelineConfig, cls_embs: np.ndarray,
                              "storage.pool_k > 0 (--pool-k)")
         bow_embs = pool_corpus(bow_embs, s.pool_k, seed=s.pool_seed)
         return pack(cls_embs, bow_embs, dtype=np.dtype(s.dtype),
-                    block=s.block, mode="fixed_stride", pool_k=s.pool_k)
-    return pack(cls_embs, bow_embs, dtype=np.dtype(s.dtype), block=s.block)
+                    block=s.block, mode="fixed_stride", pool_k=s.pool_k,
+                    checksum=cfg.faults.checksum)
+    return pack(cls_embs, bow_embs, dtype=np.dtype(s.dtype), block=s.block,
+                checksum=cfg.faults.checksum)
+
+
+def _unported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} needs the storage cluster tier, which the port does not "
+        "have yet (ROADMAP Queue A item 4); the port never builds a plain "
+        "tier in its place")
 
 
 class Pipeline:
@@ -101,6 +126,26 @@ class Pipeline:
                              cost_model=cost_model, compute=compute)
 
     @classmethod
+    def from_embeddings(cls, cfg: PipelineConfig, cls_embs: np.ndarray,
+                        bow_embs: list[np.ndarray], *,
+                        cost_model: ANNCostModel | None = None,
+                        compute: ComputeModel | None = None,
+                        device: str | torch.device = "cuda") -> "Pipeline":
+        """Index externally encoded embeddings (e.g. a trained encoder's
+        corpus pass) on ``device``: builds the IVF index and the packed
+        layout, no synthetic corpus. Queries must then be passed to
+        ``search`` explicitly."""
+        dev = resolve_device(device)
+        get_backend(cfg.retrieval.mode)
+        index = build_ivf(cls_embs,
+                          ncells=cfg.index.resolve_ncells(len(cls_embs)),
+                          iters=cfg.index.iters, quant=cfg.index.quant,
+                          train_sample=cfg.index.train_sample, device=dev)
+        layout = _pack_layout(cfg, cls_embs, bow_embs)
+        return cls._assemble(cfg, None, index, layout,
+                             cost_model=cost_model, compute=compute)
+
+    @classmethod
     def from_artifacts(cls, cfg: PipelineConfig, *, index: IVFIndex,
                        layout: EmbeddingLayout, corpus: Corpus | None = None,
                        cost_model: ANNCostModel | None = None,
@@ -125,6 +170,10 @@ class Pipeline:
                   cost_model=None, compute=None, bits: BitTable | None = None,
                   fde: FDETable | None = None) -> "Pipeline":
         backend_cls = get_backend(cfg.retrieval.mode)
+        if cfg.cluster.enabled():
+            raise _unported("a sharded or replicated tier (cfg.cluster)")
+        if cfg.mutation.active():
+            raise _unported("live mutation (cfg.mutation)")
         budget = (int(layout.nbytes * cfg.storage.mem_budget_frac)
                   if backend_cls.needs_mem_budget else None)
         if backend_cls.needs_bit_table:
@@ -140,13 +189,25 @@ class Pipeline:
                                       device=index.device)
         else:
             fde = None        # don't bill the FDE table to other backends
+        fl = cfg.faults
+        faults = FaultInjector(fl) if fl.active() else None
+        if fl.checksum and layout.checksums is None:
+            # a handed-down layout may predate --checksum
+            add_checksums(layout)
         tier = StorageTier(layout, stack=backend_cls.storage_stack,
                            t_max=cfg.storage.t_max, mem_budget_bytes=budget,
                            bits=bits, fde=fde,
-                           coalesce=cfg.storage.io_coalesce,
+                           coalesce=cfg.storage.io_coalesce, faults=faults,
                            device=index.device)
         backend = backend_cls(index, tier, cfg.retrieval.to_espn_config(),
                               cost_model=cost_model, compute=compute)
+        if cfg.obs.enabled():
+            # one tracer threaded through the whole stack: backend spans
+            # and storage spans (plan/read_batch + fault children) stitch
+            # per query
+            tracer = Tracer()
+            backend.tracer = tracer
+            tier.tracer = tracer
         return cls(cfg, corpus=corpus, index=index, layout=layout, tier=tier,
                    backend=backend)
 
@@ -178,6 +239,124 @@ class Pipeline:
         return {f"mrr@{mrr_k}": mrr_at_k(ranked, qrels, mrr_k),
                 f"recall@{recall_k}": recall_at_k(ranked, qrels, recall_k),
                 "breakdown_ms": resp.breakdown.ms()}
+
+    # -- observability -------------------------------------------------------
+    @property
+    def tracer(self) -> Tracer | None:
+        """The stack's tracer (None unless ``cfg.obs`` enabled tracing or a
+        server attached one)."""
+        return self.backend.tracer
+
+    def export_trace(self, path: str) -> int:
+        """Write the accumulated spans as Chrome/Perfetto trace-event JSON
+        (load via chrome://tracing or https://ui.perfetto.dev). Returns the
+        event count."""
+        tr = self.tracer
+        if tr is None:
+            raise RuntimeError("no tracer attached; set cfg.obs.trace=True "
+                               "(--trace / --trace-json) when building")
+        return tr.export(path)
+
+    def metrics_text(self) -> str:
+        """Prometheus-style exposition of the storage tier's counters."""
+        reg = MetricsRegistry()
+        reg.register_sources(self.tier.metrics_sources())
+        return reg.expose()
+
+    # -- serving -------------------------------------------------------------
+    def serve(self, policy=None, *, trace_path: str | None = None):
+        """Start a continuous-batching ``RetrievalServer`` over this stack.
+        ``cfg.serve.slo_ms > 0`` builds the deadline-aware ``SLOPolicy``
+        (EDF + admission control) instead of the static ``BatchPolicy``.
+        ``trace_path`` (or ``cfg.obs.trace_path``) traces every request and
+        exports Perfetto JSON there at ``shutdown()``. The caller owns
+        ``shutdown()``."""
+        from repro_torch.serve.engine import RetrievalServer
+        from repro_torch.serve.scheduler import BatchPolicy
+        from repro_torch.serve.slo import SLOPolicy
+        sc = self.cfg.serve
+        if sc.autoscale:
+            raise _unported("autoscaling (cfg.serve.autoscale)")
+        if policy is None:
+            if sc.slo_ms > 0:
+                policy = SLOPolicy(
+                    max_batch=sc.max_batch, max_wait_s=sc.max_wait_s,
+                    slo_ms=sc.slo_ms, deadline_aware=sc.deadline_aware,
+                    dynamic_batch=sc.dynamic_batch, shed=sc.shed,
+                    shed_margin=sc.shed_margin, slack_frac=sc.slack_frac)
+            else:
+                policy = BatchPolicy(max_batch=sc.max_batch,
+                                     max_wait_s=sc.max_wait_s)
+        trace_path = trace_path or self.cfg.obs.trace_path or None
+        tracer = self.tracer
+        if tracer is None and (trace_path or self.cfg.obs.enabled()):
+            tracer = Tracer()
+        return RetrievalServer(self.backend, policy=policy, tracer=tracer,
+                               trace_path=trace_path)
+
+    def with_mode(self, mode: str, **retrieval_overrides) -> "Pipeline":
+        """A new ``Pipeline`` sharing this one's corpus, index and layout but
+        running another backend (the paper's mode comparisons). The bit and
+        FDE tables already built are handed over as they are, not copied
+        or rebuilt. The new pipeline owns its own storage tier; close
+        both."""
+        cfg = PipelineConfig.from_dict(self.cfg.to_dict())
+        cfg.retrieval.mode = mode
+        valid = {f.name for f in dataclasses.fields(cfg.retrieval)}
+        for k, v in retrieval_overrides.items():
+            if k not in valid:
+                raise TypeError(f"unknown RetrievalConfig field {k!r}; "
+                                f"expected one of {sorted(valid)}")
+            setattr(cfg.retrieval, k, v)
+        return self._assemble(cfg, self.corpus, self.index, self.layout,
+                              cost_model=self.backend.cost,
+                              compute=self.backend.compute,
+                              bits=self.tier.bits, fde=self.tier.fde)
+
+    # -- persistence ---------------------------------------------------------
+    def save(self, out_dir: str) -> str:
+        """Write ``config.json``, the index, the layout (with its record
+        checksums), the corpus when one is attached and the resident tables
+        this pipeline carries, in the reference's format."""
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, "config.json"), "w") as f:
+            json.dump(self.cfg.to_dict(), f, indent=1)
+        persist.save_index(self.index, os.path.join(out_dir, "index.npz"))
+        persist.save_layout(self.layout, os.path.join(out_dir, "layout.npz"))
+        if self.corpus is not None:
+            persist.save_corpus(self.corpus,
+                                os.path.join(out_dir, "corpus.npz"))
+        if self.tier.bits is not None:
+            persist.save_bits(self.tier.bits,
+                              os.path.join(out_dir, "bits.npz"))
+        if self.tier.fde is not None:
+            persist.save_fde(self.tier.fde,
+                             os.path.join(out_dir, "fde.npz"))
+        return out_dir
+
+    @classmethod
+    def load(cls, out_dir: str, *, mode: str | None = None,
+             cost_model=None, compute=None,
+             device: str | torch.device = "cuda") -> "Pipeline":
+        """Rebuild a saved stack (this package's or the reference's) on
+        ``device`` without re-clustering or re-packing. ``mode`` overrides
+        the saved retrieval backend."""
+        dev = resolve_device(device)
+        with open(os.path.join(out_dir, "config.json")) as f:
+            cfg = PipelineConfig.from_dict(json.load(f))
+        if mode is not None:
+            cfg.retrieval.mode = mode
+        index = persist.load_index(os.path.join(out_dir, "index.npz"), dev)
+        layout = persist.load_layout(os.path.join(out_dir, "layout.npz"))
+
+        def optional(name, loader, *args):
+            path = os.path.join(out_dir, name)
+            return loader(path, *args) if os.path.exists(path) else None
+        return cls._assemble(cfg, optional("corpus.npz", persist.load_corpus),
+                             index, layout, cost_model=cost_model,
+                             compute=compute,
+                             bits=optional("bits.npz", persist.load_bits),
+                             fde=optional("fde.npz", persist.load_fde, dev))
 
     # -- lifecycle ----------------------------------------------------------
     def close(self):

@@ -28,6 +28,8 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from repro_torch.storage.faults import ReadFaultError
+
 
 def _exclusive_cumsum(counts: np.ndarray) -> np.ndarray:
     out = np.zeros(len(counts), np.int64)
@@ -182,7 +184,8 @@ class BatchReadResult:
                  arena: DeviceArena | None = None,
                  staging: torch.Tensor | None = None,
                  futures: list | None = None,
-                 serial_reads: list | None = None):
+                 serial_reads: list | None = None,
+                 failed_queries=None):
         self.coalesced = coalesced
         self.plan = plan
         self.sim_seconds = sim_seconds
@@ -192,13 +195,31 @@ class BatchReadResult:
         self._futures = futures or []
         self._landed = [False] * len(self._futures)
         self._serial_reads = serial_reads       # list[ReadResult | None]
+        self._failed_queries = failed_queries   # (B,) bool | None: queries
+                                                # whose read exhausted the
+                                                # fault retry budget
+        self.span = None                        # the read's trace span (set
+                                                # by a traced tier)
 
-    # -- fault surface (the fault layer is not ported: no read fails) --------
+    # -- fault surface -------------------------------------------------------
     def query_failed(self, b: int) -> bool:
-        return False
+        """True when query ``b``'s storage read failed: it has no rows and
+        must not be scored. Backends answer such queries from resident
+        scores (``degraded``) or fail them."""
+        if self._failed_queries is None:
+            return False
+        return bool(self._failed_queries[b])
 
     def rows_failed(self, rows) -> bool:
+        """Whether any of the given arena rows came from a failed read. A
+        single tier's arena is all or nothing per query (a failed coalesced
+        read fails every query), so this is never the case."""
         return False
+
+    @property
+    def any_failed(self) -> bool:
+        return self._failed_queries is not None \
+            and bool(np.any(self._failed_queries))
 
     # -- synchronization -----------------------------------------------------
     def _land(self, ri: int) -> None:
@@ -215,6 +236,8 @@ class BatchReadResult:
         """Block until every run holding query ``b``'s rows has landed."""
         if not self.coalesced:
             return
+        if self.query_failed(b):
+            raise RuntimeError(f"query {b}'s read failed: it has no rows")
         for ri in self.plan.query_runs[b]:
             self._land(int(ri))
 
@@ -273,9 +296,19 @@ class BatchReadResult:
 def serial_batch(read_fn, lists: list[np.ndarray],
                  skip_empty: bool = False) -> BatchReadResult:
     """The serial path: one blocking ``read_fn(ids)`` per query, duplicates
-    billed per requesting query (``skip_empty`` skips zero-id queries)."""
-    reads = [None if skip_empty and len(ids) == 0 else read_fn(ids)
-             for ids in lists]
+    billed per requesting query (``skip_empty`` skips zero-id queries). A
+    query whose read exhausts the fault retry budget is marked failed, not
+    raised: the other queries of the batch still complete."""
+    reads, failed = [], np.zeros(len(lists), bool)
+    for b, ids in enumerate(lists):
+        if skip_empty and len(ids) == 0:
+            reads.append(None)
+            continue
+        try:
+            reads.append(read_fn(ids))
+        except ReadFaultError:
+            reads.append(None)
+            failed[b] = True
     plan = BatchReadPlan(
         lists=lists, arena_ids=np.empty(0, np.int64),
         arena_blocks=np.empty(0, np.int64), arena_lens=np.empty(0, np.int32),
@@ -288,7 +321,8 @@ def serial_batch(read_fn, lists: list[np.ndarray],
         coalesced=False, plan=plan,
         sim_seconds=sum(r.sim_seconds for r in reads if r),
         n_blocks=sum(r.n_blocks for r in reads if r),
-        serial_reads=reads)
+        serial_reads=reads,
+        failed_queries=failed if failed.any() else None)
 
 
 def consumption_dedup_saved(id_lists, doc_bytes) -> int:

@@ -9,6 +9,15 @@ when the tier's device is CUDA), and the caller's thread copies each run to
 the device once (``BatchReadResult.ensure_query``); the *clock* is the
 model in storage/ssd.py. Every read returns its simulated duration so the
 pipeline can account overlap exactly like the paper's prefetch-budget math.
+
+With a ``FaultInjector`` attached, every device read first runs through the
+seeded fault machine on the caller's thread (``_faulty_read_clock``), in the
+reference's order, so the fault schedule is the reference's draw for draw:
+retries, stalls and repairs are billed on the clock; a read that exhausts
+its retry budget moves no rows (its queries are marked failed); an
+undetected corruption flips the sign of the victim's token rows in the host
+staging buffer before they go to the device (negation is exact in every
+float dtype, so the scores are the reference's).
 """
 from __future__ import annotations
 
@@ -25,6 +34,8 @@ from repro_torch.storage.batch_io import (BatchReadPlan, BatchReadResult,
                                           DeviceArena, _exclusive_cumsum,
                                           serial_batch, upload)
 from repro_torch.storage.cache import PageCache
+from repro_torch.storage.faults import (FaultInjector, ReadFaultError,
+                                        fault_span_counts, zero_fault_stats)
 from repro_torch.storage.layout import BitTable, EmbeddingLayout, stage_rows
 
 STACKS = ("espn", "mmap", "swap", "dram")
@@ -45,11 +56,13 @@ class StorageTier:
                  n_io_threads: int = 4, bits: BitTable | None = None,
                  fde: FDETable | None = None, coalesce: bool = True,
                  io_chunk_docs: int | None = None,
+                 faults: FaultInjector | None = None, tracer=None,
                  device: str | torch.device = "cuda"):
         if stack not in STACKS:
             raise ValueError(f"unknown storage stack {stack!r}; "
                              f"expected one of {STACKS}")
         self.layout = layout
+        self.tracer = tracer          # repro_torch.obs.Tracer | None (off)
         self.bits = bits              # resident sign-bit tier (bit filter)
         self.fde = fde                # resident FDE tier (fde candidate gen)
         self._closed = False
@@ -71,6 +84,12 @@ class StorageTier:
         self.stats = {"reads": 0, "docs": 0, "doc_requests": 0, "blocks": 0,
                       "sim_seconds": 0.0, "batch_reads": 0, "io_runs": 0,
                       "dedup_docs": 0}
+        self.faults = faults          # FaultInjector | None (None = inert)
+        self.degrade_reads = faults.cfg.degrade if faults is not None \
+            else True
+        if faults is not None:
+            self.stats |= zero_fault_stats()
+            self._fault_seq = 0
 
     # -- timing ------------------------------------------------------------
     def _pages_of(self, ids) -> np.ndarray:
@@ -105,6 +124,75 @@ class StorageTier:
             t += ssd_lib.h2d_time(bytes_moved)
         return t, n_blocks
 
+    # -- fault injection -----------------------------------------------------
+    def _repair_time(self, n_blocks: int) -> float:
+        """One extra device read of a corrupted record (repair bill)."""
+        if self.stack == "dram":
+            return ssd_lib.DRAM.read_time(n_blocks, qd=self.qd)
+        return self.spec.read_time(n_blocks, qd=self.qd)
+
+    def _faulty_read_clock(self, base_s: float, ids) -> tuple[float, int,
+                                                              bool, dict]:
+        """Run one device read through the fault machine (single device: no
+        failover target). Returns ``(sim_s, corrupt_pos, ok, events)``: the
+        clock including retries/stalls/repair, the position in ``ids`` whose
+        rows must be corrupted (-1 = none: no corruption, or it was detected
+        and repaired), whether the read succeeded at all, and the read's
+        event counts (empty when nothing fired). The counters fold into
+        ``self.stats``."""
+        fi = self.faults
+        with self._lock:
+            seq = self._fault_seq
+            self._fault_seq += 1
+        if not fi.any_event(seq, 0, 0):
+            return base_s, -1, True, {}
+        ev = zero_fault_stats()
+        # a single tier has one "replica"; a flap is an outage for this read
+        if fi.flap(seq, 0, 0):
+            ev["replica_flaps"] += 1
+            ev["faults_injected"] += 1
+            elapsed, ok = 0.0, False
+        else:
+            elapsed, ok = fi.attempt_loop(seq, 0, 0, base_s, ev)
+        corrupt_pos = -1
+        if ok and len(ids) and fi.corrupt(seq, 0):
+            ev["corruptions_injected"] += 1
+            ev["faults_injected"] += 1
+            v = fi.victim(seq, 0, len(ids))
+            gid = int(np.asarray(ids, np.int64)[v])
+            if fi.cfg.checksum \
+                    and fi.wire_corruption_detected(self.layout, gid):
+                # detected: repair = re-read the record (the on-device image
+                # is healthy; the corruption was on the wire). Billed to
+                # repair_bytes, never to the query's unique-bytes bill.
+                ev["checksum_failures"] += 1
+                ev["repairs"] += 1
+                nbv = self.layout.blocks_for([gid])
+                ev["repair_bytes"] += nbv * self.layout.block
+                elapsed += self._repair_time(nbv)
+            else:
+                corrupt_pos = v    # undetected: corrupt rows reach scoring
+        with self._lock:
+            for k, n in ev.items():
+                self.stats[k] += n
+        return elapsed, corrupt_pos, ok, ev
+
+    def _faults_on(self) -> bool:
+        return self.faults is not None and self.faults.cfg.enabled()
+
+    @staticmethod
+    def _corrupt(arena: DeviceArena, rows: np.ndarray, row: int, a: int,
+                 b: int) -> None:
+        """Undetected wire corruption of arena row ``row``, whose token rows
+        are staged at ``rows[a:b]``: its values change sign (the worst case
+        for MaxSim, as in the reference). A layout with per-doc scales
+        negates the scale instead, which is exact for integer storage
+        too."""
+        if arena.scales is not None:
+            arena.scales[row] = -arena.scales[row]
+        else:
+            np.negative(rows[a:b], out=rows[a:b])
+
     # -- reads ---------------------------------------------------------------
     def _arena(self, ids: np.ndarray, lens: np.ndarray, t_max: int):
         """The arena of a read of ``ids`` (``lens`` token rows each) on the
@@ -135,9 +223,22 @@ class StorageTier:
         ids = np.asarray(ids, np.int64)
         t_max = t_max or self.t_max
         sim, n_blocks = self._sim_time(ids)
+        corrupt_pos = -1
+        if self._faults_on():
+            sim, corrupt_pos, ok, _ = self._faulty_read_clock(sim, ids)
+            if not ok:
+                with self._lock:
+                    self.stats["sim_seconds"] += sim
+                raise ReadFaultError(
+                    "storage read failed after exhausting retries")
         lens = np.minimum(self.layout.n_tokens[ids], t_max).astype(np.int32)
         arena, staging = self._arena(ids, lens, t_max)
-        stage_rows(self.layout, ids, t_max, staging.numpy())
+        rows = staging.numpy()
+        stage_rows(self.layout, ids, t_max, rows)
+        if corrupt_pos >= 0:
+            a = int(lens[:corrupt_pos].sum(dtype=np.int64))
+            self._corrupt(arena, rows, corrupt_pos, a,
+                          a + int(lens[corrupt_pos]))
         upload(arena, staging, 0, len(staging))
         with self._lock:
             self.stats["reads"] += 1
@@ -164,23 +265,90 @@ class StorageTier:
         """
         t_max = t_max or self.t_max
         coalesce = self.coalesce if coalesce is None else coalesce
+        tr = self.tracer
         lists = [np.asarray(x, np.int64).ravel() for x in per_query_ids]
         if not coalesce:
-            return serial_batch(lambda ids: self.read(ids, t_max), lists,
-                                skip_empty)
+            if tr is None:
+                return serial_batch(lambda ids: self.read(ids, t_max), lists,
+                                    skip_empty)
+            sp = tr.begin("read_batch", cat="io", serial=True)
+            try:
+                res = serial_batch(lambda ids: self.read(ids, t_max), lists,
+                                   skip_empty)
+            except BaseException:
+                tr.end(sp, error=True)
+                raise
+            tr.end(sp, sim_s=res.sim_seconds)
+            res.span = sp
+            return res
+        t_plan0 = tr.clock() if tr is not None else 0.0
         plan = BatchReadPlan.build(self.layout, lists, t_max=t_max,
                                    chunk_docs=self.io_chunk_docs)
+        if tr is not None:
+            plan.span = tr.add("plan", cat="io", t0=t_plan0, t1=tr.clock(),
+                               n_unique=plan.n_unique,
+                               n_blocks=plan.n_blocks)
         u = plan.n_unique
-        arena, staging = self._arena(plan.arena_ids, plan.arena_lens, t_max)
         if u == 0:
+            arena, staging = self._arena(plan.arena_ids, plan.arena_lens,
+                                         t_max)
             return BatchReadResult(coalesced=True, plan=plan,
                                    sim_seconds=0.0, n_blocks=0, arena=arena,
                                    staging=staging)
+        t_rb0 = tr.clock() if tr is not None else 0.0
         sim, n_blocks = self._sim_time(plan.arena_ids)
+        corrupt_row = -1
+        fault_ev: dict = {}
+
+        def _rb_span(sim_s: float, nb: int, failed: bool = False):
+            """Retroactive read_batch span + fault-event child spans."""
+            sp = tr.add("read_batch", cat="io", t0=t_rb0, t1=tr.clock(),
+                        sim_s=sim_s, n_unique=plan.n_unique, n_blocks=nb,
+                        failed=failed)
+            for name, count in fault_span_counts(fault_ev):
+                tr.add(name, cat="fault", t0=sp.t0, t1=sp.t1, parent=sp,
+                       count=count)
+            return sp
+
+        if self._faults_on():
+            sim, corrupt_row, ok, fault_ev = self._faulty_read_clock(
+                sim, plan.arena_ids)
+            if not ok:
+                # the coalesced transaction is one device read: when it
+                # exhausts the retry budget every query in the batch is
+                # marked failed (a single tier has no failover target), and
+                # no row is staged, copied or scored
+                with self._lock:
+                    self.stats["reads"] += 1
+                    self.stats["batch_reads"] += 1
+                    self.stats["doc_requests"] += plan.n_requested
+                    self.stats["sim_seconds"] += sim
+                res = BatchReadResult(
+                    coalesced=True, plan=plan, sim_seconds=sim, n_blocks=0,
+                    failed_queries=np.ones(len(lists), bool))
+                if tr is not None:
+                    res.span = _rb_span(sim, 0, failed=True)
+                return res
+        arena, staging = self._arena(plan.arena_ids, plan.arena_lens, t_max)
         rows = staging.numpy()
-        futures = [self._pool.submit(
-            stage_rows, self.layout, plan.arena_ids[r0:r1], t_max,
-            rows[slice(*plan.pool_range(r0, r1))]) for r0, r1 in plan.runs]
+
+        def _stage_corrupted(r0: int, r1: int) -> None:
+            stage_rows(self.layout, plan.arena_ids[r0:r1], t_max,
+                       rows[slice(*plan.pool_range(r0, r1))])
+            a = int(plan.arena_first[corrupt_row])
+            self._corrupt(arena, rows, corrupt_row, a,
+                          a + int(plan.arena_lens[corrupt_row]))
+
+        if corrupt_row >= 0 and arena.scales is not None:
+            # the scale flip touches a device tensor: on this thread
+            self._corrupt(arena, rows, corrupt_row, 0, 0)
+            corrupt_row = -1
+        futures = [self._pool.submit(_stage_corrupted, r0, r1)
+                   if r0 <= corrupt_row < r1 else
+                   self._pool.submit(
+                       stage_rows, self.layout, plan.arena_ids[r0:r1], t_max,
+                       rows[slice(*plan.pool_range(r0, r1))])
+                   for r0, r1 in plan.runs]
         with self._lock:
             self.stats["reads"] += 1
             self.stats["batch_reads"] += 1
@@ -190,9 +358,12 @@ class StorageTier:
             self.stats["dedup_docs"] += plan.n_requested - u
             self.stats["blocks"] += n_blocks
             self.stats["sim_seconds"] += sim
-        return BatchReadResult(coalesced=True, plan=plan, sim_seconds=sim,
-                               n_blocks=n_blocks, arena=arena,
-                               staging=staging, futures=futures)
+        res = BatchReadResult(coalesced=True, plan=plan, sim_seconds=sim,
+                              n_blocks=n_blocks, arena=arena,
+                              staging=staging, futures=futures)
+        if tr is not None:
+            res.span = _rb_span(sim, n_blocks)
+        return res
 
     def read_bits(self, ids, t_max: int | None = None):
         """Gather packed sign bits for ``ids`` from the *resident* bit tier:
@@ -218,6 +389,18 @@ class StorageTier:
         if self.stack in ("mmap", "swap"):
             return self.page_cache.capacity_pages * self.layout.block + meta
         return meta
+
+    def metrics_sources(self) -> list:
+        """``(prefix, snapshot_fn)`` pairs for a ``MetricsRegistry``:
+        everything in ``self.stats`` (the fault counters too when an
+        injector is attached) plus the resident-bytes gauge. Snapshots run
+        at expose() time only."""
+        def snap():
+            with self._lock:
+                s = dict(self.stats)
+            s["memory_resident_bytes"] = self.memory_resident_bytes()
+            return s
+        return [("storage_tier", snap)]
 
     def close(self):
         """Idempotent shutdown: pending reads are cancelled rather than

@@ -35,6 +35,7 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from repro_torch.core.quantize import binary_pack, to_uint32_lanes
+from repro_torch.storage.faults import add_checksums
 from repro_torch.storage.ssd import DEFAULT_BLOCK
 
 #: docs decoded per chunk when a resident table is built from the blob
@@ -57,6 +58,10 @@ class EmbeddingLayout:
     mode: str = "ragged"          # "ragged" | "fixed_stride"
     stride_blocks: int = 0        # fixed mode: blocks per doc (uniform)
     pool_k: int = 0               # fixed mode: tokens per doc (uniform)
+    checksums: np.ndarray | None = field(default=None, repr=False)
+                                  # (N,) uint32 per-record crc32 over the
+                                  # record's stored bytes (None = packed
+                                  # without checksums)
 
     def __post_init__(self):
         if self.mode not in LAYOUT_MODES:
@@ -110,7 +115,8 @@ class EmbeddingLayout:
 
 def pack(cls_embs: np.ndarray, bow_embs: list[np.ndarray], *,
          dtype=np.float16, block: int = DEFAULT_BLOCK, mode: str = "ragged",
-         pool_k: int = 0, d_bow: int | None = None) -> EmbeddingLayout:
+         pool_k: int = 0, d_bow: int | None = None,
+         checksum: bool = False) -> EmbeddingLayout:
     """Build the block-aligned disk image.
 
     cls_embs: (N, d_cls) fp32; bow_embs: list of (t_i, d_bow) fp32 arrays,
@@ -120,6 +126,10 @@ def pack(cls_embs: np.ndarray, bow_embs: list[np.ndarray], *,
     token tables. An empty corpus packs to a valid empty layout (``d_bow``
     may be passed explicitly when it cannot be inferred from a zero-doc
     ``bow_embs``).
+
+    ``checksum=True`` attaches each record's crc32
+    (``repro_torch.storage.faults``); the record bytes are unchanged, so a
+    checksummed layout ranks and bills as a plain one.
     """
     n = len(bow_embs)
     cls_embs = np.asarray(cls_embs)
@@ -162,18 +172,23 @@ def pack(cls_embs: np.ndarray, bow_embs: list[np.ndarray], *,
             s = starts[i] * block
             blob[s:s + raw.nbytes] = raw
     if mode == "fixed_stride":
-        return EmbeddingLayout(blob=blob, offsets=None, n_tokens=None,
-                               d_cls=d_cls, d_bow=d_bow,
-                               dtype=np.dtype(dtype), scales=None,
-                               block=block, mode=mode,
-                               stride_blocks=int(stride_blocks),
-                               pool_k=pool_k)
-    offsets = np.zeros((n, 2), np.int64)
-    offsets[:, 0] = starts
-    offsets[:, 1] = n_blocks
-    return EmbeddingLayout(blob=blob, offsets=offsets, n_tokens=n_tokens,
-                           d_cls=d_cls, d_bow=d_bow, dtype=np.dtype(dtype),
-                           scales=None, block=block)
+        out = EmbeddingLayout(blob=blob, offsets=None, n_tokens=None,
+                              d_cls=d_cls, d_bow=d_bow,
+                              dtype=np.dtype(dtype), scales=None,
+                              block=block, mode=mode,
+                              stride_blocks=int(stride_blocks),
+                              pool_k=pool_k)
+    else:
+        offsets = np.zeros((n, 2), np.int64)
+        offsets[:, 0] = starts
+        offsets[:, 1] = n_blocks
+        out = EmbeddingLayout(blob=blob, offsets=offsets, n_tokens=n_tokens,
+                              d_cls=d_cls, d_bow=d_bow,
+                              dtype=np.dtype(dtype), scales=None,
+                              block=block)
+    if checksum:
+        add_checksums(out)
+    return out
 
 
 def _token_rows(layout: EmbeddingLayout, ids: np.ndarray,

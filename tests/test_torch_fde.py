@@ -98,7 +98,7 @@ def bows_of(seed, lens, d=32):
 @pytest.mark.parametrize("kw", FDE_CONFIGS)
 def test_encoder_draws_the_reference_randomness(kw):
     cfg = fde.FDEConfig(d_bow=32, **kw)
-    ours, ref = fde.FDEEncoder(cfg), ref_fde.FDEEncoder(
+    ours, ref = fde.FDEEncoder(cfg, "cpu"), ref_fde.FDEEncoder(
         ref_fde.FDEConfig(d_bow=32, **kw))
     np.testing.assert_array_equal(ours.planes.numpy(),
                                   ref.planes.reshape(-1, 32))
@@ -114,7 +114,7 @@ def test_encode_docs_and_queries_match_reference(kw):
     """Docs of 0, 1 and many tokens (an empty doc is all zeros; a one-token
     doc fills every bucket from its one non-empty bucket), and queries."""
     bows = bows_of(1, [0, 1, 2, 5, 17, 40, 3, 60])
-    ours = fde.FDEEncoder(fde.FDEConfig(d_bow=32, **kw))
+    ours = fde.FDEEncoder(fde.FDEConfig(d_bow=32, **kw), "cpu")
     ref = ref_fde.FDEEncoder(ref_fde.FDEConfig(d_bow=32, **kw))
     got = ours.encode_docs(bows, chunk=3)
     assert got.dtype == torch.float32
@@ -133,7 +133,8 @@ def test_fill_empty_takes_the_first_nearest_bucket():
     exactly."""
     cfg = dict(k_sim=3, r_reps=6, d_final=0)
     bows = bows_of(4, [1, 2, 2, 3, 1])
-    got = fde.FDEEncoder(fde.FDEConfig(d_bow=32, **cfg)).encode_docs(bows)
+    got = fde.FDEEncoder(fde.FDEConfig(d_bow=32, **cfg),
+                          "cpu").encode_docs(bows)
     want = ref_fde.FDEEncoder(ref_fde.FDEConfig(d_bow=32, **cfg)
                               ).encode_docs(bows)
     np.testing.assert_array_equal(got.numpy(), want)
@@ -146,7 +147,8 @@ def test_fde_from_layout_matches_reference(chunk_docs, dtype):
     cfg = dict(d_bow=ref_lay.d_bow, k_sim=3, r_reps=16, d_final=256)
     ours = fde.fde_from_layout(
         convert.layout_from_numpy(layout_arrays(ref_lay)),
-        fde.FDEConfig(**cfg), dtype=dtype, chunk_docs=chunk_docs)
+        fde.FDEConfig(**cfg), dtype=dtype, chunk_docs=chunk_docs,
+        device="cpu")
     ref = ref_fde.fde_from_layout(ref_lay, ref_fde.FDEConfig(**cfg),
                                   dtype=dtype)
     assert ours.n_docs == ref.n_docs and ours.nbytes == ref.nbytes
@@ -166,7 +168,7 @@ def test_fde_from_layout_matches_reference(chunk_docs, dtype):
 def test_build_fde_table_matches_reference():
     bows = bows_of(5, [3, 0, 9, 30])
     cfg = dict(d_bow=32, k_sim=3, r_reps=8, d_final=128)
-    ours = fde.build_fde_table(bows, fde.FDEConfig(**cfg))
+    ours = fde.build_fde_table(bows, fde.FDEConfig(**cfg), device="cpu")
     ref = ref_fde.build_fde_table(bows, ref_fde.FDEConfig(**cfg))
     got = ours.vecs.numpy()
     ulp = np.abs(got.view(np.int16).astype(np.int32)
@@ -223,7 +225,7 @@ def test_ivf_over_fdes_agrees_with_reference():
         ref_lay, ref_fde.FDEConfig(d_bow=ref_lay.d_bow))
     vecs = np.asarray(table.vecs, np.float32)
     ref = ref_build_ivf(vecs, ncells=16, iters=4)
-    ours = build_ivf(vecs, ncells=16, iters=4)
+    ours = build_ivf(vecs, ncells=16, iters=4, device="cpu")
 
     def cell_of(ids):
         ids = np.asarray(ids)

@@ -43,6 +43,31 @@ def test_every_module_imports_with_jax_and_repro_blocked():
     assert int(out.stdout.split()[-1]) == len(modules) >= 20
 
 
+#: the serving path's modules: persistence, faults, observability, serving
+SERVING_MODULES = (
+    "repro_torch.pipeline.persist", "repro_torch.storage.faults",
+    "repro_torch.obs", "repro_torch.obs.trace", "repro_torch.obs.metrics",
+    "repro_torch.obs.analyze", "repro_torch.serve",
+    "repro_torch.serve.scheduler", "repro_torch.serve.slo",
+    "repro_torch.serve.workload", "repro_torch.serve.engine",
+    "repro_torch.launch", "repro_torch.launch.serve")
+
+
+def test_serving_modules_are_walked_and_import_alone():
+    """The walk above reaches every serving module (so the blocked import
+    covers it), and each imports on its own with jax and repro refused."""
+    modules = {m.name for m in pkgutil.walk_packages([PORT], "repro_torch.")}
+    assert set(SERVING_MODULES) <= modules
+    script = _BLOCKED_IMPORT.split("import repro_torch")[0] + "".join(
+        f"import {name}\n" for name in SERVING_MODULES) + (
+        "assert not [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro')]\n")
+    out = subprocess.run([sys.executable, "-c", script],
+                         capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": SRC})
+    assert out.returncode == 0, out.stderr
+
+
 def test_sources_name_no_jax_or_reference_import():
     pattern = re.compile(r"^\s*(import\s+(jax|repro)\b(?!_torch)"
                          r"|from\s+(jax|repro)(\.|\s)(?!_torch))", re.M)

@@ -150,7 +150,7 @@ def _recall(index, search_fn, k=10, nprobe=4):
 def test_build_ivf_agrees_with_reference():
     c = corpus()
     ref = ref_index("fp32")
-    ours = ivf.build_ivf(c.cls, ncells=32, iters=4)
+    ours = ivf.build_ivf(c.cls, ncells=32, iters=4, device="cpu")
     assert ours.cell_ids.shape == tuple(ref.cell_ids.shape)
     np.testing.assert_allclose(ours.centroids.numpy(),
                                np.asarray(ref.centroids), atol=1e-4)
