@@ -25,7 +25,7 @@ Phases, each of which must pass:
    and ``cascade`` (their bit and FDE tables built once, with size and
    build time), and one ``cspn`` batch on the corpus pooled to 32 tokens a
    doc in the ``fixed_stride`` layout, with the same index; every kernel's
-   launch count read around each mode's run (and, in phases 5-7, around
+   launch count read around each mode's run (and, in phases 5-8, around
    each of their paths), the device the rerank's tiles
    lie on, the K and the kernel of each maxsim and bitsim call (every one
    on the tensor cores, or the run fails; bitsim then timed on the device
@@ -36,7 +36,7 @@ Phases, each of which must pass:
    ``Pipeline.load``, one espn and one cascade batch held bit for bit to
    the unsaved pipeline's; bytes written, save and load seconds;
 6. serve: ``RetrievalServer`` on the loaded espn pipeline (batches of up to
-   32): 128 requests through ``query_async``, each held to
+   32): 128 requests through ``query_async``, each equal bit for bit to
    ``Pipeline.search`` of its query alone, the server's latency summary
    and throughput; then a gds server under ``SLOPolicy`` offered a
    Poisson stream (``serve/workload.py``) at twice that throughput, under
@@ -48,20 +48,32 @@ Phases, each of which must pass:
    non-degraded queries alone; a batch whose every read fails (no maxsim,
    no gather_pack); one traced server batch exported to Perfetto and read
    back by ``analyze_trace``;
-8. agreement: on a small corpus, at the main path's retrieval settings,
+8. cluster: the storage cluster on the same artifacts: a 1x1 cluster's
+   espn batch equal to the single tier's bit for bit (bill included); 4
+   shards x 2 replicas in cascade and espn, equal in ids, scores and byte
+   bills (only the clock moves); a sharded espn server whose 32 answers
+   equal ``search`` of each query alone; a killed replica failing over with
+   nothing degraded, and its recovery's re-sync bill; gds on stragglers
+   (a 3x primary, jitter, hedging past the 0.95 quantile, a 4,000 MB arena
+   cache): three batches, the first hedged, the next two from the cache
+   with no critical I/O; an autoscaled gds server under a 50 ms SLO and
+   its decisions;
+9. agreement: on a small corpus, at the main path's retrieval settings,
    the card path ranks, scores and bills as the CPU path does in every
    mode (``fde`` in both branches, ``cspn`` on a pooled fixed layout), and
    the card builds the FDE table the CPU builds and builds its IVF index
    and FDE table the same twice; with faults on, the card
    and the CPU give equal ids, degraded flags, counters and bills in every
-   single-tier mode; tracing changes no bit on the card; and a directory
-   saved on the card loads on the CPU and answers as the card does;
-9. decode path: SmolLM-135M at full width and depth (random weights from a
+   single-tier mode; tracing changes no bit on the card; a directory
+   saved on the card loads on the CPU and answers as the card does; and
+   the reference CI's cluster settings (hedged + cached, faulted, traced)
+   give the CPU's ids, bills, cluster counters and spans on the card;
+10. decode path: SmolLM-135M at full width and depth (random weights from a
    numpy seed), 8 requests of 4,096 tokens prefilled, then 32 greedy
    decode steps over the KV cache, every step's attention on the
    ``flash_decode`` kernel (30 launches a step, 960 in all, or the run
    fails); prefill and step wall, the step's split, tokens/s, peak memory;
-10. decode agreement: the same model in fp32 at 2 layers, its logits and
+11. decode agreement: the same model in fp32 at 2 layers, its logits and
    greedy tokens on the card against the CPU path.
 
 It then prints the card line, the ``{"kernels": [...]}`` line and, last,
@@ -1232,6 +1244,59 @@ def cspn_mode(cfg, idx, corpus, dev, clock, failures, out):
               {})
 
 
+def scan_formulations(index, corpus, failures) -> dict:
+    """The cell scan's product per query (the port's ``_scan_block``)
+    against the batched product it replaced (one einsum over the batch,
+    whose cuBLAS kernel may change with B; defined here only to be
+    timed): for each, how many of a batch of 64's queries get other
+    approximate or final candidates (ids or score bits) than when searched
+    alone, and ``search_two_phase``'s time at B=64 (events, median of
+    10)."""
+    import torch
+
+    from repro_torch.core import ivf
+
+    def batched_block(cell_ids, cell_vecs, cell_scale, q, probe, *, k):
+        ids = cell_ids[probe]
+        vf = cell_vecs[probe].float()
+        if cell_scale is not None:
+            vf = vf * cell_scale[probe][..., None]
+        s = torch.einsum("bd,bpmd->bpm", q.float(), vf)
+        s = torch.where(ids >= 0, s, ivf.NEG)
+        top_s, pos = ivf.topk_stable(s.reshape(q.shape[0], -1), k)
+        return top_s, torch.gather(ids.reshape(q.shape[0], -1), 1, pos)
+
+    q = corpus.queries_cls[:BATCH_SIZE]
+    delta = max(1, int(round(PREFETCH_STEP * NPROBE)))
+
+    def search(x):
+        return ivf.search_two_phase(index, x, NPROBE, K_CANDIDATES, delta)
+    out, orig = {}, ivf._scan_block
+    for name, block in (("per_query", orig), ("batched", batched_block)):
+        ivf._scan_block = block
+        try:
+            got = search(q)
+            differ = {"approx": 0, "final": 0}
+            for b in range(len(q)):
+                alone = search(q[b:b + 1])
+                for phase, i in (("approx", 0), ("final", 1)):
+                    differ[phase] += not (
+                        torch.equal(got[i][0][b], alone[i][0][0])
+                        and torch.equal(got[i][1][b], alone[i][1][0]))
+            out[name] = {"queries_differing": differ,
+                         "ms": time_ms(lambda: search(q), reps=10,
+                                       warmup=2)}
+        finally:
+            ivf._scan_block = orig
+    log(f"  cell scan at B={BATCH_SIZE}, queries whose candidates differ "
+        f"from their own search alone, and search_two_phase ms: per-query "
+        f"product {json.dumps(out['per_query'])}; the batched product it "
+        f"replaced {json.dumps(out['batched'])}")
+    if any(out["per_query"]["queries_differing"].values()):
+        failures.append("the cell scan's candidates depend on the batch")
+    return out
+
+
 def main_path(dev, failures, profile=False) -> dict:
     import torch
 
@@ -1280,6 +1345,7 @@ def main_path(dev, failures, profile=False) -> dict:
         out["espn"] = run_batches(pipe, corpus, batches, bs, clock, failures,
                                   "espn")
         out["espn"]["launches"] = read_counts()
+        out["scan_formulations"] = scan_formulations(idx, corpus, failures)
         cfg.retrieval.mode = "gds"
         with Pipeline.from_artifacts(cfg, index=idx, layout=pipe.layout,
                                      corpus=corpus, device=dev) as gds:
@@ -1364,7 +1430,8 @@ def main_path(dev, failures, profile=False) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phases 5-7: serving the main path's index (persist, serve, faults)
+# phases 5-8: serving the main path's index (persist, serve, faults,
+# cluster)
 # ---------------------------------------------------------------------------
 
 SERVE_REQUESTS, SERVE_MAX_BATCH = 128, 32
@@ -1379,7 +1446,20 @@ SERVING_KERNELS = {"persist_espn": IVF_RERANK,
                    "persist_cascade": PATH_KERNELS["cascade"],
                    "serve": IVF_RERANK, "serve_slo50": IVF_RERANK,
                    "serve_slo": IVF_RERANK,
-                   "faults": IVF_RERANK}
+                   "faults": IVF_RERANK,
+                   "cluster_1x1_espn": IVF_RERANK,
+                   "cluster_cascade": PATH_KERNELS["cascade"],
+                   "cluster_espn": IVF_RERANK,
+                   "cluster_serve": IVF_RERANK,
+                   "cluster_failover": IVF_RERANK,
+                   "cluster_gds": IVF_RERANK,
+                   "cluster_autoscale": IVF_RERANK}
+# the [cluster] phase: the reference's CI scale-out settings (ci.yml), at the
+# main path's size
+SHARDS, REPLICAS = 4, 2
+STRAGGLERS = dict(replica_mults=[3.0, 1.0], jitter_sigma=0.25,
+                  hedge_quantile=0.95, arena_cache_mb=4000.0)
+AUTOSCALE_REQUESTS = 128
 
 
 def require_launches(out, failures, *paths):
@@ -1481,6 +1561,17 @@ def persist_phase(dev, failures, out):
     require_launches(out, failures, "persist_espn", "persist_cascade")
 
 
+def answers_vs_alone(reqs, want):
+    """(max score diff, swapped ids, other id differences) of served
+    requests against ``search`` of each query alone."""
+    worst, swaps, bad = 0.0, 0, 0
+    for r, w in zip(reqs, want):
+        resp = type(w)(ranked=[r.result], breakdown=w.breakdown)
+        d, sw, b = same_ranking(w, resp)
+        worst, swaps, bad = max(worst, d), swaps + sw, bad + b
+    return worst, swaps, bad
+
+
 def serve_phase(dev, failures, out):
     """``RetrievalServer`` on the loaded espn pipeline: 128 requests
     through ``query_async``, each held to ``Pipeline.search`` of its query
@@ -1499,6 +1590,7 @@ def serve_phase(dev, failures, out):
                 for c, b, ln in qs]
         log(f"  {n} single-query searches in "
             f"{time.perf_counter() - t0:.2f} s")
+        CTX["alone"] = want      # the cluster phase's server is held to them
         reset_counts()
         srv = pipe.serve(BatchPolicy(max_batch=SERVE_MAX_BATCH,
                                      max_wait_s=cfg.serve.max_wait_s))
@@ -1516,16 +1608,14 @@ def serve_phase(dev, failures, out):
                         f"{WAIT_S:.0f} s, "
                         f"{sum(r.error is not None for r in reqs)} failed")
         return
-    worst, swaps, bad = 0.0, 0, 0
-    for r, w in zip(reqs, want):
-        resp = type(w)(ranked=[r.result], breakdown=w.breakdown)
-        d, sw, b = same_ranking(w, resp)
-        worst, swaps, bad = max(worst, d), swaps + sw, bad + b
-    ok = worst <= AGREE_TOL and bad == 0
+    # a query's answer must not depend on the batch it lands in: each
+    # equals search of its query alone bit for bit
+    worst, swaps, bad = answers_vs_alone(reqs, want)
+    ok = worst == 0.0 and swaps == 0 and bad == 0
     log(f"  server: {n} requests in {wall:.2f} s ({n / wall:.1f} "
         f"requests/s); each against search of its query alone: max score "
-        f"diff {worst:.3g}, {swaps} near-tie swaps, {bad} other id "
-        f"differences -> {'ok' if ok else 'FAIL'}")
+        f"diff {worst:.3g}, {swaps} swapped ids, {bad} other id "
+        f"differences (all must be 0) -> {'ok' if ok else 'FAIL'}")
     log(f"  server stats {json.dumps(srv.stats.summary())}")
     log(f"  server launches {out['serve']['launches']}")
     if not ok:
@@ -1679,6 +1769,185 @@ def faults_phase(dev, failures, out):
     require_launches(out, failures, "faults")
 
 
+def cluster_phase(dev, failures, out):
+    """The storage cluster on the main path's 1M-doc artifacts (nothing
+    rebuilt or cut): a trivial cluster, 4 shards x 2 replicas in espn and
+    cascade, a sharded server, gds with stragglers, hedges and the arena
+    cache, a killed replica and its recovery, and the autoscaler."""
+    from repro_torch.pipeline import Pipeline, get_backend
+    from repro_torch.pipeline.config import ClusterConfig
+    from repro_torch.serve.scheduler import BatchPolicy
+    from repro_torch.storage.cluster import StorageCluster
+    corpus, idx, layout, cfg = (CTX[k] for k in ("corpus", "index",
+                                                 "layout", "cfg"))
+    tables, q = CTX["tables"], first_queries(corpus)
+
+    def same_answers(want, got) -> bool:
+        """ids, scores and per-query byte bills equal bit for bit."""
+        return (want.breakdown.bytes_read == got.breakdown.bytes_read
+                and want.breakdown.dedup_bytes_saved
+                == got.breakdown.dedup_bytes_saved
+                and all(np.array_equal(w.doc_ids, g.doc_ids)
+                        and np.array_equal(w.scores, g.scores)
+                        and w.bow_bytes_read == g.bow_bytes_read
+                        for w, g in zip(want.ranked, got.ranked)))
+
+    def check(path, ok, what):
+        log(f"  {path}: {what} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"cluster: {path}: {what}")
+
+    # 1) a 1x1 cluster IS the single tier: ids, scores and the whole bill
+    ecfg = mode_cfg(cfg, "espn")
+    clus = StorageCluster(layout, t_max=ecfg.storage.t_max, device=dev)
+    backend = get_backend("espn")(idx, clus,
+                                  ecfg.retrieval.to_espn_config())
+    reset_counts()
+    t0 = time.perf_counter()
+    got = backend.query_batch(*q)
+    out["cluster_1x1_espn"] = {"launches": read_counts(),
+                               "wall_s": time.perf_counter() - t0}
+    clus.close()
+    check("cluster_1x1_espn", same_bits(FIRST["espn"], got),
+          f"1x1 cluster espn batch of {BATCH_SIZE} vs the single tier: ids, "
+          f"scores and bill bit for bit (wall "
+          f"{out['cluster_1x1_espn']['wall_s']:.2f} s)")
+    # 2) 4 shards x 2 replicas, cascade then espn on the same shard
+    #    layouts: only the clock moves
+    scfg = mode_cfg(cfg, "cascade", cluster=ClusterConfig(
+        n_shards=SHARDS, replication=REPLICAS))
+    t0 = time.perf_counter()
+    casc = Pipeline.from_artifacts(scfg, index=idx, layout=layout,
+                                   device=dev, **tables)
+    t_shard = time.perf_counter() - t0
+    log(f"  {SHARDS} shard layouts of the {layout.n_docs:,} docs built in "
+        f"{t_shard:.2f} s "
+        f"({sum(sh.layout.nbytes for sh in casc.tier.shards):,} bytes)")
+    out["cluster"] = {"shard_build_s": t_shard}
+    with casc, casc.with_mode("espn") as espn:
+        for mode, pipe in (("cascade", casc), ("espn", espn)):
+            reset_counts()
+            t0 = time.perf_counter()
+            got = pipe.search(*q)
+            path = f"cluster_{mode}"
+            out[path] = {"launches": read_counts(),
+                         "wall_s": time.perf_counter() - t0,
+                         "critical_io_ms": got.breakdown.critical_io_s * 1e3}
+            check(path, same_answers(FIRST[mode], got)
+                  and pipe.tier.stats["hedged_reads"] == 0,
+                  f"{SHARDS}x{REPLICAS} {mode} batch vs the single tier: "
+                  f"ids, scores, byte bills bit for bit; critical I/O "
+                  f"{got.breakdown.critical_io_s * 1e3:.3f} ms (single "
+                  f"tier {FIRST[mode].breakdown.critical_io_s * 1e3:.3f}); "
+                  f"wall {out[path]['wall_s']:.2f} s")
+        # 3) a sharded server: every answer is search's of its query alone
+        alone = CTX.pop("alone")[:SERVE_MAX_BATCH]
+        reset_counts()
+        srv = espn.serve(BatchPolicy(max_batch=SERVE_MAX_BATCH,
+                                     max_wait_s=cfg.serve.max_wait_s))
+        try:
+            reqs = [srv.query_async(corpus.queries_cls[i],
+                                    corpus.queries_bow[i],
+                                    int(corpus.query_lens[i]))
+                    for i in range(SERVE_MAX_BATCH)]
+            late = sum(not r.done.wait(WAIT_S) for r in reqs)
+        finally:
+            srv.shutdown()
+        out["cluster_serve"] = {"launches": read_counts(),
+                                "summary": srv.stats.summary()}
+        worst, swaps, bad = (answers_vs_alone(reqs, alone)
+                             if not late and not srv.stats.errors
+                             else (np.inf, 0, len(reqs)))
+        check("cluster_serve", worst == 0.0 and swaps == 0 and bad == 0,
+              f"sharded espn server, {SERVE_MAX_BATCH} requests vs search "
+              f"of each query alone on the single tier: max score diff "
+              f"{worst:.3g}, {swaps} swapped, {bad} other differences; "
+              f"shard blocks {srv.stats.summary().get('shard_blocks')}")
+        # 4) a killed replica: its turns fail over, nothing degrades; its
+        #    recovery bills the shard image's re-sync
+        espn.kill_replica(0, 0)
+        reset_counts()
+        got = espn.search(*q)
+        out["cluster_failover"] = {"launches": read_counts()}
+        st = espn.tier.stats
+        rec = espn.recover_replica(0, 0)
+        image = espn.tier._shard_disk_blocks(0) * layout.block
+        out["cluster_failover"].update(
+            failovers=st["failovers"], degraded=got.breakdown
+            .degraded_queries, recovery=rec)
+        check("cluster_failover", same_answers(FIRST["espn"], got)
+              and st["failovers"] > 0 and got.breakdown.degraded_queries == 0
+              and rec["bytes"] == image == st["recovery_bytes"]
+              and espn.tier.replica_status() == [[True] * REPLICAS] * SHARDS,
+              f"replica 0 of shard 0 killed: {st['failovers']} failovers, "
+              f"{got.breakdown.degraded_queries} degraded, answers bit for "
+              f"bit; recover_replica re-synced {rec['bytes']:,} bytes in "
+              f"{rec['seconds']:.3f} simulated s")
+    # 5) gds on stragglers (a 3x slow primary, jitter, hedging past the
+    #    0.95 quantile, a 4,000 MB arena cache): three batches of the same
+    #    queries; the first hedges, the next two come from the cache
+    gcfg = mode_cfg(cfg, "gds", cluster=ClusterConfig(
+        n_shards=SHARDS, replication=REPLICAS, **STRAGGLERS))
+    with Pipeline.from_artifacts(gcfg, index=idx, layout=layout,
+                                 device=dev) as gds:
+        reset_counts()
+        resps, walls = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            resps.append(gds.search(*q))
+            walls.append(time.perf_counter() - t0)
+        st = dict(gds.tier.stats)
+        cio = [r.breakdown.critical_io_s * 1e3 for r in resps]
+        out["cluster_gds"] = {
+            "launches": read_counts(), "wall_s": walls,
+            "critical_io_ms": cio, "hedged_reads": st["hedged_reads"],
+            "hedge_wins": st["hedge_wins"], "hedge_bytes": st["hedge_bytes"],
+            "cache_hits": st["cache_hits"],
+            "cache": gds.tier.arena_cache.stats()}
+        same_ids = all(np.array_equal(w.doc_ids, g.doc_ids)
+                       for r in resps
+                       for w, g in zip(FIRST["gds"].ranked, r.ranked))
+        check("cluster_gds", st["hedged_reads"] > 0 and st["hedge_wins"] > 0
+              and cio[0] > 0 and cio[1] == cio[2] == 0.0 and same_ids,
+              f"gds, 3 batches of the same {BATCH_SIZE} queries on "
+              f"stragglers: {st['hedged_reads']} hedged reads, "
+              f"{st['hedge_wins']} won, {st['hedge_bytes']:,} hedge bytes; "
+              f"critical I/O ms {[round(x, 3) for x in cio]}; cache "
+              f"{gds.tier.arena_cache.stats()}; ids equal the single "
+              f"tier's: {same_ids}; walls {[round(w, 3) for w in walls]} s")
+        # 6) the autoscaler on the same cluster, under the reference's
+        #    default 50 ms SLO (no shedding: every request is observed)
+        gds.cfg.serve.slo_ms, gds.cfg.serve.shed = SLO_DEFAULT_MS, False
+        gds.cfg.serve.autoscale = True
+        gds.cfg.serve.max_batch = SERVE_MAX_BATCH
+        reset_counts()
+        srv = gds.serve()
+        try:
+            reqs = [srv.query_async(corpus.queries_cls[i],
+                                    corpus.queries_bow[i],
+                                    int(corpus.query_lens[i]))
+                    for i in range(AUTOSCALE_REQUESTS)]
+            late = sum(not r.done.wait(WAIT_S) for r in reqs)
+        finally:
+            srv.shutdown()
+        acts = srv.autoscaler.actions
+        out["cluster_autoscale"] = {
+            "launches": read_counts(), "actions": acts,
+            "hedge_quantile": gds.tier.hedge_quantile,
+            "summary": srv.stats.summary()}
+        for a in acts:
+            log(f"    autoscaler: {json.dumps(a)}")
+        check("cluster_autoscale", not late and not srv.stats.errors
+              and len(acts) > 0,
+              f"autoscaled gds server, {AUTOSCALE_REQUESTS} requests under "
+              f"a {SLO_DEFAULT_MS:.0f} ms SLO: {len(acts)} decisions, hedge "
+              f"quantile 0.95 -> {gds.tier.hedge_quantile}; p99 SLO latency "
+              f"{srv.stats.slo_percentile(99):.1f} ms")
+    require_launches(out, failures, "cluster_1x1_espn", "cluster_cascade",
+                     "cluster_espn", "cluster_serve", "cluster_failover",
+                     "cluster_gds", "cluster_autoscale")
+
+
 def free_main_path():
     """After the last phase on the main path's artifacts: drop them (the
     servers' threads hold their pipelines in reference cycles, so collect
@@ -1690,7 +1959,7 @@ def free_main_path():
 
 
 # ---------------------------------------------------------------------------
-# phase 5: the card path agrees with the CPU path on a small input
+# phase 9: the card path agrees with the CPU path on a small input
 # ---------------------------------------------------------------------------
 
 def same_ranking(want, got):
@@ -1823,6 +2092,7 @@ def agreement(dev, failures):
                               failures)
     agreement_serving(dev, failures, base, corpus, index, ragged, fixed,
                       tables)
+    agreement_cluster(dev, failures, base, corpus, index, ragged, tables)
 
 
 def check_reproducible_builds(corpus, layout, cfg, fde_cfg, dev, failures):
@@ -1953,8 +2223,78 @@ def agreement_serving(dev, failures, base, corpus, index, ragged, fixed,
         shutil.rmtree(root, ignore_errors=True)
 
 
+def agreement_cluster(dev, failures, base, corpus, index, layout, tables):
+    """On the 20,000 docs, the reference's CI cluster settings (ci.yml:
+    hedged + cached, faulted, traced) and the faulted agreement's high
+    rates on 2 shards x 2 replicas (so retries, failovers, failed shard
+    reads and degraded queries occur), two batches of 16 each on the CPU
+    and on the card: the same ids (near ties within ``AGREE_TOL`` aside),
+    degraded flags, bills, cluster, shard and arena-cache counters, and
+    span names."""
+    import dataclasses
+    from collections import Counter
+
+    from repro_torch.pipeline import Pipeline
+    from repro_torch.pipeline.config import ClusterConfig, ObsConfig
+    from repro_torch.storage.faults import FaultConfig
+    halves = [(corpus.queries_cls[sl], corpus.queries_bow[sl],
+               corpus.query_lens[sl]) for sl in (slice(0, 16),
+                                                 slice(16, 32))]
+    cases = {
+        "hedged_cache": ("gds", dict(cluster=ClusterConfig(
+            n_shards=4, replication=2, hedge_quantile=0.95,
+            jitter_sigma=0.25, replica_mults=[3.0, 1.0],
+            arena_cache_mb=8.0))),
+        "faults": ("espn", dict(
+            cluster=ClusterConfig(n_shards=2, replication=2),
+            faults=FaultConfig(read_error_rate=0.02, stall_rate=0.02,
+                               corruption_rate=0.02, read_retries=2,
+                               checksum=True))),
+        "traced": ("espn", dict(cluster=ClusterConfig(n_shards=2),
+                                obs=ObsConfig(trace=True))),
+        "faults_high": ("espn", dict(
+            cluster=ClusterConfig(n_shards=2, replication=2),
+            faults=FaultConfig(**AGREE_FAULTS)))}
+
+    def run(cfg, device):
+        with Pipeline.from_artifacts(cfg, index=index, layout=layout,
+                                     corpus=corpus, device=device,
+                                     **tables) as p:
+            resps = [p.search(*q) for q in halves]
+            spans = (Counter(sp.name for sp in p.tracer.spans())
+                     if p.tracer is not None else None)
+            return resps, (p.tier.stats, p.tier.per_shard_stats(),
+                           p.tier.arena_cache.stats(), spans)
+
+    for name, (mode, sections) in cases.items():
+        cfg = dataclasses.replace(base, retrieval=dataclasses.replace(
+            base.retrieval, mode=mode), **sections)
+        (want, w_counters), (got, g_counters) = run(cfg, "cpu"), \
+            run(cfg, dev)
+        worst, bad, same = 0.0, 0, w_counters == g_counters
+        for w, g in zip(want, got):
+            d, _, b = same_ranking(w, g)
+            worst, bad = max(worst, d), bad + b
+            same &= (w.breakdown.as_dict() == g.breakdown.as_dict()
+                     and [r.degraded for r in w.ranked]
+                     == [r.degraded for r in g.ranked])
+        st = w_counters[0]
+        ok = worst <= AGREE_TOL and bad == 0 and same
+        log(f"  cluster {name} ({mode}) card vs CPU: max score diff "
+            f"{worst:.3g}, {bad} id differences, bills, cluster/shard/cache "
+            f"counters and spans {'equal' if same else 'DIFFER'} (hedged "
+            f"{st['hedged_reads']}, won {st['hedge_wins']}, cache hits "
+            f"{st['cache_hits']}, faults {st['faults_injected']}, failovers "
+            f"{st['failovers']}, failed shard reads "
+            f"{st['shard_read_failures']}, degraded "
+            f"{sum(r.breakdown.degraded_queries for r in want)}) -> "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"cluster {name}: card disagrees with CPU")
+
+
 # ---------------------------------------------------------------------------
-# phases 6-7: the LM serving path (prefill, then KV-cache decode)
+# phases 10-11: the LM serving path (prefill, then KV-cache decode)
 # ---------------------------------------------------------------------------
 
 LM = "smollm-135m"              # full width and depth
@@ -2206,8 +2546,9 @@ def main(argv=None) -> int:
                   path=main_path(dev, failures, args.profile))),
               ("persist", lambda: persist_phase(dev, failures, serving)),
               ("serve", lambda: serve_phase(dev, failures, serving)),
-              ("faults", lambda: (faults_phase(dev, failures, serving),
-                                  free_main_path())),
+              ("faults", lambda: faults_phase(dev, failures, serving)),
+              ("cluster", lambda: (cluster_phase(dev, failures, serving),
+                                   free_main_path())),
               ("agreement", lambda: agreement(dev, failures)),
               ("decode path", lambda: rows.update(
                   decode=decode_path(dev, failures))),

@@ -65,9 +65,10 @@ class ESPNConfig:
 
 @dataclass
 class LatencyBreakdown:
-    """The reference's breakdown, field for field. ``hedge_bytes_read``
-    belongs to the storage cluster (ROADMAP Queue A item 4) and stays 0; the
-    fault counters are this batch's deltas of the tier's, and
+    """The reference's breakdown, field for field. ``hedge_bytes_read`` is
+    the extra duplicate bytes the storage cluster's hedged re-issues moved
+    (0 on a single tier); the fault counters are this batch's deltas of the
+    tier's, and
     ``degraded_queries`` counts the queries answered from candidate scores
     after a failed read."""
     encode_s: float = 0.0

@@ -177,15 +177,23 @@ def probe_cells(centroids: torch.Tensor, q: torch.Tensor, *,
 
 
 def _scan_block(cell_ids, cell_vecs, cell_scale, q, probe, *, k: int):
-    """One probe block: gather (B, P, M, d), one batched product, local
-    top-k. Plain PyTorch: the reference leaves this product to XLA too."""
+    """One probe block: gather (B, P, M, d), one product per query, local
+    top-k. Plain PyTorch: the reference leaves this product to XLA too.
+
+    Each query's scores are a (P*M, d) x (d,) product of their own, whose
+    shape does not depend on the batch: a batched product lets the library
+    pick its kernel (and so its summation order) by B, and then a query's
+    candidate scores, and its ranking among near ties, would depend on the
+    batch it was served in."""
     ids = cell_ids[probe]                                     # (B, P, M)
     vf = cell_vecs[probe].float()                             # (B, P, M, d)
     if cell_scale is not None:
         vf = vf * cell_scale[probe][..., None]
-    s = torch.einsum("bd,bpmd->bpm", q.float(), vf)
+    B, P, M, d = vf.shape
+    qf = q.float()
+    s = (torch.stack([vf[b].reshape(P * M, d) @ qf[b] for b in range(B)])
+         if B else vf.new_zeros((0, P * M))).reshape(B, P, M)
     s = torch.where(ids >= 0, s, NEG)
-    B = q.shape[0]
     top_s, pos = topk_stable(s.reshape(B, -1), k)
     return top_s, torch.gather(ids.reshape(B, -1), 1, pos)
 

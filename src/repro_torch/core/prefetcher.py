@@ -43,13 +43,31 @@ class QueryResult:
     prefetched: dict = field(default_factory=dict)   # id -> row in buffers
     buffers: DeviceArena | None = None   # device arena of prefetched docs
     miss_buffers: DeviceArena | None = None
-    miss_rows: dict | None = None  # id -> row in miss_buffers (batch arena)
+    miss_rows: dict | None = None  # id -> row in miss_buffers (batch arena);
+                                   # None = positional (one read of the
+                                   # misses in candidate order)
     wait_io: object | None = None  # callable: block until this query's async
                                    # batch-I/O runs landed (rerank calls it)
     io_failed: bool = False        # a storage read this query depends on
                                    # failed: it has no rows; answer
                                    # degraded from candidate scores, never
                                    # score it
+
+    @classmethod
+    def from_read(cls, doc_ids: np.ndarray, cand_scores: np.ndarray, read,
+                  *, ann_s: float) -> "QueryResult":
+        """Result for a non-prefetching stack: every fetched document came
+        through the critical path, so the hit mask is empty and the read's
+        arena (rows in the order of the ids read, which may be the top-R
+        candidates alone) holds the misses. ``n_misses`` counts the rows
+        actually read, not every candidate."""
+        stats = PrefetchStats(hit_rate=0.0, n_prefetched=0, n_hits=0,
+                              n_misses=len(read.arena.lens), budget_s=0.0,
+                              prefetch_io_s=0.0, leaked_s=0.0,
+                              miss_io_s=read.sim_seconds, ann_s=ann_s)
+        return cls(doc_ids=doc_ids, cand_scores=cand_scores,
+                   hit_mask=np.zeros(len(doc_ids), bool), stats=stats,
+                   miss_buffers=read.arena)
 
     @classmethod
     def from_batch_view(cls, doc_ids: np.ndarray, cand_scores: np.ndarray,

@@ -140,8 +140,14 @@ def rerank_query(q_bow, q_len, result, *, alpha: float = 1.0,
     # hits: scored from the prefetch buffers (early re-rank)
     pref_rows, pref_pos = [], []
     miss_rows, miss_pos = [], []
-    # batch I/O engine: miss rows point into the shared miss arena directly
-    miss_row_of = result.miss_rows if result.miss_rows is not None else {}
+    miss_row_of = {}
+    if result.miss_rows is not None:
+        # batch I/O engine: rows point into the shared miss arena directly
+        miss_row_of = result.miss_rows
+    elif result.miss_buffers is not None:
+        # one read of the misses, row j = the j-th missed candidate
+        miss_ids = ids[~result.hit_mask]
+        miss_row_of = {int(i): j for j, i in enumerate(miss_ids)}
     for j in sel:
         i = int(ids[j])
         if i in result.prefetched and result.buffers is not None:

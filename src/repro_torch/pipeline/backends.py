@@ -113,8 +113,10 @@ class RetrievalBackend(abc.ABC):
         bd.encode_s = self.compute.encode_time(q_cls.shape[0])
         if tr is not None:
             tr.add("encode", cat="compute", sim_s=bd.encode_s)
-        # injected faults happen inside the tier: this batch's share is the
-        # delta of the tier's counters
+        # hedged re-issues and injected faults happen inside the tier
+        # (storage cluster): this batch's share is the delta of the tier's
+        # counters
+        hedge0 = self.tier.stats.get("hedge_bytes", 0)
         f0 = {k: self.tier.stats.get(k, 0) for k in _FAULT_KEYS}
         try:
             ranked = self._retrieve(q_cls, q_bow, q_lens, bd)
@@ -122,6 +124,7 @@ class RetrievalBackend(abc.ABC):
             if root is not None and not root.closed:
                 tr.end(root, error=True)
             raise
+        bd.hedge_bytes_read = self.tier.stats.get("hedge_bytes", 0) - hedge0
         for k in _FAULT_KEYS:
             setattr(bd, k, self.tier.stats.get(k, 0) - f0[k])
         bd.degraded_queries = sum(int(r.degraded) for r in ranked)

@@ -2,9 +2,9 @@
 retrieval stack (corpus -> IVF index -> packed storage layout -> retrieval
 backend -> serving policy), with dict and argparse round-trips. Sections,
 fields, defaults and flags are the reference package's, so a ``config.json``
-saved by either package loads in the other. The ``cluster`` and ``mutation``
-sections are carried for that exchange; a config that turns them on raises
-at assembly (ROADMAP Queue A item 4).
+saved by either package loads in the other. The ``mutation`` section is
+carried for that exchange; a config that turns it on raises at assembly
+(ROADMAP Queue A item 2).
 """
 from __future__ import annotations
 
@@ -115,9 +115,10 @@ class RetrievalConfig:
 
 @dataclass
 class ClusterConfig:
-    """Sharded/replicated storage cluster. The defaults are the single-tier
-    identity; any other setting needs the cluster tier, which the port does
-    not have yet (ROADMAP Queue A item 4)."""
+    """Sharded/replicated storage cluster
+    (``repro_torch.storage.cluster``). The defaults are the single-tier
+    identity: a plain ``StorageTier`` is built unless any scale-out knob is
+    set."""
     n_shards: int = 1                  # layout partitions (one tier each)
     replication: int = 1               # replicas per shard (clock-only)
     partition: str = "round_robin"     # round_robin | range (by block mass)
@@ -144,7 +145,7 @@ class ClusterConfig:
 @dataclass
 class MutationConfig:
     """Live index mutation. The defaults build the immutable tier; any other
-    setting needs the mutable cluster (ROADMAP Queue A item 4)."""
+    setting needs the mutable cluster (ROADMAP Queue A item 2)."""
     enabled: bool = False              # build the mutable cluster
     auto_compact_segments: int = 0     # compact a shard at this many
                                        # segments (0 = off)
@@ -167,8 +168,8 @@ class ServeConfig:
     """Serving policy (``repro_torch.serve``). ``slo_ms=0`` keeps the static
     ``BatchPolicy``; setting it builds a deadline-aware ``SLOPolicy`` (EDF
     dispatch, slack-aware early dispatch, queue-depth dynamic batch sizing,
-    load-shedding admission control). ``autoscale`` and its knobs drive the
-    cluster tier's replicas (ROADMAP Queue A item 4)."""
+    load-shedding admission control), and ``autoscale`` attaches the
+    hedge/replica feedback controller (requires a cluster tier)."""
     max_batch: int = 12                # dispatch cap (paper eq. 4 threshold)
     max_wait_s: float = 0.005
     slo_ms: float = 0.0                # per-request deadline budget
@@ -310,8 +311,6 @@ class PipelineConfig:
                         default=r.cascade_candidates,
                         help="cascade: FDE candidate-generation width "
                              "(0 = reuse --k)")
-        # the cluster and mutation flags need ROADMAP Queue A item 4: a
-        # value off their defaults raises when the pipeline is assembled
         ap.add_argument("--shards", type=int, default=cl.n_shards,
                         help="storage cluster: shard the layout across this "
                              "many tiers (1 = single-tier identity)")
@@ -336,6 +335,8 @@ class PipelineConfig:
                         help="cross-batch arena cache budget in MB (0 = off)")
         ap.add_argument("--cluster-seed", type=int, default=cl.seed,
                         help="replica clock RNG seed")
+        # the mutation flags need ROADMAP Queue A item 2: a value off their
+        # defaults raises when the pipeline is assembled
         m = MutationConfig()
         ap.add_argument("--mutation", action="store_true",
                         help="build the mutable storage cluster (online "

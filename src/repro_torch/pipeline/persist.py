@@ -1,7 +1,7 @@
 """Artifact persistence for the ported pipeline: the IVF index, the packed
 embedding layout (with its record checksums), the resident bit and FDE
-tables and the synthetic corpus, each one ``.npz`` file. Used by
-``Pipeline.save``/``Pipeline.load``.
+tables, a storage cluster's shard sub-layouts and the synthetic corpus, each
+one ``.npz`` file. Used by ``Pipeline.save``/``Pipeline.load``.
 
 The file format is the reference package's, field for field: the same npz
 names and dtypes and the same ``.crc32`` sidecar, so a directory saved by
@@ -116,9 +116,9 @@ def load_index(path: str, device) -> IVFIndex:
 
 # -- packed embedding layout ------------------------------------------------
 
-def save_layout(layout: EmbeddingLayout, path: str) -> None:
-    """A fixed-stride layout persists no offsets or token counts: they are
-    arithmetic, recomputed on load."""
+def _layout_fields(layout: EmbeddingLayout) -> dict:
+    """npz field dict for a layout. A fixed-stride layout persists no
+    offsets or token counts: they are arithmetic, recomputed on load."""
     fields = dict(blob=layout.blob, d_cls=layout.d_cls, d_bow=layout.d_bow,
                   dtype=str(np.dtype(layout.dtype)),
                   scales=(layout.scales if layout.scales is not None
@@ -130,15 +130,37 @@ def save_layout(layout: EmbeddingLayout, path: str) -> None:
     if layout.mode != "fixed_stride":
         fields["offsets"] = layout.offsets
         fields["n_tokens"] = layout.n_tokens
-    atomic_savez(path, **fields)
+    return fields
 
 
-def load_layout(path: str) -> EmbeddingLayout:
-    z = verified_load(path)
+def _layout_from_npz(z) -> EmbeddingLayout:
     layout = convert.layout_from_numpy(z)
     if "checksums" in z.files and z["checksums"].size:
         layout.checksums = z["checksums"]
     return layout
+
+
+def save_layout(layout: EmbeddingLayout, path: str) -> None:
+    atomic_savez(path, **_layout_fields(layout))
+
+
+def load_layout(path: str) -> EmbeddingLayout:
+    return _layout_from_npz(verified_load(path))
+
+
+# -- sharded layouts (storage cluster) --------------------------------------
+
+def save_shard_layout(layout: EmbeddingLayout, global_ids: np.ndarray,
+                      path: str) -> None:
+    """One cluster shard: its sub-layout plus the global doc ids it owns
+    (the cluster rebuilds its doc -> shard maps from these on load)."""
+    atomic_savez(path, **_layout_fields(layout),
+                 global_ids=np.asarray(global_ids, np.int64))
+
+
+def load_shard_layout(path: str) -> tuple[EmbeddingLayout, np.ndarray]:
+    z = verified_load(path)
+    return _layout_from_npz(z), z["global_ids"]
 
 
 # -- resident bit table (bitvec, cascade) -----------------------------------

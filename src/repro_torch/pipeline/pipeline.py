@@ -19,11 +19,14 @@ the constant-space layout of a corpus pooled to ``storage.pool_k`` tokens a
 doc. The IVF index, the FDE table and each read's token rows live on
 ``device``; the packed layout and the bit table are host arrays.
 
-``cfg.faults`` attaches the seeded fault injector (and record checksums) to
-the storage tier, and ``cfg.obs`` a tracer to the whole stack. The storage
-cluster and live mutation (``cfg.cluster``, ``cfg.mutation``, and
-``cfg.serve.autoscale``, which drives the cluster's replicas) are not
-ported: a config that asks for them raises ``NotImplementedError``.
+``cfg.cluster`` shards and replicates the layout behind a
+``StorageCluster`` (hedged reads, the cross-batch arena cache, replica
+failover; ``kill_replica``/``recover_replica``), and ``cfg.serve.autoscale``
+attaches the feedback autoscaler that drives its replicas. ``cfg.faults``
+attaches the seeded fault injector (and record checksums) to the storage
+tier, and ``cfg.obs`` a tracer to the whole stack. Live mutation
+(``cfg.mutation``, ``rebalance``) is not ported: asking for it raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -45,6 +48,7 @@ from repro_torch.obs import MetricsRegistry, Tracer
 from repro_torch.pipeline import persist
 from repro_torch.pipeline.backends import RetrievalBackend, get_backend
 from repro_torch.pipeline.config import PipelineConfig
+from repro_torch.storage.cluster import StorageCluster
 from repro_torch.storage.faults import FaultInjector, add_checksums
 from repro_torch.storage.io_engine import StorageTier
 from repro_torch.storage.layout import (LAYOUT_MODES, BitTable,
@@ -75,9 +79,9 @@ def _pack_layout(cfg: PipelineConfig, cls_embs: np.ndarray,
 
 def _unported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} needs the storage cluster tier, which the port does not "
-        "have yet (ROADMAP Queue A item 4); the port never builds a plain "
-        "tier in its place")
+        f"{what} needs the mutable storage cluster, which the port does not "
+        "have yet (ROADMAP Queue A item 2); the port never builds an "
+        "immutable tier in its place")
 
 
 class Pipeline:
@@ -168,10 +172,9 @@ class Pipeline:
     def _assemble(cls, cfg: PipelineConfig, corpus: Corpus | None,
                   index: IVFIndex, layout: EmbeddingLayout, *,
                   cost_model=None, compute=None, bits: BitTable | None = None,
-                  fde: FDETable | None = None) -> "Pipeline":
+                  fde: FDETable | None = None,
+                  shard_layouts=None) -> "Pipeline":
         backend_cls = get_backend(cfg.retrieval.mode)
-        if cfg.cluster.enabled():
-            raise _unported("a sharded or replicated tier (cfg.cluster)")
         if cfg.mutation.active():
             raise _unported("live mutation (cfg.mutation)")
         budget = (int(layout.nbytes * cfg.storage.mem_budget_frac)
@@ -191,14 +194,31 @@ class Pipeline:
             fde = None        # don't bill the FDE table to other backends
         fl = cfg.faults
         faults = FaultInjector(fl) if fl.active() else None
-        if fl.checksum and layout.checksums is None:
-            # a handed-down layout may predate --checksum
-            add_checksums(layout)
-        tier = StorageTier(layout, stack=backend_cls.storage_stack,
-                           t_max=cfg.storage.t_max, mem_budget_bytes=budget,
-                           bits=bits, fde=fde,
-                           coalesce=cfg.storage.io_coalesce, faults=faults,
-                           device=index.device)
+        if fl.checksum:
+            # every image the read path serves from needs its checksum
+            # column (a handed-down layout may predate --checksum)
+            for lay in [layout] + [sl for sl, _ in (shard_layouts or [])]:
+                if lay.checksums is None:
+                    add_checksums(lay)
+        cl = cfg.cluster
+        if cl.enabled():
+            tier = StorageCluster(
+                layout, n_shards=cl.n_shards, replication=cl.replication,
+                partition=cl.partition, stack=backend_cls.storage_stack,
+                mem_budget_bytes=budget, t_max=cfg.storage.t_max,
+                bits=bits, fde=fde, coalesce=cfg.storage.io_coalesce,
+                replica_mults=cl.replica_mults,
+                hedge_quantile=cl.hedge_quantile,
+                jitter_sigma=cl.jitter_sigma, seed=cl.seed,
+                arena_cache_bytes=cl.arena_cache_bytes(),
+                shard_layouts=shard_layouts, faults=faults,
+                device=index.device)
+        else:
+            tier = StorageTier(layout, stack=backend_cls.storage_stack,
+                               t_max=cfg.storage.t_max,
+                               mem_budget_bytes=budget, bits=bits, fde=fde,
+                               coalesce=cfg.storage.io_coalesce,
+                               faults=faults, device=index.device)
         backend = backend_cls(index, tier, cfg.retrieval.to_espn_config(),
                               cost_model=cost_model, compute=compute)
         if cfg.obs.enabled():
@@ -267,16 +287,16 @@ class Pipeline:
     def serve(self, policy=None, *, trace_path: str | None = None):
         """Start a continuous-batching ``RetrievalServer`` over this stack.
         ``cfg.serve.slo_ms > 0`` builds the deadline-aware ``SLOPolicy``
-        (EDF + admission control) instead of the static ``BatchPolicy``.
-        ``trace_path`` (or ``cfg.obs.trace_path``) traces every request and
-        exports Perfetto JSON there at ``shutdown()``. The caller owns
-        ``shutdown()``."""
+        (EDF + admission control) instead of the static ``BatchPolicy``, and
+        ``cfg.serve.autoscale`` attaches the hedge/replica feedback
+        controller (cluster tier required). ``trace_path`` (or
+        ``cfg.obs.trace_path``) traces every request and exports Perfetto
+        JSON there at ``shutdown()``. The caller owns ``shutdown()``."""
+        from repro_torch.serve.autoscaler import Autoscaler, AutoscalerConfig
         from repro_torch.serve.engine import RetrievalServer
         from repro_torch.serve.scheduler import BatchPolicy
         from repro_torch.serve.slo import SLOPolicy
         sc = self.cfg.serve
-        if sc.autoscale:
-            raise _unported("autoscaling (cfg.serve.autoscale)")
         if policy is None:
             if sc.slo_ms > 0:
                 policy = SLOPolicy(
@@ -287,19 +307,34 @@ class Pipeline:
             else:
                 policy = BatchPolicy(max_batch=sc.max_batch,
                                      max_wait_s=sc.max_wait_s)
+        scaler = None
+        if sc.autoscale:
+            if not isinstance(self.tier, StorageCluster):
+                raise RuntimeError(
+                    "autoscaling requires the cluster tier; set cluster "
+                    "knobs (e.g. --replication 2) when building")
+            slo = sc.slo_ms or getattr(policy, "slo_ms", 0.0)
+            if not slo:
+                raise RuntimeError("autoscaling needs an SLO; set "
+                                   "cfg.serve.slo_ms (--slo-ms)")
+            scaler = Autoscaler(self.tier, AutoscalerConfig(
+                slo_ms=slo, window=sc.autoscale_window,
+                interval_s=sc.autoscale_interval_s,
+                fault_trigger=sc.autoscale_fault_trigger))
         trace_path = trace_path or self.cfg.obs.trace_path or None
         tracer = self.tracer
         if tracer is None and (trace_path or self.cfg.obs.enabled()):
             tracer = Tracer()
-        return RetrievalServer(self.backend, policy=policy, tracer=tracer,
+        return RetrievalServer(self.backend, policy=policy,
+                               autoscaler=scaler, tracer=tracer,
                                trace_path=trace_path)
 
     def with_mode(self, mode: str, **retrieval_overrides) -> "Pipeline":
         """A new ``Pipeline`` sharing this one's corpus, index and layout but
         running another backend (the paper's mode comparisons). The bit and
-        FDE tables already built are handed over as they are, not copied
-        or rebuilt. The new pipeline owns its own storage tier; close
-        both."""
+        FDE tables already built, and a cluster's shard sub-layouts, are
+        handed over as they are, not copied or rebuilt. The new pipeline
+        owns its own storage tier; close both."""
         cfg = PipelineConfig.from_dict(self.cfg.to_dict())
         cfg.retrieval.mode = mode
         valid = {f.name for f in dataclasses.fields(cfg.retrieval)}
@@ -308,16 +343,24 @@ class Pipeline:
                 raise TypeError(f"unknown RetrievalConfig field {k!r}; "
                                 f"expected one of {sorted(valid)}")
             setattr(cfg.retrieval, k, v)
+        shard_layouts = None
+        if isinstance(self.tier, StorageCluster):
+            # cluster knobs are not retrieval overrides: the new pipeline
+            # shards identically, so reuse the already-built sub-layouts
+            shard_layouts = list(zip((sh.layout for sh in self.tier.shards),
+                                     self.tier.shard_ids))
         return self._assemble(cfg, self.corpus, self.index, self.layout,
                               cost_model=self.backend.cost,
                               compute=self.backend.compute,
-                              bits=self.tier.bits, fde=self.tier.fde)
+                              bits=self.tier.bits, fde=self.tier.fde,
+                              shard_layouts=shard_layouts)
 
     # -- persistence ---------------------------------------------------------
     def save(self, out_dir: str) -> str:
         """Write ``config.json``, the index, the layout (with its record
-        checksums), the corpus when one is attached and the resident tables
-        this pipeline carries, in the reference's format."""
+        checksums), the corpus when one is attached, the resident tables
+        this pipeline carries and a sharded cluster's ``shards/``
+        sub-layouts, in the reference's format."""
         os.makedirs(out_dir, exist_ok=True)
         with open(os.path.join(out_dir, "config.json"), "w") as f:
             json.dump(self.cfg.to_dict(), f, indent=1)
@@ -332,6 +375,13 @@ class Pipeline:
         if self.tier.fde is not None:
             persist.save_fde(self.tier.fde,
                              os.path.join(out_dir, "fde.npz"))
+        if isinstance(self.tier, StorageCluster) and self.tier.n_shards > 1:
+            shard_dir = os.path.join(out_dir, "shards")
+            os.makedirs(shard_dir, exist_ok=True)
+            for s, sh in enumerate(self.tier.shards):
+                persist.save_shard_layout(
+                    sh.layout, self.tier.shard_ids[s],
+                    os.path.join(shard_dir, f"shard_{s}.npz"))
         return out_dir
 
     @classmethod
@@ -352,11 +402,34 @@ class Pipeline:
         def optional(name, loader, *args):
             path = os.path.join(out_dir, name)
             return loader(path, *args) if os.path.exists(path) else None
+        shard_layouts = None
+        if cfg.cluster.enabled():
+            paths = [os.path.join(out_dir, "shards", f"shard_{s}.npz")
+                     for s in range(cfg.cluster.n_shards)]
+            if all(os.path.exists(p) for p in paths):
+                shard_layouts = [persist.load_shard_layout(p) for p in paths]
         return cls._assemble(cfg, optional("corpus.npz", persist.load_corpus),
                              index, layout, cost_model=cost_model,
                              compute=compute,
                              bits=optional("bits.npz", persist.load_bits),
-                             fde=optional("fde.npz", persist.load_fde, dev))
+                             fde=optional("fde.npz", persist.load_fde, dev),
+                             shard_layouts=shard_layouts)
+
+    # -- replica control ------------------------------------------------------
+    def kill_replica(self, shard: int, replica: int) -> None:
+        if not isinstance(self.tier, StorageCluster):
+            raise RuntimeError("replica control requires the cluster tier")
+        self.tier.kill_replica(shard, replica)
+
+    def recover_replica(self, shard: int, replica: int) -> dict:
+        if not isinstance(self.tier, StorageCluster):
+            raise RuntimeError("replica control requires the cluster tier")
+        return self.tier.recover_replica(shard, replica)
+
+    def rebalance(self, skew_threshold: float | None = None) -> dict:
+        """Migrate live blocks between shards: the mutable tier's, not
+        ported."""
+        raise _unported("rebalance")
 
     # -- lifecycle ----------------------------------------------------------
     def close(self):

@@ -17,7 +17,14 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from repro_torch.obs import MetricsRegistry, StreamingHistogram
+from repro_torch.obs.analyze import dominant_stage
 from repro_torch.serve.scheduler import BatchPolicy, ContinuousBatcher, Request
+
+# live-mutation / failure-recovery counters mirrored from the storage
+# cluster's stats dict into ServeStats (absent on an immutable tier)
+_MUT_KEYS = ("ingests", "ingested_docs", "deletes", "tombstones",
+             "compactions", "rebalances", "migration_bytes", "failovers",
+             "replicas_killed", "replicas_recovered", "recovery_bytes")
 
 
 @dataclass
@@ -79,9 +86,7 @@ class ServeStats:
     slo_latencies_ms: StreamingHistogram = field(   # wall + sim share
         default_factory=StreamingHistogram)
     tenants: dict = field(default_factory=dict)           # name -> TenantStats
-    # storage-cluster and live-mutation counters: the reference's ledger,
-    # field for field; they stay zero until the port has the cluster tier
-    # (ROADMAP Queue A item 4)
+    # storage-cluster counters (zero when serving a single StorageTier):
     hedged_reads: int = 0
     hedge_wins: int = 0
     hedge_bytes: int = 0               # duplicate bytes moved by hedges
@@ -210,7 +215,7 @@ class ServeStats:
         Histograms emit cumulative ``_bucket{le=...}`` lines; every scalar
         dataclass field becomes a ``serve_<field>`` sample. ``extra_sources``
         is an iterable of ``(prefix, snapshot_fn)`` pairs — what the storage
-        tier / batcher ``metrics_sources()`` hooks return — so
+        tier / batcher / autoscaler ``metrics_sources()`` hooks return — so
         one call renders the full serving stack.
         """
         import dataclasses
@@ -256,26 +261,31 @@ class RetrievalServer:
     ``repro_torch.pipeline`` RetrievalBackend.
 
     ``policy`` may be the static ``BatchPolicy`` or a deadline-aware
-    ``repro_torch.serve.slo.SLOPolicy`` (EDF dispatch + admission control).
-    The handler runs on the batcher's thread, so the backend's kernels
+    ``repro_torch.serve.slo.SLOPolicy`` (EDF dispatch + admission control);
+    ``autoscaler`` (``repro_torch.serve.autoscaler.Autoscaler``) is fed every
+    completed request's SLO latency and stepped once per batch. The handler
+    runs on the batcher's thread, so the backend's kernels
     launch from there, on that thread's current CUDA stream.
     """
 
     def __init__(self, retriever, *, policy: BatchPolicy | None = None,
-                 tracer=None, trace_path: str | None = None):
+                 autoscaler=None, tracer=None, trace_path: str | None = None):
         self.retriever = retriever
         self.policy = policy or BatchPolicy()
+        self.autoscaler = autoscaler
         self.tracer = tracer
         self.trace_path = trace_path
         self.stats = ServeStats()
         tier = getattr(retriever, "tier", None)
         if tracer is not None:
             # propagate down the stack: backend spans (query_batch, rerank,
-            # candidate_gen) and storage spans (plan, read_batch, faults)
+            # candidate_gen) and storage spans (plan, shard_read, faults)
             # land in the SAME tracer and stitch under the request spans
             retriever.tracer = tracer
             if tier is not None:
                 tier.tracer = tracer
+        tier_stats = getattr(tier, "stats", {})
+        self._mut_base = {k: tier_stats.get(k, 0) for k in _MUT_KEYS}
         if tier is not None and hasattr(tier, "memory_resident_bytes"):
             self.stats.resident_bytes = int(tier.memory_resident_bytes())
             self.stats.layout_mode = getattr(
@@ -296,19 +306,27 @@ class RetrievalServer:
         q_cls = np.stack([r.payload["cls"] for r in batch])
         q_bow = np.stack([r.payload["bow"] for r in batch])
         q_lens = np.array([r.payload["len"] for r in batch], np.int32)
+        tier = getattr(self.retriever, "tier", None)
+        before = ((dict(tier.stats), tier.per_shard_stats())
+                  if tier is not None and "hedge_bytes" in getattr(
+                      tier, "stats", {}) else None)
         tr = self.tracer
         if tr is not None:
             # per-query spans emitted inside query_batch carry the REQUEST
             # ids as qids, stitching backend/storage spans to request spans
             tr.set_batch_qids([r.rid for r in batch])
         resp = self.retriever.query_batch(q_cls, q_bow, q_lens)
+        hedge_delta = {}
+        if before is not None:
+            hedge_delta = self._record_cluster(tier, *before)
         n = len(batch)
         bd = resp.breakdown
         per_query_sim = bd.total_s / n + bd.encode_s * (n - 1) / n
         flags = {"retries": int(getattr(bd, "retries", 0)),
                  "repairs": int(getattr(bd, "repair_bytes", 0) > 0
                                 or getattr(bd, "checksum_failures", 0)),
-                 "hedged": 0, "hedge_wins": 0}
+                 "hedged": int(hedge_delta.get("hedged", 0)),
+                 "hedge_wins": int(hedge_delta.get("hedge_wins", 0))}
         for r, ranked in zip(batch, resp.ranked):
             r.result = ranked
             r.sim_ms = per_query_sim * 1e3
@@ -339,6 +357,8 @@ class RetrievalServer:
                   "faults_injected"):
             setattr(self.stats, k,
                     getattr(self.stats, k) + getattr(bd, k, 0))
+        if self.autoscaler is not None:
+            self.autoscaler.observe_faults(getattr(bd, "faults_injected", 0))
 
     def _on_complete(self, r: Request) -> None:
         """Batcher completion hook (runs before ``done`` fires). Abandoned
@@ -389,6 +409,11 @@ class RetrievalServer:
         elif not degraded:
             s.served_in_slo += 1           # no deadline: served is good
             t.in_slo += 1
+        if violation and self.autoscaler is not None:
+            # trace-driven tail diagnosis rides into the autoscaler's audit
+            # log: the NEXT actuation cites these tallies as evidence
+            self.autoscaler.observe_stage(
+                dominant_stage(r.stage_ms, r.fault_flags))
         if tr is not None:
             end = r.arrival_s + r.latency_s
             root = tr.add(
@@ -404,6 +429,40 @@ class RetrievalServer:
             tr.add("queue", cat="serve", qid=r.rid, t0=r.arrival_s,
                    t1=min(max(r.dispatch_s, r.arrival_s), end),
                    parent=root)
+        if self.autoscaler is not None:
+            self.autoscaler.observe(slo_ms)
+            self.autoscaler.maybe_step()
+
+    def _record_cluster(self, tier, before: dict,
+                        before_shards: list[dict]) -> dict:
+        """Fold a storage-cluster batch's stat DELTAS into ServeStats:
+        every counter here (hedge activity, arena-cache traffic, per-shard
+        device totals) covers the serve window only, so the summary stays
+        internally consistent even when the tier served traffic (e.g.
+        ``pipe.search``) before the server started. Returns this batch's
+        hedge delta (fed to per-request tail-diagnosis flags)."""
+        s = self.stats
+        after = tier.stats
+        s.hedged_reads += after["hedged_reads"] - before["hedged_reads"]
+        s.hedge_wins += after["hedge_wins"] - before["hedge_wins"]
+        s.hedge_bytes += after["hedge_bytes"] - before["hedge_bytes"]
+        s.cache_hits += after["cache_hits"] - before["cache_hits"]
+        s.cache_misses += after["cache_misses"] - before["cache_misses"]
+        # mutation/recovery counters measure from server start, not per
+        # batch: recover/kill run BETWEEN batches (control-plane calls, not
+        # queries), so windowed deltas would never see them. .get keeps
+        # plain clusters at zero.
+        for k in _MUT_KEYS:
+            setattr(s, k, after.get(k, 0) - self._mut_base.get(k, 0))
+        shards = tier.per_shard_stats()
+        if len(s.shard_blocks) != len(shards):
+            s.shard_blocks = [0] * len(shards)
+            s.shard_sim_s = [0.0] * len(shards)
+        for i, (st, st0) in enumerate(zip(shards, before_shards)):
+            s.shard_blocks[i] += st["blocks"] - st0["blocks"]
+            s.shard_sim_s[i] += st["sim_seconds"] - st0["sim_seconds"]
+        return {"hedged": after["hedged_reads"] - before["hedged_reads"],
+                "hedge_wins": after["hedge_wins"] - before["hedge_wins"]}
 
     # -- submission ----------------------------------------------------------
     def _submit(self, cls_vec, bow_vecs, q_len, tenant: str,
@@ -451,11 +510,15 @@ class RetrievalServer:
     # -- observability -------------------------------------------------------
     def metrics_sources(self) -> list:
         """Every ``(prefix, snapshot_fn)`` pair the serving stack exposes:
-        the batcher, admission control and the storage tier underneath."""
+        the batcher, admission control, the autoscaler, and the storage
+        tier underneath (cluster/shard/arena-cache sources)."""
         out = list(self.batcher.metrics_sources())
         if self.batcher.admission is not None \
                 and hasattr(self.batcher.admission, "metrics_sources"):
             out += self.batcher.admission.metrics_sources()
+        if self.autoscaler is not None \
+                and hasattr(self.autoscaler, "metrics_sources"):
+            out += self.autoscaler.metrics_sources()
         tier = getattr(self.retriever, "tier", None)
         if tier is not None and hasattr(tier, "metrics_sources"):
             out += tier.metrics_sources()

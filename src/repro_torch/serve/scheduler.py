@@ -1,5 +1,5 @@
 """Request scheduling for the retrieval server: deadline-aware continuous
-batching.
+batching + hedged storage reads (straggler mitigation).
 
 Batching policy: dispatch when either ``max_batch`` requests are queued or
 the oldest request has exhausted its ``max_wait_s`` window (keeps p99 bounded
@@ -20,6 +20,13 @@ additionally:
   says they would miss their deadline anyway (``admission`` hook, see
   ``repro_torch.serve.slo.AdmissionController``) — shed requests complete
   immediately with ``shed=True`` and are never handed to the handler.
+
+Hedged reads are implemented by the storage cluster
+(``repro_torch.storage.cluster.StorageCluster``): every batch the scheduler
+dispatches routes through the backend's tier, and when that tier is a
+cluster, lagging shard reads are re-issued on a replica after the
+``hedge_quantile`` delay; ``hedged_read`` below is the same primitive
+(``hedge_clock``) exposed for standalone read paths.
 """
 from __future__ import annotations
 
@@ -305,3 +312,20 @@ class ContinuousBatcher:
                             self.policy.max_batch, 1)) * 1e3, 4)}
         return [("batcher", snap)]
 
+
+def hedged_read(read_fn: Callable, ids, *, hedge_after_s: float,
+                sampler: Callable[[], float]) -> tuple[Any, float, bool]:
+    """Straggler mitigation for storage reads: model the device latency as a
+    draw from `sampler`; if the first draw exceeds `hedge_after_s`, a
+    duplicate request goes to a replica and the faster one wins.
+
+    Returns (result, effective_latency_s, hedged?). The data path runs once
+    (reads are idempotent); only the simulated clock differs. The clock math
+    is the cluster's ``hedge_clock`` primitive, so standalone reads and
+    sharded cluster reads hedge identically.
+    """
+    from repro_torch.storage.cluster import hedge_clock
+
+    result = read_fn(ids)
+    effective, hedged, _ = hedge_clock(sampler(), sampler, hedge_after_s)
+    return result, effective, hedged

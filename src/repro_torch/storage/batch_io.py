@@ -90,12 +90,21 @@ class BatchReadPlan:
     n_unique: int
     n_requested: int
     n_blocks: int
+    owner_rows: np.ndarray = field(repr=False, default=None)
+                                       # (U,) first-owner query of each arena
+                                       # row (the cluster re-attributes per
+                                       # row when some rows are cache-served)
+    span: object = field(repr=False, default=None, compare=False)
+                                       # the planning step's trace span
     _sorted_ids: np.ndarray = field(repr=False, default=None)
     _sorted_rows: np.ndarray = field(repr=False, default=None)
 
     @classmethod
     def build(cls, layout, lists: list[np.ndarray], *, t_max: int,
-              chunk_docs: int | None = None) -> "BatchReadPlan":
+              chunk_docs: int | None = None,
+              with_query_runs: bool = True) -> "BatchReadPlan":
+        """``with_query_runs=False`` skips the per-query run-index tables
+        (the storage cluster schedules its own runs over the arena)."""
         lists = [np.asarray(x, np.int64).ravel() for x in lists]
         n_req = int(sum(len(x) for x in lists))
         if n_req == 0:
@@ -107,6 +116,7 @@ class BatchReadPlan:
                        query_runs=[np.empty(0, np.int64) for _ in lists],
                        owned_blocks=np.zeros(len(lists), np.int64),
                        n_unique=0, n_requested=0, n_blocks=0,
+                       owner_rows=np.empty(0, np.int64),
                        _sorted_ids=np.empty(0, np.int64),
                        _sorted_rows=np.empty(0, np.int64))
         concat = np.concatenate(lists)
@@ -134,7 +144,8 @@ class BatchReadPlan:
             query_rows.append(rows)
             query_runs.append(np.unique(
                 np.searchsorted(run_starts, rows, side="right") - 1)
-                if len(rows) else np.empty(0, np.int64))
+                if with_query_runs and len(rows)
+                else np.empty(0, np.int64))
         # first-owner attribution: each unique id's blocks are billed to the
         # first query that requested it; later requesters ride for free
         bounds_q = _exclusive_cumsum(
@@ -149,6 +160,7 @@ class BatchReadPlan:
                    query_rows=query_rows, query_runs=query_runs,
                    owned_blocks=owned, n_unique=u, n_requested=n_req,
                    n_blocks=int(arena_blocks.sum()),
+                   owner_rows=owner[order],
                    _sorted_ids=uids, _sorted_rows=sorted_rows)
 
     def pool_range(self, r0: int, r1: int) -> tuple[int, int]:
@@ -221,6 +233,23 @@ class BatchReadResult:
         return self._failed_queries is not None \
             and bool(np.any(self._failed_queries))
 
+    # -- sizes ---------------------------------------------------------------
+    @property
+    def n_queries(self) -> int:
+        return len(self.plan.lists) if self.plan is not None \
+            else len(self._serial_reads)
+
+    @property
+    def unique_docs(self) -> int:
+        return self.plan.n_unique if self.coalesced else self.requested_docs
+
+    @property
+    def requested_docs(self) -> int:
+        if self.plan is not None:
+            return self.plan.n_requested
+        return sum(len(r.arena.lens) for r in self._serial_reads
+                   if r is not None)
+
     # -- synchronization -----------------------------------------------------
     def _land(self, ri: int) -> None:
         """Wait for run ``ri``'s staging, then issue its one host->device
@@ -252,6 +281,12 @@ class BatchReadResult:
         for ri in np.unique(np.searchsorted(run_starts, rows,
                                             side="right") - 1):
             self._land(int(ri))
+
+    def wait_all(self) -> None:
+        """Block until every run has been staged and copied to the arena's
+        device."""
+        for ri in range(len(self._futures)):
+            self._land(ri)
 
     # -- per-query views -----------------------------------------------------
     def view(self, b: int) -> tuple[DeviceArena | None, dict, float]:

@@ -26,10 +26,10 @@ module supplies the three pieces the read path needs to *survive* them:
   ``DegradedQueryError`` (a backend was asked to fail hard instead of
   answering from resident scores).
 
-In this package the single ``StorageTier`` is the one reader: it draws
-with shard 0 and replica 0, so its fault schedule is the reference tier's
-draw for draw. The shard and replica keys are the storage cluster's (ROADMAP
-Queue A item 4).
+The single ``StorageTier`` draws with shard 0 and replica 0; the storage
+cluster keys each draw by its shard and replica, on the caller's thread and
+in the reference's order, so both schedules are the reference's draw for
+draw.
 
 The all-zeros config is inert by construction: ``Pipeline`` only builds an
 injector when ``FaultConfig.active()``, and the cluster's clock only enters

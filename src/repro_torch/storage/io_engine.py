@@ -22,7 +22,7 @@ float dtype, so the scores are the reference's).
 from __future__ import annotations
 
 import threading
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import dataclass
 
 import numpy as np
@@ -247,6 +247,12 @@ class StorageTier:
             self.stats["blocks"] += n_blocks
             self.stats["sim_seconds"] += sim
         return ReadResult(arena, sim, n_blocks)
+
+    def read_async(self, ids, t_max: int | None = None) -> Future:
+        """``read`` on the tier's pool: the future's result is its
+        ``ReadResult`` (the copy to the device issued from the pool
+        thread)."""
+        return self._pool.submit(self.read, ids, t_max)
 
     def read_batch(self, per_query_ids, t_max: int | None = None, *,
                    coalesce: bool | None = None,

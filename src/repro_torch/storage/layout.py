@@ -346,3 +346,80 @@ def bits_from_layout(layout: EmbeddingLayout, *, dtype: str = "uint32",
     np.cumsum(layout.n_tokens.astype(np.int64), out=starts[1:])
     return BitTable(packed=np.concatenate(parts), starts=starts,
                     d_bow=layout.d_bow)
+
+
+# -- decoded host gathers (the reference's buffer API) -------------------------
+
+def unpack_doc(layout: EmbeddingLayout, i: int):
+    """Read one doc back: returns (cls (d_cls,), bow (t_i, d_bow)) fp32."""
+    start, _ = layout.offsets[i]
+    t = int(layout.n_tokens[i])
+    elt = layout.dtype.itemsize
+    raw = layout.blob[start * layout.block:
+                      start * layout.block
+                      + (layout.d_cls + t * layout.d_bow) * elt]
+    vals = raw.view(layout.dtype).astype(np.float32)
+    if layout.scales is not None:
+        vals = vals * layout.scales[i]
+    return vals[:layout.d_cls], vals[layout.d_cls:].reshape(t, layout.d_bow)
+
+
+def _gather_fixed_at(layout: EmbeddingLayout, ids: np.ndarray,
+                     rows: np.ndarray, out_cls: np.ndarray,
+                     out_bow: np.ndarray, out_lens: np.ndarray) -> None:
+    """Fixed-stride bulk gather: one strided fancy-index over the blob.
+    Bit-identical to the ragged unpack path (same record bytes, same fp32
+    conversion, same scale multiply)."""
+    k = layout.pool_k
+    t = min(k, out_bow.shape[1])
+    elt = layout.dtype.itemsize
+    stride_bytes = layout.stride_blocks * layout.block
+    rec_bytes = (layout.d_cls + k * layout.d_bow) * elt
+    raw = layout.blob.reshape(-1, stride_bytes)[ids, :rec_bytes]
+    vals = raw.view(layout.dtype).astype(np.float32)
+    if layout.scales is not None:
+        vals = vals * layout.scales[ids, None]
+    out_cls[rows] = vals[:, :layout.d_cls]
+    out_bow[rows, :t] = vals[:, layout.d_cls:layout.d_cls + t * layout.d_bow] \
+        .reshape(len(ids), t, layout.d_bow)
+    out_lens[rows] = t
+
+
+def gather_docs_at(layout: EmbeddingLayout, ids, rows, out_cls: np.ndarray,
+                   out_bow: np.ndarray, out_lens: np.ndarray) -> None:
+    """Decode ``ids`` into arbitrary (non-contiguous) rows of caller-owned
+    fp32 buffers: CLS, BOW padded to ``out_bow.shape[1]`` tokens, and the
+    token counts."""
+    ids = np.asarray(ids, np.int64)
+    rows = np.asarray(rows, np.int64)
+    if layout.mode == "fixed_stride" and len(ids):
+        _gather_fixed_at(layout, ids, rows, out_cls, out_bow, out_lens)
+        return
+    t_max = out_bow.shape[1]
+    for i, row in zip(ids, rows):
+        c, b = unpack_doc(layout, int(i))
+        t = min(b.shape[0], t_max)
+        out_bow[row, :t] = b[:t]
+        out_cls[row] = c
+        out_lens[row] = t
+
+
+def gather_docs_into(layout: EmbeddingLayout, ids, out_cls: np.ndarray,
+                     out_bow: np.ndarray, out_lens: np.ndarray) -> None:
+    """Decode ``ids`` into caller-owned buffer rows ``0..len(ids)``."""
+    ids = np.asarray(ids, np.int64)
+    gather_docs_at(layout, ids, np.arange(len(ids)), out_cls, out_bow,
+                   out_lens)
+
+
+def gather_docs(layout: EmbeddingLayout, ids, t_max: int):
+    """Host-side decoded gather -> (cls (n, d_cls), bow (n, t_max, d_bow)
+    padded, lens (n,)), fp32. The read path does not use it: it stages raw
+    token rows (``stage_rows``) and packs them on the device
+    (``kernels/gather_pack``)."""
+    ids = np.asarray(ids, np.int64)
+    out = np.zeros((len(ids), t_max, layout.d_bow), np.float32)
+    cls = np.zeros((len(ids), layout.d_cls), np.float32)
+    lens = np.zeros(len(ids), np.int32)
+    gather_docs_into(layout, ids, cls, out, lens)
+    return cls, out, lens

@@ -239,3 +239,36 @@ def test_bitsim_lanes_and_long_docs_on_the_card(card, k, t, d, lq, lanes,
     1,024 (its longest: four rounds of loads) and, past it, 1,100 on the
     ``simt`` kernel, as is D = 96."""
     check_bitsim(bitsim_case(card, k, t, d, lq, k + t + d + lq, lanes), want)
+
+
+@pytest.fixture(scope="module")
+def card_ivf():
+    """A 20,000-doc IVF index built on the card and 64 of its queries."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    from repro_torch.core.ivf import build_ivf
+    from repro_torch.data.synthetic import make_corpus
+    c = make_corpus(n_docs=20_000, n_queries=64, n_clusters=64,
+                    with_bow=False, seed=5)
+    return build_ivf(c.cls, ncells=256, iters=4, device="cuda"), \
+        c.queries_cls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [7, 32, 64])
+def test_search_two_phase_is_independent_of_the_batch(card_ivf, batch):
+    """Each query's candidates, approximate and final, are the same bits
+    whether it is searched alone or inside a batch of 7, 32 or 64: the
+    cell scan takes one product per query, whose shape does not depend on
+    the batch (nprobe 128 = two probe chunks, k 1,000, as on the main
+    path)."""
+    from repro_torch.core.ivf import search_two_phase
+    index, queries = card_ivf
+    got = search_two_phase(index, queries[:batch], 128, 1000, 13)
+    for b in range(batch):
+        alone = search_two_phase(index, queries[b:b + 1], 128, 1000, 13)
+        for phase in (0, 1):
+            scores, ids = alone[phase]
+            assert torch.equal(got[phase][0][b], scores[0])
+            assert torch.equal(got[phase][1][b], ids[0])
+        assert torch.equal(got[2][b], alone[2][0])

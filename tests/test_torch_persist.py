@@ -349,18 +349,34 @@ def test_entry_points_default_to_the_card(root):
 
 
 def test_cluster_and_mutation_configs_raise(root):
-    """The storage cluster and live mutation are not ported: a saved
-    config that asks for them raises, naming the roadmap item, and no
-    plain tier is built in their place."""
+    """Live mutation is not ported: a saved config that asks for it (alone
+    or on a cluster) raises, naming the roadmap item, and no immutable
+    tier is built in its place. The storage cluster is ported: a config
+    that shards or replicates builds a ``StorageCluster``."""
+    from repro_torch.storage.cluster import StorageCluster
     c, index, layout = artifacts()
-    for section, field, value in (("cluster", "n_shards", 2),
-                                  ("cluster", "replication", 2),
-                                  ("mutation", "enabled", True)):
+    for sections in ((("cluster", "n_shards", 2),),
+                     (("cluster", "replication", 2),),
+                     (("mutation", "enabled", True),),
+                     (("cluster", "n_shards", 2),
+                      ("mutation", "enabled", True))):
         _, cfg = configs("espn")
-        setattr(getattr(cfg, section), field, value)
-        with pytest.raises(NotImplementedError, match="Queue A item 4"):
-            Pipeline.from_artifacts(
+        for section, field, value in sections:
+            setattr(getattr(cfg, section), field, value)
+
+        def build():
+            return Pipeline.from_artifacts(
                 cfg, index=convert.ivf_index_from_numpy(
                     index_arrays(index), "cpu"),
                 layout=convert.layout_from_numpy(layout_arrays(layout)),
                 device="cpu")
+        if cfg.mutation.active():
+            with pytest.raises(NotImplementedError,
+                               match="Queue A item 2"):
+                build()
+        else:
+            with build() as pipe:
+                assert isinstance(pipe.tier, StorageCluster)
+                with pytest.raises(NotImplementedError,
+                                   match="Queue A item 2"):
+                    pipe.rebalance()

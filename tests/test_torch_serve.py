@@ -352,7 +352,8 @@ def test_serve_builds_the_slo_policy_and_refuses_autoscale():
         finally:
             srv.shutdown()
         pipe.cfg.serve.autoscale = True
-        with pytest.raises(NotImplementedError, match="Queue A item 4"):
+        # the autoscaler drives a cluster's replicas: a single tier has none
+        with pytest.raises(RuntimeError, match="requires the cluster tier"):
             pipe.serve()
     with port_pipeline() as pipe:
         srv = pipe.serve()
