@@ -25,7 +25,7 @@ Phases, each of which must pass:
    and ``cascade`` (their bit and FDE tables built once, with size and
    build time), and one ``cspn`` batch on the corpus pooled to 32 tokens a
    doc in the ``fixed_stride`` layout, with the same index; every kernel's
-   launch count read around each mode's run (and, in phases 5-8, around
+   launch count read around each mode's run (and, in phases 5-9, around
    each of their paths), the device the rerank's tiles
    lie on, the K and the kernel of each maxsim and bitsim call (every one
    on the tensor cores, or the run fails; bitsim then timed on the device
@@ -58,7 +58,20 @@ Phases, each of which must pass:
    cache): three batches, the first hedged, the next two from the cache
    with no critical I/O; an autoscaled gds server under a 50 ms SLO and
    its decisions;
-9. agreement: on a small corpus, at the main path's retrieval settings,
+9. mutation: live mutation on the same artifacts: an unmutated mutable 1x1
+   cluster's espn batch equal to the single tier's bit for bit (bill
+   included); on a mutable 4 x 2 cluster over phase 8's shard images, 4
+   ingests of 2,500 fresh docs (the generator under another seed) and
+   10,000 base docs plus ~30% of the new ones tombstoned, a cascade and an
+   espn batch of 64 mid-churn with no tombstoned id in any answer; the
+   appended bit and FDE tables equal to a rebuild of the grown layout, the
+   grown layout to a pack from scratch and the grown index to the
+   pre-ingest one with ``ivf_add`` replayed, bit for bit; the churned espn
+   answers equal to that rebuild oracle's bit for bit; ``compact`` (every
+   tombstone's blocks reclaimed), ``rebalance`` (both sides billed) and
+   ``maintain``, each leaving the answers bit for bit; host seconds of
+   each step;
+10. agreement: on a small corpus, at the main path's retrieval settings,
    the card path ranks, scores and bills as the CPU path does in every
    mode (``fde`` in both branches, ``cspn`` on a pooled fixed layout), and
    the card builds the FDE table the CPU builds and builds its IVF index
@@ -68,12 +81,15 @@ Phases, each of which must pass:
    saved on the card loads on the CPU and answers as the card does; and
    the reference CI's cluster settings (hedged + cached, faulted, traced)
    give the CPU's ids, bills, cluster counters and spans on the card;
-10. decode path: SmolLM-135M at full width and depth (random weights from a
+   and a churn (ingest, delete, compact, ingest, delete, rebalance) on a
+   mutable 2 x 2 cluster in every mode gives the CPU's ids, bills, reports
+   and counters on the card;
+11. decode path: SmolLM-135M at full width and depth (random weights from a
    numpy seed), 8 requests of 4,096 tokens prefilled, then 32 greedy
    decode steps over the KV cache, every step's attention on the
    ``flash_decode`` kernel (30 launches a step, 960 in all, or the run
    fails); prefill and step wall, the step's split, tokens/s, peak memory;
-11. decode agreement: the same model in fp32 at 2 layers, its logits and
+12. decode agreement: the same model in fp32 at 2 layers, its logits and
    greedy tokens on the card against the CPU path.
 
 It then prints the card line, the ``{"kernels": [...]}`` line and, last,
@@ -1430,8 +1446,8 @@ def main_path(dev, failures, profile=False) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phases 5-8: serving the main path's index (persist, serve, faults,
-# cluster)
+# phases 5-9: serving the main path's index (persist, serve, faults,
+# cluster, mutation)
 # ---------------------------------------------------------------------------
 
 SERVE_REQUESTS, SERVE_MAX_BATCH = 128, 32
@@ -1453,7 +1469,15 @@ SERVING_KERNELS = {"persist_espn": IVF_RERANK,
                    "cluster_serve": IVF_RERANK,
                    "cluster_failover": IVF_RERANK,
                    "cluster_gds": IVF_RERANK,
-                   "cluster_autoscale": IVF_RERANK}
+                   "cluster_autoscale": IVF_RERANK,
+                   "mutation_1x1_espn": IVF_RERANK,
+                   "mutation_cascade": PATH_KERNELS["cascade"],
+                   "mutation_espn": IVF_RERANK,
+                   "mutation_oracle_espn": IVF_RERANK,
+                   "mutation_compacted_espn": IVF_RERANK,
+                   "mutation_rebalanced_espn": IVF_RERANK,
+                   "mutation_maintained_espn": IVF_RERANK}
+MUTATION_PATHS = [p for p in SERVING_KERNELS if p.startswith("mutation_")]
 # the [cluster] phase: the reference's CI scale-out settings (ci.yml), at the
 # main path's size
 SHARDS, REPLICAS = 4, 2
@@ -1824,6 +1848,9 @@ def cluster_phase(dev, failures, out):
         f"{t_shard:.2f} s "
         f"({sum(sh.layout.nbytes for sh in casc.tier.shards):,} bytes)")
     out["cluster"] = {"shard_build_s": t_shard}
+    # the [mutation] phase's mutable cluster starts from these shard images
+    CTX["shard_layouts"] = list(zip((sh.layout for sh in casc.tier.shards),
+                                    casc.tier.shard_ids))
     with casc, casc.with_mode("espn") as espn:
         for mode, pipe in (("cascade", casc), ("espn", espn)):
             reset_counts()
@@ -1948,6 +1975,279 @@ def cluster_phase(dev, failures, out):
                      "cluster_gds", "cluster_autoscale")
 
 
+# the [mutation] phase: 4 ingest batches of fresh docs from the generator
+# under another seed, 10,000 base docs and ~30% of the ingested ones
+# tombstoned, on the [cluster] phase's 4 x 2 shard images
+INGEST_BATCHES, INGEST_DOCS, INGEST_SEED = 4, 2_500, 24
+BASE_DELETES, INGEST_KILL = 10_000, 0.3
+CHECK_QUERIES = 16      # the post-compaction checks' batch (each answer is
+                        # the same bits as in a batch of 64: run AF)
+
+
+def mutation_phase(dev, failures, out):
+    """Live mutation on the main path's 1M-doc artifacts (nothing rebuilt
+    or cut) through ``MutableStorageCluster``: an unmutated 1x1 mutable
+    cluster against the single tier; then, on 4 shards x 2 replicas,
+    ingests, deletes, espn and cascade batches mid-churn, the side tables
+    and the grown layout and index against a rebuild, the churned espn
+    answers against a rebuild oracle, and compact, rebalance and maintain
+    with the answers held."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core.fde import fde_from_layout
+    from repro_torch.core.ivf import ivf_add
+    from repro_torch.data.synthetic import make_corpus
+    from repro_torch.pipeline import Pipeline
+    from repro_torch.pipeline.config import ClusterConfig, MutationConfig
+    from repro_torch.pipeline.pipeline import _pack_layout
+    from repro_torch.storage.layout import bits_from_layout
+    corpus, idx, layout, cfg = (CTX[k] for k in ("corpus", "index",
+                                                 "layout", "cfg"))
+    tables, q = CTX["tables"], first_queries(corpus)
+    q16 = first_queries(corpus, CHECK_QUERIES)
+    mut = MutationConfig(enabled=True)
+    res = out["mutation"] = {}
+
+    def check(path, ok, what):
+        log(f"  {path}: {what} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"mutation: {path}: {what}")
+
+    def alive_only(resp, alive, path):
+        """No tombstoned id in any answer (and a well-formed ranking)."""
+        check_ranked(resp, len(alive), failures, path)
+        return all(alive[r.doc_ids].all() for r in resp.ranked)
+
+    def same_answers(want, got) -> bool:
+        """ids and scores bit for bit (``got`` may answer a prefix of
+        ``want``'s queries: each answer is its query's alone)."""
+        return all(np.array_equal(w.doc_ids, g.doc_ids)
+                   and np.array_equal(w.scores, g.scores)
+                   for w, g in zip(want.ranked, got.ranked))
+
+    def espn_batch(pipe, path, queries=q):
+        """An espn batch on a fresh ``with_mode`` view of the churned tier,
+        its kernels counted."""
+        with pipe.with_mode("espn") as espn:
+            reset_counts()
+            t0 = time.perf_counter()
+            got = espn.search(*queries)
+            res[path] = {"launches": read_counts(),
+                         "wall_s": time.perf_counter() - t0}
+        out[path] = {"launches": res[path]["launches"]}
+        return got
+
+    # 1) an unmutated mutable 1x1 cluster IS the single tier, bill included
+    with Pipeline.from_artifacts(mode_cfg(cfg, "espn", mutation=mut),
+                                 index=idx, layout=layout,
+                                 device=dev) as one:
+        reset_counts()
+        t0 = time.perf_counter()
+        got = one.search(*q)
+        out["mutation_1x1_espn"] = {"launches": read_counts()}
+        res["mutation_1x1_espn"] = {"wall_s": time.perf_counter() - t0}
+    check("mutation_1x1_espn", same_bits(FIRST["espn"], got),
+          f"unmutated mutable 1x1 cluster, espn batch of {BATCH_SIZE} vs "
+          f"the single tier: ids, scores and bill bit for bit (wall "
+          f"{res['mutation_1x1_espn']['wall_s']:.2f} s)")
+
+    # 2) churn on 4 shards x 2 replicas in cascade (the bit and FDE tables
+    #    ride along); espn batches run on with_mode views of the same tier
+    mcfg = mode_cfg(cfg, "cascade", mutation=mut,
+                    cluster=ClusterConfig(n_shards=SHARDS,
+                                          replication=REPLICAS))
+    pipe = Pipeline.from_artifacts(mcfg, index=idx, layout=layout,
+                                   device=dev,
+                                   shard_layouts=CTX.pop("shard_layouts"),
+                                   **tables)
+    new = make_corpus(n_docs=INGEST_BATCHES * INGEST_DOCS, n_queries=1,
+                      d_cls=cfg.corpus.d_cls, d_bow=cfg.corpus.d_bow,
+                      max_len=cfg.corpus.max_len, seed=INGEST_SEED)
+    rng = np.random.default_rng(INGEST_SEED)
+    base_dead = rng.choice(N_DOCS, BASE_DELETES, replace=False)
+    times = defaultdict(list)
+    batches = []
+    with pipe:
+        for i in range(INGEST_BATCHES):
+            sl = slice(i * INGEST_DOCS, (i + 1) * INGEST_DOCS)
+            # fp32 CLS rows, as a caller's encoder gives them (the
+            # generator's are float64; ingest takes fp32)
+            batch = (new.cls[sl].astype(np.float32), new.bow[sl])
+            batches.append(batch)
+            t0 = time.perf_counter()
+            gids = pipe.ingest(*batch)
+            torch.cuda.synchronize()
+            times["ingest_s"].append(time.perf_counter() - t0)
+            dead = np.concatenate([
+                base_dead[i::INGEST_BATCHES],
+                gids[rng.random(len(gids)) < INGEST_KILL]])
+            t0 = time.perf_counter()
+            pipe.delete(dead)
+            times["delete_s"].append(time.perf_counter() - t0)
+            if i == 1:
+                # mid-churn: two of four segments live, tombstones in both
+                alive = pipe.tier.alive
+                reset_counts()
+                t0 = time.perf_counter()
+                got = pipe.search(*q)
+                out["mutation_cascade"] = {"launches": read_counts()}
+                res["mutation_cascade"] = {
+                    "wall_s": time.perf_counter() - t0}
+                ok = alive_only(got, alive, "mutation_cascade")
+                check("mutation_cascade", ok,
+                      f"cascade batch of {BATCH_SIZE} mid-churn "
+                      f"({sum(len(x) for x in pipe.tier.segments)} segments"
+                      f", {int((~alive).sum()):,} tombstones): no "
+                      f"tombstoned id in any answer (wall "
+                      f"{res['mutation_cascade']['wall_s']:.2f} s)")
+                got = espn_batch(pipe, "mutation_espn")
+                check("mutation_espn", alive_only(got, alive,
+                                                  "mutation_espn"),
+                      f"espn batch of {BATCH_SIZE} mid-churn: no tombstoned "
+                      f"id in any answer (wall "
+                      f"{res['mutation_espn']['wall_s']:.2f} s)")
+        t = pipe.tier
+        alive = t.alive.copy()
+        st = dict(t.stats)
+        res.update(times, segments=[len(x) for x in t.segments],
+                   n_docs=t.layout.n_docs, tombstones=int((~alive).sum()),
+                   ingest_bytes=st["ingest_bytes"],
+                   ingest_sim_s=st["ingest_seconds"])
+        log(f"  ingest {INGEST_BATCHES} x {INGEST_DOCS:,} docs: host s "
+            f"{[round(x, 3) for x in times['ingest_s']]} (each copies the "
+            f"{t.layout.nbytes / 2**30:.2f} GiB grown blob); delete s "
+            f"{[round(x, 4) for x in times['delete_s']]}; "
+            f"{res['tombstones']:,} tombstones; segments per shard "
+            f"{res['segments']}; {st['ingest_bytes']:,} ingest bytes, "
+            f"{st['ingest_seconds']:.4f} simulated s")
+
+        # 3) the appended side tables equal a rebuild of the grown layout
+        t0 = time.perf_counter()
+        bits = bits_from_layout(t.layout, dtype=str(t.bits.packed.dtype))
+        t_bits = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fde = fde_from_layout(t.layout, t.fde.cfg,
+                              dtype=str(t.fde.vecs.dtype).split(".")[-1],
+                              device=dev)
+        torch.cuda.synchronize()
+        t_fde = time.perf_counter() - t0
+        same_bits_table = (np.array_equal(bits.packed, t.bits.packed)
+                           and np.array_equal(bits.starts, t.bits.starts))
+        same_fde = torch.equal(fde.vecs, t.fde.vecs)
+        del bits, fde
+        check("side_tables", same_bits_table and same_fde,
+              f"appended bit table ({t.bits.packed.shape[0]:,} tokens) and "
+              f"FDE table ({t.fde.vecs.shape[0]:,} docs, on "
+              f"{t.fde.vecs.device}) vs bits_from_layout / fde_from_layout "
+              f"of the grown layout ({t_bits:.1f} / {t_fde:.1f} s): "
+              f"{'equal' if same_bits_table else 'BITS DIFFER'}, "
+              f"{'equal' if same_fde else 'FDE DIFFERS'} bit for bit")
+
+        # 4) the rebuild oracle: the pre-ingest index with ivf_add
+        #    replayed, every doc packed from scratch, the same tombstones
+        oracle_index = dataclasses.replace(idx)
+        start = N_DOCS
+        for cls_b, _ in batches:
+            ivf_add(oracle_index, cls_b, np.arange(start, start + len(cls_b)))
+            start += len(cls_b)
+        same_index = all(torch.equal(getattr(oracle_index, k),
+                                     getattr(pipe.index, k))
+                         for k in ("cell_ids", "cell_vecs")) \
+            and np.array_equal(oracle_index.cell_sizes,
+                               pipe.index.cell_sizes)
+        ocfg = mode_cfg(cfg, "espn")
+        t0 = time.perf_counter()
+        grown = _pack_layout(ocfg, np.concatenate(
+            [corpus.cls] + [b[0] for b in batches]),
+            list(corpus.bow) + [bw for b in batches for bw in b[1]])
+        t_pack = time.perf_counter() - t0
+        same_layout = (np.array_equal(grown.blob, t.layout.blob)
+                       and np.array_equal(grown.offsets, t.layout.offsets))
+        with Pipeline.from_artifacts(ocfg, index=oracle_index, layout=grown,
+                                     device=dev) as oracle:
+            oracle.tier.alive = alive
+            want = oracle.search(*q)
+        del grown
+        got = espn_batch(pipe, "mutation_oracle_espn")
+        res["pack_from_scratch_s"] = t_pack
+        check("mutation_oracle_espn", same_index and same_layout
+              and same_answers(want, got)
+              and alive_only(got, alive, "mutation_oracle_espn"),
+              f"churned espn batch of {BATCH_SIZE} vs the rebuild oracle "
+              f"(index with ivf_add replayed: "
+              f"{'equal' if same_index else 'DIFFERS'}; grown layout vs a "
+              f"pack from scratch in {t_pack:.1f} s: "
+              f"{'equal' if same_layout else 'DIFFERS'}): ids and scores "
+              f"bit for bit")
+        before = got
+
+        # 5) compaction: every dead row's blocks reclaimed, answers held
+        phys = sum(t._shard_disk_blocks(s) for s in range(t.n_shards))
+        dead_blocks = int(t.layout.offsets[~alive, 1].sum())
+        t0 = time.perf_counter()
+        rep = pipe.compact()
+        times["compact_s"] = time.perf_counter() - t0
+        got = espn_batch(pipe, "mutation_compacted_espn", q16)
+        phys_after = sum(t._shard_disk_blocks(s) for s in range(t.n_shards))
+        res["compact"] = {k: rep[k] for k in ("segments_merged",
+                                              "blocks_reclaimed")}
+        check("mutation_compacted_espn",
+              rep["blocks_reclaimed"] == dead_blocks == phys - phys_after
+              and not any(t.segments) and same_answers(before, got),
+              f"compact() in {times['compact_s']:.2f} s: "
+              f"{rep['segments_merged']} segments merged, "
+              f"{rep['blocks_reclaimed']:,} blocks reclaimed (the "
+              f"tombstones' blocks on the host: {dead_blocks:,}); "
+              f"{CHECK_QUERIES} espn answers bit for bit as before")
+
+        # 6) rebalance, then maintain: answers held, both sides billed
+        mass0 = t._live_block_mass()
+        mig0 = t.stats["migration_bytes"]
+        t0 = time.perf_counter()
+        reb = pipe.rebalance()
+        times["rebalance_s"] = time.perf_counter() - t0
+        mass1 = t._live_block_mass()
+        got = espn_batch(pipe, "mutation_rebalanced_espn", q16)
+        migrated = t.stats["migration_bytes"] - mig0
+        res["rebalance"] = {**reb, "migration_bytes": migrated,
+                            "mass_before": mass0.tolist(),
+                            "mass_after": mass1.tolist()}
+        check("mutation_rebalanced_espn",
+              migrated == 2 * reb["moved_blocks"] * layout.block
+              and int(mass1.sum()) == int(mass0.sum())
+              and mass1.max() - mass1.min() <= mass0.max() - mass0.min()
+              and same_answers(before, got),
+              f"rebalance() in {times['rebalance_s']:.3f} s: "
+              f"{reb['moved_docs']:,} docs ({reb['moved_blocks']:,} blocks) "
+              f"shard {reb['src']} -> {reb['dst']}, {migrated:,} migration "
+              f"bytes (2 x moved blocks x block); live block mass "
+              f"{mass0.tolist()} -> {mass1.tolist()}; answers bit for bit")
+        t0 = time.perf_counter()
+        mnt = pipe.maintain()
+        times["maintain_s"] = time.perf_counter() - t0
+        got = espn_batch(pipe, "mutation_maintained_espn", q16)
+        res["maintain"] = {"compacted": len(mnt["compacted"]),
+                           "reclaimed": sum(r["blocks_reclaimed"]
+                                            for r in mnt["compacted"])}
+        check("mutation_maintained_espn", same_answers(before, got),
+              f"maintain() in {times['maintain_s']:.2f} s: "
+              f"{res['maintain']['compacted']} shards compacted "
+              f"({res['maintain']['reclaimed']:,} blocks); answers bit for "
+              f"bit")
+        res.update(compact_s=times["compact_s"],
+                   rebalance_s=times["rebalance_s"],
+                   maintain_s=times["maintain_s"],
+                   stats={k: st2 for k, st2 in t.stats.items()
+                          if k in ("ingests", "ingested_docs", "deletes",
+                                   "tombstones", "compactions",
+                                   "compaction_bytes", "rebalances",
+                                   "migration_bytes")})
+    log(f"  mutation summary: {json.dumps(res, default=str)}")
+    require_launches(out, failures, *MUTATION_PATHS)
+
+
 def free_main_path():
     """After the last phase on the main path's artifacts: drop them (the
     servers' threads hold their pipelines in reference cycles, so collect
@@ -1959,7 +2259,7 @@ def free_main_path():
 
 
 # ---------------------------------------------------------------------------
-# phase 9: the card path agrees with the CPU path on a small input
+# phase 10: the card path agrees with the CPU path on a small input
 # ---------------------------------------------------------------------------
 
 def same_ranking(want, got):
@@ -2093,6 +2393,8 @@ def agreement(dev, failures):
     agreement_serving(dev, failures, base, corpus, index, ragged, fixed,
                       tables)
     agreement_cluster(dev, failures, base, corpus, index, ragged, tables)
+    agreement_mutation(dev, failures, base, corpus, index, ragged, fixed,
+                       tables)
 
 
 def check_reproducible_builds(corpus, layout, cfg, fde_cfg, dev, failures):
@@ -2293,8 +2595,97 @@ def agreement_cluster(dev, failures, base, corpus, index, layout, tables):
             failures.append(f"cluster {name}: card disagrees with CPU")
 
 
+def agreement_mutation(dev, failures, base, corpus, index, ragged, fixed,
+                       tables):
+    """On the 20,000 docs, a churn on a mutable 2 x 2 cluster in every mode,
+    the same on the CPU and on the card: ingest 200 fresh docs, tombstone
+    300 base docs and ~30% of the new ones, compact, ingest 200 more,
+    tombstone again, rebalance; then two batches of 16. The same ids (near
+    ties within ``AGREE_TOL`` aside), bills, compaction and rebalance
+    reports, and every cluster and mutation counter. Each side starts from
+    its own copy of the CPU-built index and tables (the card's FDE table
+    on the card, so its appends are the card's)."""
+    import dataclasses
+
+    from repro_torch.core.fde import FDETable
+    from repro_torch.data.synthetic import make_corpus
+    from repro_torch.pipeline import Pipeline
+    from repro_torch.pipeline.config import ClusterConfig, MutationConfig
+    from repro_torch.storage.layout import BitTable
+    halves = [(corpus.queries_cls[sl], corpus.queries_bow[sl],
+               corpus.query_lens[sl]) for sl in (slice(0, 16),
+                                                 slice(16, 32))]
+    new = make_corpus(n_docs=400, n_queries=1, seed=INGEST_SEED)
+
+    def copies(device):
+        out = {}
+        if "bits" in tables:
+            b = tables["bits"]
+            out["bits"] = BitTable(packed=b.packed.copy(),
+                                   starts=b.starts.copy(), d_bow=b.d_bow)
+        if "fde" in tables:
+            f = tables["fde"]
+            out["fde"] = FDETable(vecs=f.vecs.to(device, copy=True),
+                                  cfg=f.cfg)
+        return out
+
+    def run(cfg, device, layout):
+        rng = np.random.default_rng(5)
+        reports = []
+        with Pipeline.from_artifacts(cfg, index=index, layout=layout,
+                                     corpus=corpus, device=device,
+                                     **copies(device)) as p:
+            for i, sl in enumerate((slice(0, 200), slice(200, 400))):
+                gids = p.ingest(new.cls[sl].astype(np.float32), new.bow[sl])
+                dead = np.concatenate([
+                    rng.choice(corpus.n_docs, 300, replace=False),
+                    gids[rng.random(len(gids)) < 0.3]])
+                p.delete(dead[p.tier.alive[dead]])
+                reports.append(p.compact() if i == 0 else p.rebalance())
+            resps = [p.search(*h) for h in halves]
+            alive = p.tier.alive.copy()
+            counters = (dict(p.tier.stats), p.tier.per_shard_stats())
+        return resps, reports, counters, alive
+
+    modes = ("espn", "gds", "mmap", "swap", "dram", "bitvec", "fde",
+             "cascade", "cspn")
+    for mode in modes:
+        cfg = dataclasses.replace(
+            base, retrieval=dataclasses.replace(base.retrieval, mode=mode),
+            cluster=ClusterConfig(n_shards=2, replication=2),
+            mutation=MutationConfig(enabled=True))
+        layout = ragged
+        if mode == "cspn":
+            layout = fixed
+            cfg.storage = dataclasses.replace(
+                cfg.storage, layout_mode="fixed_stride", pool_k=POOL_K)
+        want, w_rep, w_counters, w_alive = run(cfg, "cpu", layout)
+        got, g_rep, g_counters, g_alive = run(cfg, dev, layout)
+        worst, bad = 0.0, 0
+        same = (w_counters == g_counters and w_rep == g_rep
+                and np.array_equal(w_alive, g_alive))
+        dead_seen = 0
+        for w, g in zip(want, got):
+            d, _, b = same_ranking(w, g)
+            worst, bad = max(worst, d), bad + b
+            same &= w.breakdown.as_dict() == g.breakdown.as_dict()
+            dead_seen += sum(int((~g_alive[r.doc_ids]).sum())
+                             for r in g.ranked)
+        st = w_counters[0]
+        ok = worst <= AGREE_TOL and bad == 0 and same and dead_seen == 0
+        log(f"  churned {mode} (2x2 mutable) card vs CPU: max score diff "
+            f"{worst:.3g}, {bad} id differences, {dead_seen} tombstoned ids "
+            f"answered, bills, reports and counters "
+            f"{'equal' if same else 'DIFFER'} (ingested "
+            f"{st['ingested_docs']}, tombstones {st['tombstones']}, "
+            f"compactions {st['compactions']}, migration bytes "
+            f"{st['migration_bytes']:,}) -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"churned {mode}: card disagrees with CPU")
+
+
 # ---------------------------------------------------------------------------
-# phases 10-11: the LM serving path (prefill, then KV-cache decode)
+# phases 11-12: the LM serving path (prefill, then KV-cache decode)
 # ---------------------------------------------------------------------------
 
 LM = "smollm-135m"              # full width and depth
@@ -2547,8 +2938,9 @@ def main(argv=None) -> int:
               ("persist", lambda: persist_phase(dev, failures, serving)),
               ("serve", lambda: serve_phase(dev, failures, serving)),
               ("faults", lambda: faults_phase(dev, failures, serving)),
-              ("cluster", lambda: (cluster_phase(dev, failures, serving),
-                                   free_main_path())),
+              ("cluster", lambda: cluster_phase(dev, failures, serving)),
+              ("mutation", lambda: (mutation_phase(dev, failures, serving),
+                                    free_main_path())),
               ("agreement", lambda: agreement(dev, failures)),
               ("decode path", lambda: rows.update(
                   decode=decode_path(dev, failures))),

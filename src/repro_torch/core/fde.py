@@ -22,12 +22,18 @@ Construction (asymmetric between queries and documents):
 
 The planes and the projection are drawn with numpy's ``default_rng(seed)``
 exactly as the reference draws them, then moved to the device, where the
-bucketing, the sums (``index_add_``/``bincount``) and the projection run.
-The projection is taken in float64, as the reference's numpy product is
-(its projection matrix is float64), and rounded to fp32. A token within
+bucketing, the bucket sums (segment sums in token order) and the projection
+run. The projection is taken in float64, as the reference's numpy product
+is (its projection matrix is float64), and rounded to fp32. A token within
 rounding of a hyperplane may land in another bucket than in the reference
-(the fp32 sign test sums in another order); on CUDA the bucket sums are
-atomics in no fixed order.
+(the fp32 sign test sums in another order).
+
+A doc's encoding does not depend on the docs encoded with it: both
+products run in blocks of a fixed number of rows (``_fixed_rows_mm``), so
+the library takes the same kernel, and each row the same summation order,
+whatever the batch. The FDEs of docs ingested into a live index
+(``FDETable.append``) therefore equal a rebuild of the grown table bit for
+bit.
 """
 from __future__ import annotations
 
@@ -38,6 +44,26 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.storage.layout import CHUNK_DOCS, bow_rows, token_scales
+
+#: rows per product block: token rows for the SimHash sign tests, doc rows
+#: for the projection
+TOKEN_BLOCK = 4096
+DOC_BLOCK = 128
+
+
+def _fixed_rows_mm(x: torch.Tensor, w: torch.Tensor,
+                   rows: int) -> torch.Tensor:
+    """``x @ w``, ``rows`` rows of ``x`` at a time, the last block padded
+    with zero rows: every product has one shape, so a row's result is the
+    same whichever rows came with it (a product over all of ``x`` at once
+    lets the library pick its kernel, and so its summation order, by the
+    row count)."""
+    n = x.shape[0]
+    pad = -n % rows
+    if pad:
+        x = torch.cat([x, x.new_zeros((pad, x.shape[1]))])
+    return torch.cat([x[i:i + rows] @ w for i in range(0, n + pad, rows)]
+                     or [x.new_zeros((0, w.shape[1]))])[:n]
 
 
 @dataclass(frozen=True)
@@ -104,7 +130,7 @@ class FDEEncoder:
         [0, 2^k_sim), every repetition at once (one product with all the
         hyperplanes)."""
         cfg = self.cfg
-        bits = (flat @ self.planes.T) > 0                 # (t, r * k)
+        bits = _fixed_rows_mm(flat, self.planes.T, TOKEN_BLOCK) > 0
         return (bits.view(-1, cfg.r_reps, cfg.k_sim).long()
                 * self._bit_weights).sum(-1)
 
@@ -147,7 +173,7 @@ class FDEEncoder:
         """(n, d_raw) -> (n, d_fde) fp32 (the product in float64)."""
         if self.proj is None:
             return raw
-        return (raw.double() @ self.proj).float()
+        return _fixed_rows_mm(raw.double(), self.proj, DOC_BLOCK).float()
 
     def encode_flat(self, flat: torch.Tensor, lens) -> torch.Tensor:
         """Document FDEs of ``len(lens)`` docs whose tokens are ``flat``,
@@ -175,6 +201,9 @@ class FDEEncoder:
             return torch.zeros(0, self.cfg.d_fde, device=self.device)
         return torch.cat(parts)
 
+    def encode_doc(self, toks: np.ndarray) -> torch.Tensor:
+        return self.encode_docs([toks])[0]
+
     def encode_queries(self, q_bow: np.ndarray,
                        q_lens: np.ndarray) -> torch.Tensor:
         """Query FDEs from a padded (B, L, d_bow) batch + lengths: per-bucket
@@ -188,6 +217,10 @@ class FDEEncoder:
         return self._project(self._aggregate(
             torch.as_tensor(flat, device=self.device), lens, average=False,
             fill_empty=False))
+
+    def encode_query(self, toks: np.ndarray) -> torch.Tensor:
+        return self.encode_queries(np.asarray(toks)[None],
+                                   np.array([len(toks)]))[0]
 
 
 @dataclass
@@ -209,6 +242,16 @@ class FDETable:
         """True when this table can serve queries encoded under ``cfg`` at
         storage dtype ``dtype``."""
         return self.cfg == cfg and self.vecs.dtype == getattr(torch, dtype)
+
+    def append(self, vecs: torch.Tensor) -> None:
+        """Extend the table with newly ingested docs' FDEs (encoded under
+        this table's own ``cfg``; a doc's encoding is independent of its
+        batch, so the appended rows equal a rebuild's), on the table's
+        device, in its dtype."""
+        if len(vecs) == 0:
+            return
+        self.vecs = torch.cat([self.vecs, vecs.to(self.vecs.device,
+                                                  self.vecs.dtype)])
 
 
 def build_fde_table(bows: list[np.ndarray], cfg: FDEConfig, *,

@@ -268,6 +268,116 @@ def mask_dead(ids, alive: np.ndarray | None):
 
 
 # ---------------------------------------------------------------------------
+# online insertion
+# ---------------------------------------------------------------------------
+
+def _grown(index: IVFIndex, need: np.ndarray):
+    """New cell tensors wide enough for ``need`` docs in the fullest cell:
+    copies of the index's, padded once (ids with ``-1``, int8 scales with
+    the builder's floor scale ``1e-9``) when a cell overflows."""
+    grow = max(0, int(need.max()) - index.max_cell)
+    ids, vecs, scale = index.cell_ids, index.cell_vecs, index.cell_scale
+    if not grow:
+        return (ids.clone(), vecs.clone(),
+                scale.clone() if scale is not None else None)
+    c = index.ncells
+    ids = torch.cat([ids, ids.new_full((c, grow), -1)], dim=1)
+    vecs = torch.cat([vecs, vecs.new_zeros((c, grow, vecs.shape[2]))], dim=1)
+    if scale is not None:
+        scale = torch.cat([scale, scale.new_full((c, grow), 1e-9)], dim=1)
+    return ids, vecs, scale
+
+
+def _quantized(index: IVFIndex, v: torch.Tensor):
+    """Rows ``v`` (n, d) fp32 in the index's storage: (vecs, scales). int8
+    rows take the builder's per-vector scale ``max(|v|.max() / 127,
+    1e-9)``."""
+    if index.quant == "int8":
+        amax = v.abs().amax(-1)
+        # divided by a tensor: CUDA divides by a host scalar through its
+        # reciprocal, which rounds otherwise than the builder's division
+        sc = torch.clamp_min(amax / torch.full_like(amax, 127.0), 1e-9)
+        return torch.round(v / sc[:, None]).to(torch.int8), sc
+    return v.to(index.cell_vecs.dtype), None
+
+
+def ivf_add(index: IVFIndex, cls_embs, doc_ids) -> IVFIndex:
+    """Online insertion on the index's device: assign new docs to their
+    nearest existing centroid and append them to that cell, in input order
+    within a cell (growing the pad width once when a cell fills).
+
+    Centroids are not retrained (FAISS ``add`` does the same). The slots
+    are the reference's sequential loop's (``ivf_add_plain``), reached at
+    once: a stable sort of the assignments, each cell's running count, and
+    one scatter into fresh copies of the cell tensors (a search holding
+    the old ones is undisturbed). Deterministic, so replaying the same
+    ingests on a freshly built index reproduces it bit for bit. Mutates
+    ``index`` in place and returns it."""
+    ids = np.asarray(doc_ids, np.int64)
+    if len(ids) == 0:
+        return index
+    dev = index.device
+    v = torch.as_tensor(cls_embs, dtype=torch.float32, device=dev)
+    assign = _assign_chunked(v, index.centroids)
+    counts = torch.bincount(assign, minlength=index.ncells)
+    sizes = index.cell_sizes.astype(np.int64)
+    need = counts.cpu().numpy() + sizes
+    cell_ids, cell_vecs, cell_scale = _grown(index, need)
+    # slot of each new doc: its cell's size so far + its rank among the
+    # cell's new docs in input order
+    order = torch.argsort(assign, stable=True)
+    cells = assign[order]
+    first = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(len(ids), device=dev) - first[cells]
+    slot = torch.as_tensor(sizes, device=dev)[cells] + rank
+    q, sc = _quantized(index, v[order])
+    cell_ids[cells, slot] = torch.as_tensor(ids, device=dev)[order].to(
+        cell_ids.dtype)
+    cell_vecs[cells, slot] = q
+    if cell_scale is not None:
+        cell_scale[cells, slot] = sc
+    index.cell_ids, index.cell_vecs = cell_ids, cell_vecs
+    index.cell_scale = cell_scale
+    index.cell_sizes = need
+    index.n_docs = int(max(index.n_docs, int(ids.max()) + 1))
+    return index
+
+
+def ivf_add_plain(index: IVFIndex, cls_embs, doc_ids) -> IVFIndex:
+    """``ivf_add``'s plain version, the reference's loop: one doc at a
+    time, in input order, into numpy copies of the cells."""
+    ids = np.asarray(doc_ids, np.int64)
+    if len(ids) == 0:
+        return index
+    dev = index.device
+    vecs = np.asarray(torch.as_tensor(cls_embs, dtype=torch.float32).cpu())
+    assign = _assign_chunked(torch.as_tensor(vecs, device=dev),
+                             index.centroids).cpu().numpy()
+    sizes = index.cell_sizes.astype(np.int64)
+    need = np.bincount(assign, minlength=index.ncells) + sizes
+    cell_ids, cell_vecs, cell_scale = (
+        t.cpu().numpy() if t is not None else None
+        for t in _grown(index, need))
+    for v, gid, c in zip(vecs, ids, assign):
+        pos = int(sizes[c])
+        cell_ids[c, pos] = gid
+        if index.quant == "int8":
+            sc = max(float(np.abs(v).max()) / 127.0, 1e-9)
+            cell_vecs[c, pos] = np.round(v / np.float32(sc)).astype(np.int8)
+            cell_scale[c, pos] = sc
+        else:
+            cell_vecs[c, pos] = v.astype(cell_vecs.dtype)
+        sizes[c] = pos + 1
+    index.cell_ids = torch.as_tensor(cell_ids, device=dev)
+    index.cell_vecs = torch.as_tensor(cell_vecs, device=dev)
+    if cell_scale is not None:
+        index.cell_scale = torch.as_tensor(cell_scale, device=dev)
+    index.cell_sizes = sizes
+    index.n_docs = int(max(index.n_docs, int(ids.max()) + 1))
+    return index
+
+
+# ---------------------------------------------------------------------------
 # cost model (Fig 5 / eq. 2): ANN time grows with candidates scanned
 # ---------------------------------------------------------------------------
 

@@ -15,8 +15,8 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from repro_torch.core.ivf import (ANNCostModel, IVFIndex, search_two_phase,
-                                  valid_candidates)
+from repro_torch.core.ivf import (ANNCostModel, IVFIndex, mask_dead,
+                                  search_two_phase, valid_candidates)
 from repro_torch.storage.batch_io import DeviceArena
 from repro_torch.storage.io_engine import StorageTier
 
@@ -104,8 +104,8 @@ class ANNPrefetcher:
     def delta(self, nprobe: int) -> int:
         return max(1, int(round(self.prefetch_step * nprobe)))
 
-    def run_batch(self, q: np.ndarray, *, nprobe: int,
-                  k: int) -> list[QueryResult]:
+    def run_batch(self, q: np.ndarray, *, nprobe: int, k: int,
+                  fetch: bool = True) -> list[QueryResult]:
         """q: (B, d). Returns one QueryResult per query.
 
         The IVF compute is batched (on the index's device) and so is the
@@ -114,12 +114,20 @@ class ANNPrefetcher:
         mode a miss that any query already prefetched is served from the
         shared prefetch arena instead of re-read. The accounting stays
         per-query via first-owner attribution shares, which sum exactly to
-        the batch totals.
+        the batch totals. Tombstoned docs (a mutable tier's ``alive``) are
+        dropped before the lists form. ``fetch=False`` plans the lists and
+        stats but reads nothing (no buffers, no I/O bill).
         """
         delta = self.delta(nprobe)
         approx, final, _ = search_two_phase(self.index, q, nprobe, k, delta)
         a_ids = approx[1].cpu().numpy()
         f_scores, f_ids = (t.cpu().numpy() for t in final)
+        # tombstones: deleted docs become -1 padding BEFORE the prefetch and
+        # miss lists form, so they are never fetched, never scored, and never
+        # inserted into any cache
+        alive = getattr(self.tier, "alive", None)
+        a_ids = mask_dead(a_ids, alive)
+        f_ids = mask_dead(f_ids, alive)
 
         budget = self.cost.prefetch_budget(self.index, nprobe, delta)
         ann_total = self.cost.time(self.index, nprobe)
@@ -135,25 +143,30 @@ class ANNPrefetcher:
             hit_masks.append(hit_mask)
             miss_lists.append(fin_ids[~hit_mask])
 
+        pref_batch = miss_batch = None
         fetch_lists = miss_lists
         served_masks = None
-        pref_batch = self.tier.read_batch(pref_lists, skip_empty=True)
-        if pref_batch.coalesced:
-            # cross-query reuse: misses already in the batch's prefetch
-            # arena are served from memory, not re-read from storage
-            served_masks = [pref_batch.plan.contains(m) for m in miss_lists]
-            fetch_lists = [m[~mask]
-                           for m, mask in zip(miss_lists, served_masks)]
-        miss_batch = self.tier.read_batch(fetch_lists, skip_empty=True)
+        if fetch:
+            pref_batch = self.tier.read_batch(pref_lists, skip_empty=True)
+            if pref_batch.coalesced:
+                # cross-query reuse: misses already in the batch's prefetch
+                # arena are served from memory, not re-read from storage
+                served_masks = [pref_batch.plan.contains(m)
+                                for m in miss_lists]
+                fetch_lists = [m[~mask]
+                               for m, mask in zip(miss_lists, served_masks)]
+            miss_batch = self.tier.read_batch(fetch_lists, skip_empty=True)
 
         results = []
         for b in range(B):
             fin_ids, fin_scores = fins[b]
             hit_mask = hit_masks[b]
-            buffers, pref_rows, pref_io = pref_batch.view(b)
-            miss_buffers, miss_rows, miss_io = miss_batch.view(b)
+            buffers, pref_rows, pref_io = (None, {}, 0.0) if not fetch \
+                else pref_batch.view(b)
+            miss_buffers, miss_rows, miss_io = (None, None, 0.0) \
+                if not fetch else miss_batch.view(b)
             wait_io = None
-            if pref_batch.coalesced:
+            if fetch and pref_batch.coalesced:
                 served_rows = np.empty(0, np.int64)
                 served = miss_lists[b][served_masks[b]] if served_masks \
                     else miss_lists[b][:0]
@@ -179,13 +192,15 @@ class ANNPrefetcher:
                 miss_io_s=miss_io,
                 ann_s=ann_total,
             )
-            served_rows_b = (pref_batch.plan.rows_of(
-                miss_lists[b][served_masks[b]])
-                if served_masks and served_masks[b].any()
-                else np.empty(0, np.int64))
-            io_failed = (pref_batch.query_failed(b)
-                         or miss_batch.query_failed(b)
-                         or pref_batch.rows_failed(served_rows_b))
+            io_failed = False
+            if fetch:
+                served_rows_b = (pref_batch.plan.rows_of(
+                    miss_lists[b][served_masks[b]])
+                    if served_masks and served_masks[b].any()
+                    else np.empty(0, np.int64))
+                io_failed = (pref_batch.query_failed(b)
+                             or miss_batch.query_failed(b)
+                             or pref_batch.rows_failed(served_rows_b))
             results.append(QueryResult(
                 doc_ids=fin_ids, cand_scores=fin_scores,
                 hit_mask=hit_mask, stats=stats, prefetched=pref_rows,

@@ -8,13 +8,15 @@
 from repro_torch.pipeline.backends import (RetrievalBackend,
                                            available_backends, get_backend,
                                            register_backend)
-from repro_torch.pipeline.config import (CorpusConfig, IndexConfig,
+from repro_torch.pipeline.config import (ClusterConfig, CorpusConfig,
+                                         IndexConfig, MutationConfig,
                                          PipelineConfig, RetrievalConfig,
                                          StorageConfig)
 from repro_torch.pipeline.pipeline import Pipeline
 
 __all__ = [
     "Pipeline", "PipelineConfig", "CorpusConfig", "IndexConfig",
-    "StorageConfig", "RetrievalConfig", "RetrievalBackend",
+    "StorageConfig", "RetrievalConfig", "ClusterConfig", "MutationConfig",
+    "RetrievalBackend",
     "register_backend", "get_backend", "available_backends",
 ]

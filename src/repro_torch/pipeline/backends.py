@@ -31,8 +31,8 @@ import torch
 from repro_torch.core.espn import (ComputeModel, ESPNConfig, LatencyBreakdown,
                                    RetrievalResponse)
 from repro_torch.core.fde import FDEEncoder
-from repro_torch.core.ivf import (ANNCostModel, IVFIndex, build_ivf, search,
-                                  valid_candidates)
+from repro_torch.core.ivf import (ANNCostModel, IVFIndex, build_ivf, ivf_add,
+                                  mask_dead, search, valid_candidates)
 from repro_torch.core.maxsim import topk_stable
 from repro_torch.core.prefetcher import ANNPrefetcher, QueryResult
 from repro_torch.core.rerank import RerankOutput, rerank_query
@@ -139,6 +139,19 @@ class RetrievalBackend(abc.ABC):
                   bd: LatencyBreakdown) -> list[RerankOutput]:
         """Fill ``bd``'s ann/hidden/critical/rerank terms; return rankings."""
 
+    # -- live-mutation hooks ------------------------------------------
+    def _dead_masked(self, ids):
+        """Tombstone deleted docs out of candidate rows (``-1`` padding;
+        ``valid_candidates`` drops them with scores kept paired). Identity
+        for tiers without a mutation layer."""
+        return mask_dead(ids, getattr(self.tier, "alive", None))
+
+    def on_mutation(self, ingested=None, deleted=None) -> None:
+        """Called by ``Pipeline.ingest``/``delete`` after the tier and its
+        side tables moved. Deletes need nothing here (the tombstone mask is
+        consulted per query); backends holding a copy of a side table
+        override this to refresh it on ingest."""
+
     # -- shared helpers -----------------------------------------------
     def _maxsim_time(self, n_docs: int, q_len: int) -> float:
         layout = self.tier.layout
@@ -181,6 +194,7 @@ class RetrievalBackend(abc.ABC):
         candidate bytes are billed once (``bd.dedup_bytes_saved``)."""
         cfg = self.cfg
         tr = self.tracer
+        ids = self._dead_masked(ids)
         prep = []
         for b in range(len(ids)):
             fin, fin_scores = valid_candidates(ids[b], scores[b])
@@ -229,6 +243,7 @@ class RetrievalBackend(abc.ABC):
         dev = self.index.device
         layout = self.tier.layout
         mean_t = float(layout.n_tokens.mean())
+        ids = self._dead_masked(ids)
         # 1) resident bit filter; the survivors are chosen on the host with
         #    the reference's partial sort (argpartition + stable sort of
         #    ``width`` elements), so ties exactly at the cutoff may pick
@@ -453,9 +468,25 @@ class FDEBackend(RetrievalBackend):
                 tier.fde.vecs.float().cpu().numpy(),
                 ncells=max(16, n // 270), iters=4, device=dev)
         else:
-            # the table is immutable for the backend's lifetime: one device
-            # copy (none when it was built there), not one per query batch
+            # one device copy (none when the table was built there), not
+            # one per query batch; ingest refreshes it (``on_mutation``)
             self._fde_vecs_dev = tier.fde.vecs.to(dev).contiguous()
+
+    def on_mutation(self, ingested=None, deleted=None) -> None:
+        """Ingest grew ``tier.fde`` under this backend: fold the new doc
+        FDEs into the IVF over FDEs when one exists, else take the grown
+        table as the brute scan's (no copy when it lives on the index's
+        device; the appended rows are the rebuild's bits)."""
+        if ingested is None or len(ingested) == 0:
+            return
+        gids = np.asarray(ingested, np.int64)
+        vecs = self.tier.fde.vecs
+        if self.fde_index is not None:
+            ivf_add(self.fde_index,
+                    vecs[torch.as_tensor(gids, device=vecs.device)].float(),
+                    gids)
+        else:
+            self._fde_vecs_dev = vecs.to(self.index.device).contiguous()
 
     def candidate_gen_bytes(self) -> int:
         """Resident bytes this backend's candidate generation needs: the

@@ -2,9 +2,7 @@
 retrieval stack (corpus -> IVF index -> packed storage layout -> retrieval
 backend -> serving policy), with dict and argparse round-trips. Sections,
 fields, defaults and flags are the reference package's, so a ``config.json``
-saved by either package loads in the other. The ``mutation`` section is
-carried for that exchange; a config that turns it on raises at assembly
-(ROADMAP Queue A item 2).
+saved by either package loads in the other.
 """
 from __future__ import annotations
 
@@ -144,8 +142,11 @@ class ClusterConfig:
 
 @dataclass
 class MutationConfig:
-    """Live index mutation. The defaults build the immutable tier; any other
-    setting needs the mutable cluster (ROADMAP Queue A item 2)."""
+    """Live index mutation (``repro_torch.storage.mutation``). The defaults
+    build the immutable tier; ``enabled`` (or any maintenance knob) builds
+    a ``MutableStorageCluster`` with ``Pipeline.ingest/delete/compact/
+    rebalance/maintain``. A mutable cluster that never mutates ranks and
+    bills as the immutable one bit for bit."""
     enabled: bool = False              # build the mutable cluster
     auto_compact_segments: int = 0     # compact a shard at this many
                                        # segments (0 = off)
@@ -335,8 +336,6 @@ class PipelineConfig:
                         help="cross-batch arena cache budget in MB (0 = off)")
         ap.add_argument("--cluster-seed", type=int, default=cl.seed,
                         help="replica clock RNG seed")
-        # the mutation flags need ROADMAP Queue A item 2: a value off their
-        # defaults raises when the pipeline is assembled
         m = MutationConfig()
         ap.add_argument("--mutation", action="store_true",
                         help="build the mutable storage cluster (online "

@@ -24,9 +24,13 @@ doc. The IVF index, the FDE table and each read's token rows live on
 failover; ``kill_replica``/``recover_replica``), and ``cfg.serve.autoscale``
 attaches the feedback autoscaler that drives its replicas. ``cfg.faults``
 attaches the seeded fault injector (and record checksums) to the storage
-tier, and ``cfg.obs`` a tracer to the whole stack. Live mutation
-(``cfg.mutation``, ``rebalance``) is not ported: asking for it raises
-``NotImplementedError``.
+tier, and ``cfg.obs`` a tracer to the whole stack. ``cfg.mutation`` builds
+the ``MutableStorageCluster`` (even on one shard and one replica: the
+segment machinery lives there), and ``ingest``/``delete``/``compact``/
+``rebalance``/``maintain`` change the index while it serves; ``ingest``
+also adds the new docs to the IVF index on its device. Saving or loading a
+mutable tier (the reference's ``mutation/`` directory) is not ported yet:
+it raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -40,7 +44,7 @@ import torch
 from repro_torch.core.espn import ComputeModel, RetrievalResponse
 from repro_torch.core.pool import pool_corpus
 from repro_torch.core.fde import FDETable, fde_from_layout
-from repro_torch.core.ivf import ANNCostModel, IVFIndex, build_ivf
+from repro_torch.core.ivf import ANNCostModel, IVFIndex, build_ivf, ivf_add
 from repro_torch.core.metrics import mrr_at_k, recall_at_k
 from repro_torch.data.synthetic import Corpus, make_corpus
 from repro_torch.device import resolve_device
@@ -54,6 +58,7 @@ from repro_torch.storage.io_engine import StorageTier
 from repro_torch.storage.layout import (LAYOUT_MODES, BitTable,
                                         EmbeddingLayout, bits_from_layout,
                                         pack)
+from repro_torch.storage.mutation import MutableStorageCluster
 
 
 def _pack_layout(cfg: PipelineConfig, cls_embs: np.ndarray,
@@ -77,11 +82,11 @@ def _pack_layout(cfg: PipelineConfig, cls_embs: np.ndarray,
                 checksum=cfg.faults.checksum)
 
 
-def _unported(what: str) -> NotImplementedError:
+def _unported_mutation_dir(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} needs the mutable storage cluster, which the port does not "
-        "have yet (ROADMAP Queue A item 2); the port never builds an "
-        "immutable tier in its place")
+        f"{what} a mutable tier needs the reference's mutation/ directory "
+        "(base shard images, segments, tombstones), which the port does not "
+        "have yet (ROADMAP Queue A item 3, the mutation/ save format)")
 
 
 class Pipeline:
@@ -155,28 +160,29 @@ class Pipeline:
                        cost_model: ANNCostModel | None = None,
                        compute: ComputeModel | None = None,
                        bits: BitTable | None = None,
-                       fde: FDETable | None = None,
+                       fde: FDETable | None = None, shard_layouts=None,
                        device: str | torch.device = "cuda") -> "Pipeline":
         """Assemble a pipeline around prebuilt artifacts (e.g. the reference
         package's index, layout and side tables carried over by
         ``repro_torch.convert``) — no clustering, no packing. The index is
         moved to ``device``. A side table the backend needs and the caller
         did not pass (or an FDE table of another encoding family or dtype)
-        is built from the layout."""
+        is built from the layout. ``shard_layouts`` hands a cluster its
+        prebuilt ``(sub-layout, global ids)`` pairs, as ``with_mode``
+        does."""
         dev = resolve_device(device)
         return cls._assemble(cfg, corpus, index.to(dev), layout,
                              cost_model=cost_model, compute=compute,
-                             bits=bits, fde=fde)
+                             bits=bits, fde=fde, shard_layouts=shard_layouts)
 
     @classmethod
     def _assemble(cls, cfg: PipelineConfig, corpus: Corpus | None,
                   index: IVFIndex, layout: EmbeddingLayout, *,
                   cost_model=None, compute=None, bits: BitTable | None = None,
                   fde: FDETable | None = None,
-                  shard_layouts=None) -> "Pipeline":
+                  shard_layouts=None, segments=None,
+                  alive=None) -> "Pipeline":
         backend_cls = get_backend(cfg.retrieval.mode)
-        if cfg.mutation.active():
-            raise _unported("live mutation (cfg.mutation)")
         budget = (int(layout.nbytes * cfg.storage.mem_budget_frac)
                   if backend_cls.needs_mem_budget else None)
         if backend_cls.needs_bit_table:
@@ -197,22 +203,38 @@ class Pipeline:
         if fl.checksum:
             # every image the read path serves from needs its checksum
             # column (a handed-down layout may predate --checksum)
-            for lay in [layout] + [sl for sl, _ in (shard_layouts or [])]:
+            for lay in ([layout] + [sl for sl, _ in (shard_layouts or [])]
+                        + [seg.layout for segs in (segments or [])
+                           for seg in segs]):
                 if lay.checksums is None:
                     add_checksums(lay)
-        cl = cfg.cluster
-        if cl.enabled():
-            tier = StorageCluster(
-                layout, n_shards=cl.n_shards, replication=cl.replication,
-                partition=cl.partition, stack=backend_cls.storage_stack,
-                mem_budget_bytes=budget, t_max=cfg.storage.t_max,
-                bits=bits, fde=fde, coalesce=cfg.storage.io_coalesce,
-                replica_mults=cl.replica_mults,
-                hedge_quantile=cl.hedge_quantile,
-                jitter_sigma=cl.jitter_sigma, seed=cl.seed,
-                arena_cache_bytes=cl.arena_cache_bytes(),
-                shard_layouts=shard_layouts, faults=faults,
-                device=index.device)
+        cl, mu = cfg.cluster, cfg.mutation
+        if mu.active() or cl.enabled():
+            kw = dict(n_shards=cl.n_shards, replication=cl.replication,
+                      partition=cl.partition,
+                      stack=backend_cls.storage_stack,
+                      mem_budget_bytes=budget, t_max=cfg.storage.t_max,
+                      bits=bits, fde=fde, coalesce=cfg.storage.io_coalesce,
+                      replica_mults=cl.replica_mults,
+                      hedge_quantile=cl.hedge_quantile,
+                      jitter_sigma=cl.jitter_sigma, seed=cl.seed,
+                      arena_cache_bytes=cl.arena_cache_bytes(),
+                      shard_layouts=shard_layouts, faults=faults,
+                      device=index.device)
+        if mu.active():
+            # mutation rides on the cluster tier even for the trivial
+            # 1-shard/1-replica config (the routing and segment machinery
+            # live there); an unmutated mutable cluster ranks and bills as
+            # the immutable path bit for bit
+            tier = MutableStorageCluster(
+                layout, **kw, segments=segments, alive=alive,
+                auto_compact_segments=mu.auto_compact_segments,
+                auto_compact_dead_frac=mu.auto_compact_dead_frac,
+                compact_interval_s=mu.compact_interval_s,
+                rebalance_skew=mu.rebalance_skew,
+                pool_seed=cfg.storage.pool_seed)
+        elif cl.enabled():
+            tier = StorageCluster(layout, **kw)
         else:
             tier = StorageTier(layout, stack=backend_cls.storage_stack,
                                t_max=cfg.storage.t_max,
@@ -283,6 +305,47 @@ class Pipeline:
         reg.register_sources(self.tier.metrics_sources())
         return reg.expose()
 
+    # -- live mutation -------------------------------------------------------
+    def _mutable_tier(self) -> MutableStorageCluster:
+        if not isinstance(self.tier, MutableStorageCluster):
+            raise RuntimeError(
+                "live mutation requires the mutable tier; set "
+                "cfg.mutation.enabled=True (or --mutation) when building")
+        return self.tier
+
+    def ingest(self, cls_embs: np.ndarray, bow_embs: list[np.ndarray], *,
+               scales=None) -> np.ndarray:
+        """Add documents online: appends a block-aligned segment on the
+        lightest shard, extends the side tables, inserts the docs into the
+        IVF index on its device (no re-clustering) and notifies the
+        backend. Returns their global ids."""
+        tier = self._mutable_tier()
+        gids = tier.ingest(cls_embs, bow_embs, scales=scales)
+        self.layout = tier.layout           # grown doc-id space
+        ivf_add(self.index, np.asarray(cls_embs, np.float32), gids)
+        self.backend.on_mutation(ingested=gids)
+        return gids
+
+    def delete(self, ids) -> int:
+        """Tombstone documents: they stop appearing in results at once;
+        their blocks are reclaimed by the next ``compact()``."""
+        tier = self._mutable_tier()
+        n = tier.delete(ids)
+        self.backend.on_mutation(deleted=np.asarray(ids, np.int64))
+        return n
+
+    def compact(self, shard: int | None = None) -> dict:
+        """Merge append segments and drop dead rows (one shard or all)."""
+        return self._mutable_tier().compact(shard)
+
+    def rebalance(self, skew_threshold: float | None = None) -> dict:
+        """Migrate live blocks from the heaviest shard to the lightest."""
+        return self._mutable_tier().rebalance(skew_threshold)
+
+    def maintain(self) -> dict:
+        """One self-management pass (threshold compaction + rebalance)."""
+        return self._mutable_tier().maintain()
+
     # -- serving -------------------------------------------------------------
     def serve(self, policy=None, *, trace_path: str | None = None):
         """Start a continuous-batching ``RetrievalServer`` over this stack.
@@ -332,9 +395,10 @@ class Pipeline:
     def with_mode(self, mode: str, **retrieval_overrides) -> "Pipeline":
         """A new ``Pipeline`` sharing this one's corpus, index and layout but
         running another backend (the paper's mode comparisons). The bit and
-        FDE tables already built, and a cluster's shard sub-layouts, are
-        handed over as they are, not copied or rebuilt. The new pipeline
-        owns its own storage tier; close both."""
+        FDE tables already built, and a cluster's shard sub-layouts (a
+        mutable tier's segments and tombstones too), are handed over as
+        they are, not copied or rebuilt. The new pipeline owns its own
+        storage tier; close both."""
         cfg = PipelineConfig.from_dict(self.cfg.to_dict())
         cfg.retrieval.mode = mode
         valid = {f.name for f in dataclasses.fields(cfg.retrieval)}
@@ -343,24 +407,35 @@ class Pipeline:
                 raise TypeError(f"unknown RetrievalConfig field {k!r}; "
                                 f"expected one of {sorted(valid)}")
             setattr(cfg.retrieval, k, v)
-        shard_layouts = None
+        shard_layouts = segments = alive = None
         if isinstance(self.tier, StorageCluster):
             # cluster knobs are not retrieval overrides: the new pipeline
             # shards identically, so reuse the already-built sub-layouts
             shard_layouts = list(zip((sh.layout for sh in self.tier.shards),
                                      self.tier.shard_ids))
+        if isinstance(self.tier, MutableStorageCluster):
+            # segments and tombstones carry over too: the mode comparison
+            # must see the same live corpus (layouts are immutable, so the
+            # Segment objects are shared)
+            segments = [list(segs) for segs in self.tier.segments]
+            alive = self.tier.alive
         return self._assemble(cfg, self.corpus, self.index, self.layout,
                               cost_model=self.backend.cost,
                               compute=self.backend.compute,
                               bits=self.tier.bits, fde=self.tier.fde,
-                              shard_layouts=shard_layouts)
+                              shard_layouts=shard_layouts,
+                              segments=segments, alive=alive)
 
     # -- persistence ---------------------------------------------------------
     def save(self, out_dir: str) -> str:
         """Write ``config.json``, the index, the layout (with its record
         checksums), the corpus when one is attached, the resident tables
         this pipeline carries and a sharded cluster's ``shards/``
-        sub-layouts, in the reference's format."""
+        sub-layouts, in the reference's format. A mutable tier raises
+        ``NotImplementedError`` (its ``mutation/`` directory is not ported
+        yet)."""
+        if isinstance(self.tier, MutableStorageCluster):
+            raise _unported_mutation_dir("saving")
         os.makedirs(out_dir, exist_ok=True)
         with open(os.path.join(out_dir, "config.json"), "w") as f:
             json.dump(self.cfg.to_dict(), f, indent=1)
@@ -390,10 +465,14 @@ class Pipeline:
              device: str | torch.device = "cuda") -> "Pipeline":
         """Rebuild a saved stack (this package's or the reference's) on
         ``device`` without re-clustering or re-packing. ``mode`` overrides
-        the saved retrieval backend."""
+        the saved retrieval backend. A saved mutable tier raises
+        ``NotImplementedError`` (its ``mutation/`` directory is not ported
+        yet)."""
         dev = resolve_device(device)
         with open(os.path.join(out_dir, "config.json")) as f:
             cfg = PipelineConfig.from_dict(json.load(f))
+        if cfg.mutation.active():
+            raise _unported_mutation_dir("loading")
         if mode is not None:
             cfg.retrieval.mode = mode
         index = persist.load_index(os.path.join(out_dir, "index.npz"), dev)
@@ -425,11 +504,6 @@ class Pipeline:
         if not isinstance(self.tier, StorageCluster):
             raise RuntimeError("replica control requires the cluster tier")
         return self.tier.recover_replica(shard, replica)
-
-    def rebalance(self, skew_threshold: float | None = None) -> dict:
-        """Migrate live blocks between shards: the mutable tier's, not
-        ported."""
-        raise _unported("rebalance")
 
     # -- lifecycle ----------------------------------------------------------
     def close(self):

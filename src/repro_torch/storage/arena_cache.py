@@ -125,6 +125,19 @@ class ArenaCache:
                 self.bytes_used -= old[3]
                 self.evictions += 1
 
+    def remove(self, doc_ids) -> int:
+        """Invalidate cached rows (deleted docs must never be served from
+        memory again), giving back exactly what each insert charged. Returns
+        how many entries were dropped."""
+        dropped = 0
+        with self._lock:
+            for i in doc_ids:
+                ent = self._lru.pop(int(i), None)
+                if ent is not None:
+                    self.bytes_used -= ent[3]
+                    dropped += 1
+        return dropped
+
     def clear(self) -> None:
         with self._lock:
             self._lru.clear()

@@ -52,8 +52,7 @@ class EmbeddingLayout:
     d_cls: int
     d_bow: int
     dtype: np.dtype               # stored element dtype (e.g. float16/int8)
-    scales: np.ndarray | None     # (N,) fp32 dequant scales (a carried-over
-                                  # int8 layout; pack() stores none)
+    scales: np.ndarray | None     # (N,) fp32 per-doc dequant scales
     block: int = DEFAULT_BLOCK
     mode: str = "ragged"          # "ragged" | "fixed_stride"
     stride_blocks: int = 0        # fixed mode: blocks per doc (uniform)
@@ -114,16 +113,18 @@ class EmbeddingLayout:
 
 
 def pack(cls_embs: np.ndarray, bow_embs: list[np.ndarray], *,
-         dtype=np.float16, block: int = DEFAULT_BLOCK, mode: str = "ragged",
+         dtype=np.float16, scales: np.ndarray | None = None,
+         block: int = DEFAULT_BLOCK, mode: str = "ragged",
          pool_k: int = 0, d_bow: int | None = None,
          checksum: bool = False) -> EmbeddingLayout:
     """Build the block-aligned disk image.
 
     cls_embs: (N, d_cls) fp32; bow_embs: list of (t_i, d_bow) fp32 arrays,
-    stored as ``dtype`` (fp16 default). ``mode="fixed_stride"`` requires
-    every doc to hold exactly ``pool_k`` tokens (pool first:
-    ``repro_torch.core.pool``); the layout then stores no per-doc offset or
-    token tables. An empty corpus packs to a valid empty layout (``d_bow``
+    stored as ``dtype`` (fp16 default); with ``scales`` (N,), each record is
+    divided by its doc's scale before the cast (an int8 layout's per-doc
+    scale). ``mode="fixed_stride"`` requires every doc to hold exactly
+    ``pool_k`` tokens (pool first: ``repro_torch.core.pool``); the layout
+    then stores no per-doc offset or token tables. An empty corpus packs to a valid empty layout (``d_bow``
     may be passed explicitly when it cannot be inferred from a zero-doc
     ``bow_embs``).
 
@@ -162,19 +163,23 @@ def pack(cls_embs: np.ndarray, bow_embs: list[np.ndarray], *,
         # bytes at the same block starts
         recs = np.concatenate(
             [cls_embs, np.stack(bow_embs).reshape(n, -1)], axis=1)
+        if scales is not None:
+            recs = recs / scales[:, None]
         raw = np.ascontiguousarray(recs.astype(dtype)).view(np.uint8)
         view = blob.reshape(n, int(n_blocks[0]) * block)
         view[:, :raw.shape[1]] = raw
     else:
         for i in range(n):
             rec = np.concatenate([cls_embs[i].ravel(), bow_embs[i].ravel()])
+            if scales is not None:
+                rec = rec / scales[i]
             raw = rec.astype(dtype).view(np.uint8)
             s = starts[i] * block
             blob[s:s + raw.nbytes] = raw
     if mode == "fixed_stride":
         out = EmbeddingLayout(blob=blob, offsets=None, n_tokens=None,
                               d_cls=d_cls, d_bow=d_bow,
-                              dtype=np.dtype(dtype), scales=None,
+                              dtype=np.dtype(dtype), scales=scales,
                               block=block, mode=mode,
                               stride_blocks=int(stride_blocks),
                               pool_k=pool_k)
@@ -184,7 +189,7 @@ def pack(cls_embs: np.ndarray, bow_embs: list[np.ndarray], *,
         offsets[:, 1] = n_blocks
         out = EmbeddingLayout(blob=blob, offsets=offsets, n_tokens=n_tokens,
                               d_cls=d_cls, d_bow=d_bow,
-                              dtype=np.dtype(dtype), scales=None,
+                              dtype=np.dtype(dtype), scales=scales,
                               block=block)
     if checksum:
         add_checksums(out)
@@ -282,6 +287,19 @@ class BitTable:
         if self._lanes32 is None:
             self._lanes32 = to_uint32_lanes(self.packed)
         return self._lanes32
+
+    def append(self, bow_embs: list[np.ndarray]) -> None:
+        """Extend the table with newly ingested docs' tokens, in doc-id
+        order. Sign packing is per token, so this equals re-packing the
+        grown corpus from scratch bit for bit; the cached uint32 re-view is
+        dropped."""
+        if not bow_embs:
+            return
+        add = pack_bits(list(bow_embs), dtype=str(self.packed.dtype))
+        self.packed = np.concatenate([self.packed, add.packed], axis=0)
+        self.starts = np.concatenate(
+            [self.starts, add.starts[1:] + self.starts[-1]])
+        self._lanes32 = None
 
     def gather(self, ids, t_max: int):
         """Padded uint32-lane gather: (len(ids), t_max, W32) + lengths, one

@@ -274,3 +274,156 @@ def test_latency_accounting_invariants(env, mode, n_shards):
     assert (fde is not None) == cls_.needs_fde_table
     assert_parity(want, resp)
     assert d == rd
+
+
+# -- the same invariants on a mutated (segmented + tombstoned) tier -----------
+
+def churn_both(ref, port, corpus):
+    """The reference test's churn, alike on both: two ingest segments of
+    12 docs live, 40 base docs tombstoned, nothing compacted."""
+    rng = np.random.default_rng(11)
+    for _ in range(2):
+        cls = rng.standard_normal((12, port.layout.d_cls)).astype(np.float32)
+        cls /= np.linalg.norm(cls, axis=1, keepdims=True)
+        bows = [rng.standard_normal((int(rng.integers(4, 12)),
+                                     port.layout.d_bow)).astype(np.float32)
+                for _ in range(12)]
+        for p in (ref, port):
+            p.ingest(cls, bows)
+    dead = rng.choice(corpus.n_docs, 40, replace=False)
+    for p in (ref, port):
+        p.delete(dead)
+
+
+def mutable_pair(env, mode="espn"):
+    """Both packages' mutable espn pipelines on the same artifacts (each
+    with its own index object: ``ingest`` grows it in place)."""
+    import dataclasses
+    d = env.base.cfg.to_dict()
+    rcfg, pcfg = RefConfig.from_dict(d), PipelineConfig.from_dict(d)
+    for cfg in (rcfg, pcfg):
+        cfg.retrieval.mode = mode
+        cfg.mutation.enabled = True
+    ref = RefPipeline.from_artifacts(
+        rcfg, index=dataclasses.replace(env.base.index),
+        layout=env.base.layout, corpus=env.corpus)
+    port = Pipeline.from_artifacts(
+        pcfg, index=convert.ivf_index_from_numpy(
+            index_arrays(env.base.index), "cpu"),
+        layout=env.layout, corpus=env.corpus, device="cpu")
+    return ref, port
+
+
+@pytest.fixture(scope="module")
+def churned(env):
+    """A mutable pipeline mid-churn in both packages: the worst case for
+    accounting (tests/test_retrieval_accounting.py's ``churned``)."""
+    ref, port = mutable_pair(env)
+    churn_both(ref, port, env.corpus)
+    yield ref, port
+    ref.close()
+    port.close()
+
+
+def in_mode(pipes, mode):
+    """Both churned pipelines in ``mode``: the reference's ``with_mode``,
+    and the port's over the same segments and tombstones with the
+    reference's resident tables (built from the grown layout)."""
+    ref, port = pipes
+    if mode == "espn":
+        return ref, port
+    rother = ref.with_mode(mode)
+    cfg = PipelineConfig.from_dict(port.cfg.to_dict())
+    cfg.retrieval.mode = mode
+    t = port.tier
+    other = Pipeline._assemble(
+        cfg, port.corpus, port.index, port.layout,
+        shard_layouts=list(zip((sh.layout for sh in t.shards), t.shard_ids)),
+        segments=[list(s) for s in t.segments], alive=t.alive,
+        **port_tables(rother))
+    return rother, other
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_segment_accounting_invariants(churned, mode):
+    """Segment reads (extra device transactions) and tombstone masking keep
+    the latency-sum, byte-bill and request-count contracts of every
+    backend, no dead id reaches a result, and the bills and counter deltas
+    are the reference's."""
+    ref, pipe = in_mode(churned, mode)
+    c = pipe.corpus
+    try:
+        before, rbefore = dict(pipe.tier.stats), dict(ref.tier.stats)
+        resp = pipe.search(*queries(c))
+        want = ref.search(*queries(c))
+        d, rd = deltas(pipe.tier, before), deltas(ref.tier, rbefore)
+    finally:
+        if mode != "espn":
+            ref.close()
+            pipe.close()
+    bd = resp.breakdown
+    assert bd.total_s == pytest.approx(
+        bd.encode_s + bd.ann_s + bd.critical_io_s + bd.rerank_s + 0.2e-3)
+    assert bd.dedup_bytes_saved >= 0
+    assert bd.bytes_read + bd.dedup_bytes_saved == sum(
+        r.bow_bytes_read for r in resp.ranked)
+    reranked = sum(r.n_reranked for r in resp.ranked)
+    assert d["docs"] <= d["doc_requests"]
+    if mode == "espn":
+        assert d["doc_requests"] >= reranked
+    else:
+        assert d["doc_requests"] == reranked
+    alive = pipe.tier.alive
+    for r in resp.ranked:
+        assert (r.doc_ids >= 0).all()
+        assert alive[r.doc_ids].all()
+    assert_parity(want, resp)
+    assert d == rd
+
+
+def test_server_mutation_counters_equal_the_reference(env):
+    """``RetrievalServer`` over a churning pipeline: ingests, deletes, a
+    compaction and a rebalance between server batches; the summary's
+    mutation counters (measured from server start) and every answer are
+    the reference server's."""
+    from repro.serve.scheduler import BatchPolicy as RefBatchPolicy
+    from repro_torch.serve.scheduler import BatchPolicy
+    ref, port = mutable_pair(env, "gds")
+    c = env.corpus
+    qs = [(c.queries_cls[i], c.queries_bow[i], int(c.query_lens[i]))
+          for i in range(8)]
+    servers = [ref.serve(RefBatchPolicy(max_batch=8, max_wait_s=5.0)),
+               port.serve(BatchPolicy(max_batch=8, max_wait_s=5.0))]
+    try:
+        rng = np.random.default_rng(5)
+        answers = []
+        for step in range(3):
+            reqs = [[srv.query_async(*q) for q in qs] for srv in servers]
+            for rs in reqs:
+                for r in rs:
+                    assert r.done.wait(60.0) and r.error is None
+            answers.append(reqs)
+            cls = rng.standard_normal((5, port.layout.d_cls)).astype(
+                np.float32)
+            bows = [rng.standard_normal((6, port.layout.d_bow)).astype(
+                np.float32) for _ in range(5)]
+            dead = [int(x) for x in rng.choice(c.n_docs, 7, replace=False)
+                    if port.tier.alive[x]]
+            for p in (ref, port):
+                p.ingest(cls, bows)
+                p.delete(dead)
+                if step == 1:
+                    p.compact()
+                    p.rebalance()
+    finally:
+        for srv in servers:
+            srv.shutdown()
+    s, rs = servers[1].stats.summary(), servers[0].stats.summary()
+    assert s["mutation"] == rs["mutation"]
+    assert s["mutation"]["ingests"] == 2 and s["mutation"]["tombstones"] > 0
+    assert s["mutation"]["compactions"] == 1
+    for rreqs, preqs in answers:
+        for w, g in zip(rreqs, preqs):
+            assert_same_ranking(w.result, g.result)
+    ref.close()
+    port.close()

@@ -272,3 +272,122 @@ def test_search_two_phase_is_independent_of_the_batch(card_ivf, batch):
             assert torch.equal(got[phase][0][b], scores[0])
             assert torch.equal(got[phase][1][b], ids[0])
         assert torch.equal(got[2][b], alone[2][0])
+
+
+# -- live mutation on the card -------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", ["fp32", "fp16", "int8"])
+def test_ivf_add_on_the_card_equals_the_cpu(card, quant):
+    """``ivf_add`` on the card (one stable sort, one scatter) puts every new
+    doc in the cell and slot the CPU and the sequential plain loop put it,
+    with the same stored vectors and scales, the pad grown once."""
+    from repro_torch.core.ivf import build_ivf, ivf_add, ivf_add_plain
+    from repro_torch.data.synthetic import make_corpus
+    c = make_corpus(n_docs=4_000, n_queries=1, n_clusters=32,
+                    with_bow=False, seed=7)
+    cpu = build_ivf(c.cls, ncells=64, iters=4, quant=quant, device="cpu")
+    on_card, plain = cpu.to(card), cpu.to("cpu")
+    w0 = cpu.max_cell
+    rng = np.random.default_rng(8)
+    start = c.n_docs
+    crowd = cpu.centroids[5].numpy() + 0.02 * rng.standard_normal(
+        (2 * w0, c.cls.shape[1]))
+    for vecs in (crowd.astype(np.float32),
+                 rng.standard_normal((500, c.cls.shape[1])).astype(
+                     np.float32)):
+        ids = np.arange(start, start + len(vecs))
+        start += len(vecs)
+        ivf_add(cpu, vecs, ids)
+        ivf_add(on_card, vecs, ids)
+        ivf_add_plain(plain, vecs, ids)
+    assert on_card.max_cell > w0 and on_card.cell_ids.device.type == "cuda"
+    for idx in (on_card, plain):
+        assert torch.equal(idx.cell_ids.cpu(), cpu.cell_ids)
+        assert torch.equal(idx.cell_vecs.cpu(), cpu.cell_vecs)
+        if quant == "int8":
+            assert torch.equal(idx.cell_scale.cpu(), cpu.cell_scale)
+        np.testing.assert_array_equal(idx.cell_sizes, cpu.cell_sizes)
+
+
+@pytest.mark.cuda
+def test_fde_append_on_the_card_equals_a_rebuild(card):
+    """The FDEs of docs ingested in batches of 1, 37 and 2,500, appended to
+    a table built on the card, equal ``fde_from_layout`` of the grown
+    layout on the card bit for bit (each doc's encoding is independent of
+    the docs encoded with it)."""
+    from repro_torch.core.fde import FDEConfig, FDEEncoder, fde_from_layout
+    from repro_torch.data.synthetic import make_corpus
+    from repro_torch.storage.layout import pack, unpack_doc
+    from repro_torch.storage.segments import concat_layouts
+    c = make_corpus(n_docs=6_000, n_queries=1, d_bow=32, seed=9)
+    cfg = FDEConfig(d_bow=32)
+    layout = pack(c.cls[:3_462], c.bow[:3_462])
+    table = fde_from_layout(layout, cfg, device=card)
+    enc = FDEEncoder(cfg, card)
+    start = 3_462
+    for n in (1, 37, 2_500):
+        seg = pack(c.cls[start:start + n], c.bow[start:start + n])
+        start += n
+        layout = concat_layouts([layout, seg])
+        table.append(enc.encode_docs([unpack_doc(seg, i)[1]
+                                      for i in range(n)]))
+    rebuilt = fde_from_layout(layout, cfg, device=card)
+    assert table.vecs.device.type == "cuda"
+    assert torch.equal(table.vecs, rebuilt.vecs)
+
+
+@pytest.mark.cuda
+def test_churned_pipeline_equals_its_rebuild_on_the_card(card):
+    """An espn pipeline on the card through ingests, deletes and a
+    compaction (2 shards x 2 replicas) ranks exactly like a stack rebuilt
+    from scratch over the surviving docs: ids and scores bit for bit."""
+    from repro_torch.core.ivf import build_ivf, ivf_add
+    from repro_torch.data.synthetic import make_corpus
+    from repro_torch.pipeline import (MutationConfig, Pipeline,
+                                      PipelineConfig)
+    from repro_torch.pipeline.pipeline import _pack_layout
+    c = make_corpus(n_docs=3_000, n_queries=16, n_clusters=16, seed=11)
+    cfg = PipelineConfig()
+    cfg.index.ncells = 32
+    cfg.retrieval.nprobe, cfg.retrieval.k_candidates = 16, 100
+    cfg.mutation = MutationConfig(enabled=True)
+    cfg.cluster.n_shards, cfg.cluster.replication = 2, 2
+    rng = np.random.default_rng(12)
+    batches = []
+    with Pipeline.build(cfg, corpus=c, device=card) as pipe:
+        for step in range(3):
+            n = int(rng.integers(20, 60))
+            cls = rng.standard_normal((n, c.cls.shape[1])).astype(np.float32)
+            cls /= np.linalg.norm(cls, axis=1, keepdims=True)
+            bows = [rng.standard_normal((int(rng.integers(3, 40)),
+                                         c.bow[0].shape[1])).astype(
+                                             np.float32) for _ in range(n)]
+            batches.append((cls, bows))
+            gids = pipe.ingest(cls, bows)
+            dead = set(gids[rng.random(n) < 0.3].tolist()) | set(
+                rng.choice(c.n_docs, 50, replace=False).tolist())
+            pipe.delete(sorted(d for d in dead if pipe.tier.alive[d]))
+            if step == 1:
+                pipe.compact()
+        q = (c.queries_cls, c.queries_bow, c.query_lens)
+        got = pipe.search(*q)
+        alive = pipe.tier.alive.copy()
+    index = build_ivf(c.cls, ncells=32, iters=cfg.index.iters, device=card)
+    start = c.n_docs
+    for cls, _ in batches:
+        ivf_add(index, cls, np.arange(start, start + len(cls)))
+        start += len(cls)
+    ocfg = PipelineConfig.from_dict(cfg.to_dict())
+    ocfg.mutation, ocfg.cluster = MutationConfig(), type(cfg.cluster)()
+    all_cls = np.concatenate([c.cls] + [b[0] for b in batches])
+    all_bows = list(c.bow) + [bw for b in batches for bw in b[1]]
+    with Pipeline.from_artifacts(ocfg, index=index,
+                                 layout=_pack_layout(ocfg, all_cls, all_bows),
+                                 device=card) as oracle:
+        oracle.tier.alive = alive
+        want = oracle.search(*q)
+    for w, g in zip(want.ranked, got.ranked):
+        assert np.array_equal(w.doc_ids, g.doc_ids)
+        assert np.array_equal(w.scores, g.scores)
+        assert alive[g.doc_ids].all()

@@ -349,11 +349,14 @@ def test_entry_points_default_to_the_card(root):
 
 
 def test_cluster_and_mutation_configs_raise(root):
-    """Live mutation is not ported: a saved config that asks for it (alone
-    or on a cluster) raises, naming the roadmap item, and no immutable
-    tier is built in its place. The storage cluster is ported: a config
-    that shards or replicates builds a ``StorageCluster``."""
+    """A saved config that shards or replicates builds a
+    ``StorageCluster``; one that asks for live mutation (alone or on a
+    cluster) builds the ``MutableStorageCluster``. What still raises,
+    naming the roadmap item, is the mutable tier's save format (the
+    reference's ``mutation/`` directory); ``rebalance`` on an immutable
+    cluster raises for want of the mutable tier."""
     from repro_torch.storage.cluster import StorageCluster
+    from repro_torch.storage.mutation import MutableStorageCluster
     c, index, layout = artifacts()
     for sections in ((("cluster", "n_shards", 2),),
                      (("cluster", "replication", 2),),
@@ -363,20 +366,19 @@ def test_cluster_and_mutation_configs_raise(root):
         _, cfg = configs("espn")
         for section, field, value in sections:
             setattr(getattr(cfg, section), field, value)
-
-        def build():
-            return Pipeline.from_artifacts(
+        with Pipeline.from_artifacts(
                 cfg, index=convert.ivf_index_from_numpy(
                     index_arrays(index), "cpu"),
                 layout=convert.layout_from_numpy(layout_arrays(layout)),
-                device="cpu")
-        if cfg.mutation.active():
-            with pytest.raises(NotImplementedError,
-                               match="Queue A item 2"):
-                build()
-        else:
-            with build() as pipe:
-                assert isinstance(pipe.tier, StorageCluster)
+                device="cpu") as pipe:
+            assert isinstance(pipe.tier, StorageCluster)
+            if cfg.mutation.active():
+                assert isinstance(pipe.tier, MutableStorageCluster)
                 with pytest.raises(NotImplementedError,
-                                   match="Queue A item 2"):
+                                   match="Queue A item 3"):
+                    pipe.save(os.path.join(root, "mutable"))
+                assert not os.path.exists(os.path.join(root, "mutable"))
+            else:
+                assert not isinstance(pipe.tier, MutableStorageCluster)
+                with pytest.raises(RuntimeError, match="mutable tier"):
                     pipe.rebalance()
