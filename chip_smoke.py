@@ -19,13 +19,13 @@ Phases, each of which must pass:
    where there is one (both ways), the least time the card could take and
    the share of it reached;
 4. main path: ``Pipeline.build`` at the ColBERTer widths on a 1M-doc corpus,
-   4 batches of 64 queries through ``espn`` and one through ``gds``, then,
+   2 batches of 64 queries through ``espn`` and one through ``gds``, then,
    through ``Pipeline.from_artifacts`` on the same corpus, index and layout,
    one batch each through ``mmap``, ``swap``, ``dram``, ``bitvec``, ``fde``
    and ``cascade`` (their bit and FDE tables built once, with size and
    build time), and one ``cspn`` batch on the corpus pooled to 32 tokens a
    doc in the ``fixed_stride`` layout, with the same index; every kernel's
-   launch count read around each mode's run (and, in phases 5-9, around
+   launch count read around each mode's run (and, in phases 5-11, around
    each of their paths), the device the rerank's tiles
    lie on, the K and the kernel of each maxsim and bitsim call (every one
    on the tensor cores, or the run fails; bitsim then timed on the device
@@ -42,13 +42,27 @@ Phases, each of which must pass:
    Poisson stream (``serve/workload.py``) at twice that throughput, under
    a 50 ms deadline and under twice the static median latency: the shed
    fraction and goodput under the SLO;
-7. faults: the layout's crc32 pass timed, two espn batches with seeded
+7. encoder: ColBERTer at its published widths (6 layers, d_model 768,
+   bf16 compute over fp32 masters, random weights from numpy seed 0): 64
+   queries of 32 tokens and 1,024 docs of the corpus's ragged lengths (up
+   to 180) in batches of 128, timed (docs/s, ms a batch, peak memory);
+   fp32 on the card within 1e-4 of fp32 on the CPU, bf16 at cosine >=
+   0.99 to fp32; then 128 requests through phase 6's server pipeline, each
+   query encoded on the card first, each answer equal bit for bit to
+   ``search`` of its query alone;
+8. disk_ivf: the main path's index as a SPANN-style disk IVF (postings in
+   a host disk image, no cache and a 10% hot-cell cache), 64 queries at
+   nprobe 128, k 1,000 (probes on ``ivf_scan``): bills and stats equal to
+   the same search on the CPU, ids up to near ties; at least 90% of k
+   shared with the in-memory search; resident bytes below 1/20 of the
+   in-memory index's; a fully cached warm pass bills nothing;
+9. faults: the layout's crc32 pass timed, two espn batches with seeded
    read errors, stalls and corruptions (checksums on, degraded answers
    on): the counters, the degraded queries, and maxsim launched for the
    non-degraded queries alone; a batch whose every read fails (no maxsim,
    no gather_pack); one traced server batch exported to Perfetto and read
    back by ``analyze_trace``;
-8. cluster: the storage cluster on the same artifacts: a 1x1 cluster's
+10. cluster: the storage cluster on the same artifacts: a 1x1 cluster's
    espn batch equal to the single tier's bit for bit (bill included); 4
    shards x 2 replicas in cascade and espn, equal in ids, scores and byte
    bills (only the clock moves); a sharded espn server whose 32 answers
@@ -58,20 +72,25 @@ Phases, each of which must pass:
    cache): three batches, the first hedged, the next two from the cache
    with no critical I/O; an autoscaled gds server under a 50 ms SLO and
    its decisions;
-9. mutation: live mutation on the same artifacts: an unmutated mutable 1x1
+11. mutation: live mutation on the same artifacts: an unmutated mutable 1x1
    cluster's espn batch equal to the single tier's bit for bit (bill
-   included); on a mutable 4 x 2 cluster over phase 8's shard images, 4
+   included); on a mutable 4 x 2 cluster over phase 10's shard images, 4
    ingests of 2,500 fresh docs (the generator under another seed) and
-   10,000 base docs plus ~30% of the new ones tombstoned, a cascade and an
-   espn batch of 64 mid-churn with no tombstoned id in any answer; the
-   appended bit and FDE tables equal to a rebuild of the grown layout, the
-   grown layout to a pack from scratch and the grown index to the
-   pre-ingest one with ``ivf_add`` replayed, bit for bit; the churned espn
-   answers equal to that rebuild oracle's bit for bit; ``compact`` (every
-   tombstone's blocks reclaimed), ``rebalance`` (both sides billed) and
+   10,000 base docs plus ~30% of the new ones tombstoned, a cascade batch
+   of 64 and an espn batch of 16 mid-churn with no tombstoned id in any
+   answer; the appended bit and FDE tables equal to a rebuild of the grown
+   layout, the grown layout to a pack from scratch and the grown index to
+   the pre-ingest one with ``ivf_add`` replayed, bit for bit; the churned
+   espn answers equal to that rebuild oracle's bit for bit; the churned tier
+   saved in the ``mutation/`` format under ``build/`` and loaded back onto
+   the card (tombstones and segments as saved, an espn and a cascade
+   batch equal to the unsaved tier's in ids, scores and bill, and an
+   ingest and a delete on the loaded pipeline alone giving the ids that
+   follow the unsaved one's and answering no tombstoned id); ``compact``
+   (every tombstone's blocks reclaimed), ``rebalance`` (both sides billed) and
    ``maintain``, each leaving the answers bit for bit; host seconds of
    each step;
-10. agreement: on a small corpus, at the main path's retrieval settings,
+12. agreement: on a small corpus, at the main path's retrieval settings,
    the card path ranks, scores and bills as the CPU path does in every
    mode (``fde`` in both branches, ``cspn`` on a pooled fixed layout), and
    the card builds the FDE table the CPU builds and builds its IVF index
@@ -84,12 +103,12 @@ Phases, each of which must pass:
    and a churn (ingest, delete, compact, ingest, delete, rebalance) on a
    mutable 2 x 2 cluster in every mode gives the CPU's ids, bills, reports
    and counters on the card;
-11. decode path: SmolLM-135M at full width and depth (random weights from a
+13. decode path: SmolLM-135M at full width and depth (random weights from a
    numpy seed), 8 requests of 4,096 tokens prefilled, then 32 greedy
    decode steps over the KV cache, every step's attention on the
    ``flash_decode`` kernel (30 launches a step, 960 in all, or the run
    fails); prefill and step wall, the step's split, tokens/s, peak memory;
-12. decode agreement: the same model in fp32 at 2 layers, its logits and
+14. decode agreement: the same model in fp32 at 2 layers, its logits and
    greedy tokens on the card against the CPU path.
 
 It then prints the card line, the ``{"kernels": [...]}`` line and, last,
@@ -149,7 +168,9 @@ AGREE_TOL = 1e-5    # card path vs CPU path: aggregate scores (~25 in size)
 N_DOCS = 1_000_000  # main-path corpus
 POOL_K = 32         # cspn: benchmarks/bench_constant_space.py's setting,
                     # (128 + 32 * 32) fp16 values = one 4 KiB block a doc
-BATCHES, BATCH_SIZE = 4, 64
+BATCHES, BATCH_SIZE = 2, 64   # espn batches on the main path (4 until the
+                              # encoder and disk_ivf phases came: a depth cut)
+N_QUERIES = 256               # the corpus's queries (the serve phase's 128 +)
 # ESPNConfig's defaults, used by the main path and the agreement phase
 NPROBE, K_CANDIDATES, PREFETCH_STEP = 128, 1000, 0.10
 
@@ -1322,18 +1343,18 @@ def main_path(dev, failures, profile=False) -> dict:
     batches, bs = BATCHES, BATCH_SIZE
     # ColBERTer widths; retrieval at the paper's ESPNConfig defaults and the
     # reference's defaults for the bitvec/fde/cascade knobs, except that the
-    # FDE table is scanned brute force at this size (the default threshold
-    # of 100,000 docs would take the IVF-over-FDEs branch, which runs no
-    # fdescan)
+    # FDE table is scanned brute force at this size, the mutation phase's
+    # grown 1,010,000 docs included (the default threshold of 100,000 docs
+    # would take the IVF-over-FDEs branch, which runs no fdescan)
     cfg = PipelineConfig(
-        corpus=CorpusConfig(n_docs=N_DOCS, n_queries=batches * bs,
+        corpus=CorpusConfig(n_docs=N_DOCS, n_queries=N_QUERIES,
                             d_cls=128, d_bow=32, max_len=180),
         storage=StorageConfig(dtype="float16", t_max=180),
         retrieval=RetrievalConfig(mode="espn", nprobe=NPROBE,
                                   k_candidates=K_CANDIDATES,
                                   prefetch_step=PREFETCH_STEP,
                                   rerank_count=None,
-                                  fde_brute_threshold=N_DOCS))
+                                  fde_brute_threshold=2 * N_DOCS))
     c = cfg.corpus
     t0 = time.perf_counter()
     corpus = make_corpus(n_docs=c.n_docs, n_queries=c.n_queries,
@@ -1446,8 +1467,8 @@ def main_path(dev, failures, profile=False) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phases 5-9: serving the main path's index (persist, serve, faults,
-# cluster, mutation)
+# phases 5-11: serving the main path's index (persist, serve, encoder,
+# disk_ivf, faults, cluster, mutation)
 # ---------------------------------------------------------------------------
 
 SERVE_REQUESTS, SERVE_MAX_BATCH = 128, 32
@@ -1476,7 +1497,12 @@ SERVING_KERNELS = {"persist_espn": IVF_RERANK,
                    "mutation_oracle_espn": IVF_RERANK,
                    "mutation_compacted_espn": IVF_RERANK,
                    "mutation_rebalanced_espn": IVF_RERANK,
-                   "mutation_maintained_espn": IVF_RERANK}
+                   "mutation_loaded_espn": IVF_RERANK,
+                   "mutation_loaded_cascade": PATH_KERNELS["cascade"],
+                   "mutation_loaded_ingest_espn": IVF_RERANK,
+                   "mutation_maintained_espn": IVF_RERANK,
+                   "encoder_serve": IVF_RERANK,
+                   "disk_ivf_search": ("ivf_scan",)}
 MUTATION_PATHS = [p for p in SERVING_KERNELS if p.startswith("mutation_")]
 # the [cluster] phase: the reference's CI scale-out settings (ci.yml), at the
 # main path's size
@@ -1489,6 +1515,9 @@ AUTOSCALE_REQUESTS = 128
 def require_launches(out, failures, *paths):
     """Each of the phase's paths launched every kernel it runs."""
     for path in paths:
+        if path not in out:
+            failures.append(f"{path}: the path did not run")
+            continue
         for name in SERVING_KERNELS[path]:
             if out[path]["launches"][name] <= 0:
                 failures.append(f"{path}: kernel {name} was never launched")
@@ -1515,8 +1544,8 @@ def same_bits(want, got) -> bool:
 
 
 def dir_bytes(path) -> int:
-    return sum(os.path.getsize(os.path.join(path, f))
-               for f in os.listdir(path))
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
 
 
 def persist_phase(dev, failures, out):
@@ -1596,6 +1625,11 @@ def answers_vs_alone(reqs, want):
     return worst, swaps, bad
 
 
+def served_queries(corpus, n=SERVE_REQUESTS):
+    return [(corpus.queries_cls[i], corpus.queries_bow[i],
+             int(corpus.query_lens[i])) for i in range(n)]
+
+
 def serve_phase(dev, failures, out):
     """``RetrievalServer`` on the loaded espn pipeline: 128 requests
     through ``query_async``, each held to ``Pipeline.search`` of its query
@@ -1604,29 +1638,26 @@ def serve_phase(dev, failures, out):
     from repro_torch.serve import workload as W
     from repro_torch.serve.scheduler import BatchPolicy
     corpus, cfg = CTX["corpus"], CTX["cfg"]
-    pipe = CTX.pop("served")
-    n = SERVE_REQUESTS
-    qs = [(corpus.queries_cls[i], corpus.queries_bow[i],
-           int(corpus.query_lens[i])) for i in range(n)]
-    with pipe:
+    pipe = CTX["served"]     # the encoder phase serves it again, then closes
+    qs = served_queries(corpus)
+    n = len(qs)
+    t0 = time.perf_counter()
+    want = [pipe.search(c[None], b[None], np.array([ln], np.int32))
+            for c, b, ln in qs]
+    log(f"  {n} single-query searches in {time.perf_counter() - t0:.2f} s")
+    CTX["alone"] = want      # the encoder's and the cluster phase's servers
+    reset_counts()           # are held to them too
+    srv = pipe.serve(BatchPolicy(max_batch=SERVE_MAX_BATCH,
+                                 max_wait_s=cfg.serve.max_wait_s))
+    try:
         t0 = time.perf_counter()
-        want = [pipe.search(c[None], b[None], np.array([ln], np.int32))
-                for c, b, ln in qs]
-        log(f"  {n} single-query searches in "
-            f"{time.perf_counter() - t0:.2f} s")
-        CTX["alone"] = want      # the cluster phase's server is held to them
-        reset_counts()
-        srv = pipe.serve(BatchPolicy(max_batch=SERVE_MAX_BATCH,
-                                     max_wait_s=cfg.serve.max_wait_s))
-        try:
-            t0 = time.perf_counter()
-            reqs = [srv.query_async(*q) for q in qs]
-            late = [r.rid for r in reqs if not r.done.wait(WAIT_S)]
-            wall = time.perf_counter() - t0
-        finally:
-            srv.shutdown()
-        out["serve"] = {"launches": read_counts(), "wall_s": wall,
-                        "qps": n / wall, "summary": srv.stats.summary()}
+        reqs = [srv.query_async(*q) for q in qs]
+        late = [r.rid for r in reqs if not r.done.wait(WAIT_S)]
+        wall = time.perf_counter() - t0
+    finally:
+        srv.shutdown()
+    out["serve"] = {"launches": read_counts(), "wall_s": wall,
+                    "qps": n / wall, "summary": srv.stats.summary()}
     if late or any(r.error is not None or r.shed for r in reqs):
         failures.append(f"serve: {len(late)} requests not done in "
                         f"{WAIT_S:.0f} s, "
@@ -1690,6 +1721,282 @@ def serve_phase(dev, failures, out):
             failures.append(f"serve: SLO run finished {done} of {w.n}, "
                             f"{st.errors} errors")
     require_launches(out, failures, "serve", "serve_slo50", "serve_slo")
+
+
+# phases 7-8: the encoder in the serving loop, and the disk IVF
+
+ENCODER = "colberter"      # published widths, nothing cut
+ENC_QUERIES, ENC_QUERY_LEN = 64, 32
+ENC_DOCS, ENC_DOC_BATCH = 1_024, 128
+ENC_AGREE = 8              # queries and docs held card vs CPU in fp32
+ENC_TOL, ENC_COS = 1e-4, 0.99
+ENC_REPS = 10              # timed passes (after one warm-up)
+
+
+def encoder_tokens(rng, lens, seq_len, vocab) -> np.ndarray:
+    """Random token ids, [CLS] (0) first, each row ``lens[i]`` long and
+    padded with -1 to ``seq_len``."""
+    toks = rng.integers(1, vocab, (len(lens), seq_len))
+    toks[:, 0] = 0
+    toks[np.arange(seq_len)[None, :] >= np.asarray(lens)[:, None]] = -1
+    return toks.astype(np.int32)
+
+
+def encoder_phase(dev, failures, out):
+    """ColBERTer at its published widths (6 layers, d_model 768, 12 heads,
+    d_ff 3,072, vocab 30,522, CLS 128, BOW 32, docs up to 180 tokens; bf16
+    compute over fp32 masters; random weights from numpy seed 0) on the
+    card: a batch of 64 queries of 32 tokens and 1,024 docs of the
+    corpus's ragged lengths in batches of 128, timed; fp32 on the card held
+    to fp32 on the CPU, bf16 to fp32 by cosine; then 128 requests through
+    the loaded espn server, each query encoded on the card first (as
+    ``examples/espn_serving_torch.py`` does), each answer held to
+    ``search`` of its query alone."""
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.configs import get_config
+    from repro_torch.models import colberter
+    from repro_torch.serve.scheduler import BatchPolicy
+    corpus, cfg = CTX["corpus"], CTX["cfg"]
+    pipe = CTX.pop("served")
+    ecfg = get_config(ENCODER)
+    rng = np.random.default_rng(0)
+    params = numpy_params(colberter.param_table(ecfg), rng)
+    t0 = time.perf_counter()
+    model = convert.colberter_params_from_numpy(params, ecfg, dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    queries = encoder_tokens(rng, np.full(ENC_QUERIES, ENC_QUERY_LEN),
+                             ENC_QUERY_LEN, ecfg.vocab_size)
+    doc_lens = np.minimum(corpus.doc_lens[:ENC_DOCS], ecfg.max_doc_len)
+    docs = encoder_tokens(rng, doc_lens, ecfg.max_doc_len, ecfg.vocab_size)
+    torch.cuda.synchronize()
+    log(f"  {ENCODER}: {ecfg.n_layers} layers, d_model {ecfg.d_model}, "
+        f"{ecfg.n_heads} heads, d_ff {ecfg.d_ff}, vocab {ecfg.vocab_size}, "
+        f"CLS {ecfg.d_cls} / BOW {ecfg.d_bow}; {n_params:,} fp32 params on "
+        f"{dev}, {ecfg.dtype} compute; set up in "
+        f"{time.perf_counter() - t0:.1f} s")
+    res = out["encoder"] = {"n_params": n_params}
+
+    def timed(fn):
+        fn()
+        torch.cuda.synchronize()
+        ms = []
+        for _ in range(ENC_REPS):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(ms)), ms
+
+    def doc_pass():
+        return [colberter.encode(ecfg, model, docs[i:i + ENC_DOC_BATCH])
+                for i in range(0, ENC_DOCS, ENC_DOC_BATCH)]
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    q_ms, q_all = timed(lambda: colberter.encode(ecfg, model, queries))
+    d_ms, d_all = timed(doc_pass)
+    peak = torch.cuda.max_memory_allocated(dev)
+    enc = doc_pass()
+    finite = all(bool(torch.isfinite(t.float()).all()) for c, b, _ in enc
+                 for t in (c, b))
+    shapes = {tuple(c.shape) for c, _, _ in enc} | {
+        tuple(b.shape) for _, b, _ in enc}
+    res.update(query_batch_ms=q_ms, query_batch_ms_all=q_all,
+               doc_pass_ms=d_ms, doc_batch_ms=d_ms / (ENC_DOCS //
+                                                      ENC_DOC_BATCH),
+               docs_per_s=ENC_DOCS / (d_ms / 1e3), peak_bytes=peak,
+               doc_tokens=int(doc_lens.sum()))
+    log(f"  {ENC_QUERIES} queries x {ENC_QUERY_LEN} tokens: {q_ms:.3f} ms a "
+        f"batch (median of {ENC_REPS}); {ENC_DOCS} docs (lengths "
+        f"{int(doc_lens.min())}-{int(doc_lens.max())}, mean "
+        f"{doc_lens.mean():.1f}, padded to {ecfg.max_doc_len}) in batches "
+        f"of {ENC_DOC_BATCH}: {d_ms:.2f} ms a pass, "
+        f"{res['doc_batch_ms']:.3f} ms a batch, {res['docs_per_s']:,.0f} "
+        f"docs/s; peak device memory {peak / 2**30:.2f} GiB; outputs "
+        f"{sorted(shapes)} {'finite' if finite else 'NOT finite'}")
+    if not finite or shapes != {(ENC_DOC_BATCH, ecfg.d_cls),
+                                (ENC_DOC_BATCH, ecfg.max_doc_len,
+                                 ecfg.d_bow)}:
+        failures.append("encoder: outputs not finite or misshapen")
+
+    # fp32 on the card against fp32 on the CPU, and bf16 against fp32
+    f32 = ecfg.scaled(dtype=torch.float32)
+    cpu_model = convert.colberter_params_from_numpy(params, f32, "cpu")
+    worst, low = 0.0, 1.0
+    for what, toks in (("queries", queries[:ENC_AGREE]),
+                       ("docs", docs[:ENC_AGREE])):
+        want = colberter.encode(f32, cpu_model, toks)
+        got = colberter.encode(f32, model, toks)
+        half = colberter.encode(ecfg, model, toks)
+        mask = got[2]
+        worst = max(worst, *(float((g.cpu() - w).abs().max())
+                             for g, w in zip(got[:2], want[:2])))
+        for f, h in ((got[0], half[0]), (got[1][mask], half[1][mask])):
+            low = min(low, float(torch.nn.functional.cosine_similarity(
+                f, h.float(), dim=-1).min()))
+    del cpu_model
+    ok = worst <= ENC_TOL and low >= ENC_COS
+    res.update(fp32_card_vs_cpu=worst, bf16_min_cosine=low)
+    log(f"  {ENC_AGREE} queries and {ENC_AGREE} docs: fp32 on the card vs "
+        f"the CPU max |diff| {worst:.3g} (tol {ENC_TOL}); bf16 vs fp32 on "
+        f"the card min cosine {low:.6f} (>= {ENC_COS}) -> "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("encoder: card vs CPU or bf16 vs fp32 off")
+
+    # the encoder in the serving loop
+    qs, want = served_queries(corpus), CTX["alone"]
+    toks = encoder_tokens(rng, np.full(len(qs), ENC_QUERY_LEN),
+                          ENC_QUERY_LEN, ecfg.vocab_size)
+    with pipe:
+        reset_counts()
+        srv = pipe.serve(BatchPolicy(max_batch=SERVE_MAX_BATCH,
+                                     max_wait_s=cfg.serve.max_wait_s))
+        try:
+            t0 = time.perf_counter()
+            reqs = []
+            for i, q in enumerate(qs):
+                colberter.encode(ecfg, model, toks[i:i + 1])
+                reqs.append(srv.query_async(*q))
+            late = [r.rid for r in reqs if not r.done.wait(WAIT_S)]
+            wall = time.perf_counter() - t0
+        finally:
+            srv.shutdown()
+        out["encoder_serve"] = {"launches": read_counts(), "wall_s": wall,
+                                "qps": len(qs) / wall,
+                                "summary": srv.stats.summary()}
+    del model
+    if late or any(r.error is not None or r.shed for r in reqs):
+        failures.append(f"encoder: {len(late)} served requests late or "
+                        "failed")
+        return
+    worst, swaps, bad = answers_vs_alone(reqs, want)
+    ok = worst == 0.0 and swaps == 0 and bad == 0
+    res["serve_qps"] = len(qs) / wall
+    log(f"  server with the encoder in the loop: {len(qs)} requests in "
+        f"{wall:.2f} s ({len(qs) / wall:.1f} requests/s; without it "
+        f"{out['serve']['qps']:.1f}); each against search of its query "
+        f"alone: max score diff {worst:.3g}, {swaps} swapped ids, {bad} "
+        f"other id differences -> {'ok' if ok else 'FAIL'}; launches "
+        f"{out['encoder_serve']['launches']}")
+    if not ok:
+        failures.append("encoder: served answers differ from search alone")
+    require_launches(out, failures, "encoder_serve")
+
+
+DISK_NPROBE, DISK_K = NPROBE, 1_000     # the paper's nprobe, k = 1,000
+DISK_CACHE_FRAC = 0.10                  # the hot-cell cache: 10% of cells
+DISK_OVERLAP = 0.9                      # of k (the reference test's 18/20)
+
+
+def fresh_disk(disk, cache_cells: int, centroids=None):
+    """A ``DiskIVFIndex`` on the same disk image with an empty cache of
+    ``cache_cells`` and zeroed stats (optionally other centroids)."""
+    import dataclasses
+    from collections import OrderedDict
+    return dataclasses.replace(
+        disk, cache_cells=cache_cells, _cache=OrderedDict(),
+        stats={k: type(v)(0) for k, v in disk.stats.items()},
+        centroids=disk.centroids if centroids is None else centroids)
+
+
+def disk_ivf_phase(dev, failures, out):
+    """The SPANN-style disk IVF over the main path's index: the postings
+    packed into a host disk image (no cache, and a 10% hot-cell cache),
+    the first 64 queries searched at nprobe 128, k 1,000, with the probes
+    on the card (``ivf_scan``) and each query's scores one product on the
+    card; held to the same search on the CPU (bills and stats exactly, ids
+    up to near ties), to the in-memory search (overlap), the memory factor
+    and a fully cached warm pass that bills nothing."""
+    import torch
+
+    from repro_torch.core.disk_ivf import build_disk_ivf, search_disk
+    from repro_torch.core.ivf import search
+    corpus, idx = CTX["corpus"], CTX["index"]
+    q = corpus.queries_cls[:BATCH_SIZE]
+    res = out["disk_ivf"] = {}
+    hot = int(DISK_CACHE_FRAC * idx.ncells)
+    builds = {}
+    for cells in (0, hot):
+        t0 = time.perf_counter()
+        builds[cells] = build_disk_ivf(idx, cache_cells=cells)
+        res[f"build_s_cache{cells}"] = time.perf_counter() - t0
+    disk, cached = builds[0], builds[hot]
+    same_image = disk.blob.tobytes() == cached.blob.tobytes()
+    res.update(blob_bytes=int(disk.blob.nbytes), cache_cells=hot,
+               memory_bytes=disk.memory_bytes(),
+               memory_bytes_cached=cached.memory_bytes(),
+               index_memory_bytes=idx.memory_bytes())
+    log(f"  disk image {disk.blob.nbytes:,} bytes on the host "
+        f"({idx.ncells} cells, built in {res['build_s_cache0']:.2f} s; with "
+        f"a {hot}-cell cache in {res[f'build_s_cache{hot}']:.2f} s, the "
+        f"same image: {same_image}); resident {disk.memory_bytes():,} / "
+        f"{cached.memory_bytes():,} bytes (no cache / cached) vs the "
+        f"in-memory index's {idx.memory_bytes():,}")
+
+    def run(d, what):
+        t0 = time.perf_counter()
+        got = search_disk(d, q, DISK_NPROBE, DISK_K)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        res[f"{what}_wall_s"] = wall
+        res[f"{what}_io_s"] = got[2]
+        log(f"  {what}: batch of {len(q)} in {wall:.3f} s, simulated I/O "
+            f"{got[2] * 1e3:.3f} ms, stats {json.dumps(d.stats)}")
+        return got
+
+    reset_counts()
+    s_card, i_card, io_card = run(disk, "cold")
+    launches = read_counts()
+    cpu = fresh_disk(disk, 0, disk.centroids.cpu())
+    s_cpu, i_cpu, io_cpu = run(cpu, "cpu")
+    _, i_mem = search(idx, q, DISK_NPROBE, DISK_K)
+    i_mem = i_mem.cpu().numpy()
+    overlap = min(len(set(a.tolist()) & set(b.tolist()) - {-1})
+                  for a, b in zip(i_card, i_mem))
+    worst, swaps, bad = 0.0, 0, 0
+    for b in range(len(q)):
+        worst = max(worst, float(np.abs(s_card[b] - s_cpu[b]).max()))
+        for j in np.nonzero(i_card[b] != i_cpu[b])[0]:
+            swaps += 1
+            bad += not any(0 <= n < DISK_K and i_cpu[b][n] == i_card[b][j]
+                           and abs(s_cpu[b][n] - s_cpu[b][j]) <= AGREE_TOL
+                           for n in (j - 1, j + 1))
+    same_bill = io_card == io_cpu and disk.stats == cpu.stats
+    res.update(card_vs_cpu={"max_score_diff": worst, "swaps": swaps,
+                            "other": bad, "same_bill": same_bill},
+               min_overlap=overlap)
+    ok = same_bill and worst <= AGREE_TOL and bad == 0 and same_image
+    log(f"  card vs CPU: bill and stats {'equal' if same_bill else 'DIFFER'}"
+        f", max score diff {worst:.3g}, {swaps} swapped ids, {bad} other id "
+        f"differences -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("disk_ivf: the card's search differs from the CPU's")
+    ok = overlap >= DISK_OVERLAP * DISK_K
+    log(f"  overlap with the in-memory search: at least {overlap} of "
+        f"{DISK_K} ids a query (>= {DISK_OVERLAP * DISK_K:.0f}) -> "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("disk_ivf: overlap with the in-memory search")
+    ok = cached.memory_bytes() < idx.memory_bytes() / 20
+    log(f"  memory factor {idx.memory_bytes() / cached.memory_bytes():.1f}x "
+        f"with the cache (> 20) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("disk_ivf: resident bytes not below 1/20")
+    for what in ("hot_cold", "hot_warm"):
+        run(cached, what)
+    full = fresh_disk(disk, idx.ncells)
+    for what in ("full_cold", "full_warm"):
+        run(full, what)
+    ok = res["full_warm_io_s"] == 0.0 and full.stats["cache_hits"] > 0
+    log(f"  every cell cached: warm pass bills {res['full_warm_io_s']} s "
+        f"-> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("disk_ivf: the fully cached pass billed I/O")
+    out["disk_ivf_search"] = {"launches": launches}
+    log(f"  launches {launches}")
+    require_launches(out, failures, "disk_ivf_search")
 
 
 def faults_phase(dev, failures, out):
@@ -1984,14 +2291,133 @@ CHECK_QUERIES = 16      # the post-compaction checks' batch (each answer is
                         # the same bits as in a batch of 64: run AF)
 
 
+RELOAD_INGEST, RELOAD_DELETES = 500, 1_000   # the loaded pipeline's own churn
+
+
+def save_and_load_mutable(pipe, dev, failures, res, out, q, check,
+                          alive_only):
+    """Save the churned mutable cluster (segments and tombstones on every
+    shard) under ``build/``, load it onto the card, and hold the loaded
+    pipeline to the unsaved one: the tombstone mask and segment counts
+    equal, an espn and a cascade batch equal in ids, scores and bill (each
+    on a fresh ``with_mode`` view of either tier, so both bill from the
+    same clock state), then one ingest and one delete on the loaded
+    pipeline alone: its new ids follow the unsaved pipeline's last one,
+    and no tombstoned id is answered. The unsaved pipeline is not
+    touched."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.data.synthetic import make_corpus
+    from repro_torch.pipeline import Pipeline
+    t = pipe.tier
+    need = (2 * t.layout.nbytes + pipe.index.memory_bytes()
+            + t.bits.nbytes + t.fde.nbytes)
+    root = tempfile.mkdtemp(prefix="mutation-",
+                            dir=os.path.join(ROOT, "build"))
+    free = shutil.disk_usage(root).free
+    log(f"  save: to write ~{need / 2**30:.2f} GiB; {free / 2**30:.1f} GiB "
+        f"free under {os.path.relpath(root, ROOT)}")
+    if free < 1.2 * need:
+        shutil.rmtree(root, ignore_errors=True)
+        failures.append(f"mutation: save: {free / 2**30:.1f} GiB free, "
+                        f"{need / 2**30:.2f} GiB needed")
+        return
+    try:
+        t0 = time.perf_counter()
+        pipe.save(root)
+        t_save = time.perf_counter() - t0
+        n_bytes = dir_bytes(root)
+        files = sorted(os.listdir(os.path.join(root, "mutation")))
+        t0 = time.perf_counter()
+        loaded = Pipeline.load(root, device=dev)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    n_seg = sum(len(x) for x in t.segments)
+    want_files = {"state.npz"} | {f"shard_{s}.npz" for s in
+                                  range(t.n_shards)} | {
+        f"seg_{s}_{k}.npz" for s in range(t.n_shards)
+        for k in range(len(t.segments[s]))}
+    res["save_load"] = {"bytes": n_bytes, "save_s": t_save,
+                        "load_s": t_load, "free_bytes": free,
+                        "files": len(files)}
+    with loaded:
+        lt = loaded.tier
+        check("mutation_saved",
+              {f for f in files if f.endswith(".npz")} == want_files
+              and np.array_equal(lt.alive, t.alive)
+              and [len(x) for x in lt.segments] == [len(x) for x in
+                                                    t.segments]
+              and loaded.device.type == "cuda"
+              and lt.fde.vecs.device.type == "cuda",
+              f"saved {n_bytes:,} bytes ({len(want_files)} npz under "
+              f"mutation/: {t.n_shards} shard images, {n_seg} segments, the "
+              f"state) in {t_save:.2f} s, loaded onto {loaded.device} in "
+              f"{t_load:.2f} s: {int((~lt.alive).sum()):,} tombstones and "
+              f"segments per shard {[len(x) for x in lt.segments]} as "
+              f"saved")
+        for mode in ("espn", "cascade"):
+            path = f"mutation_loaded_{mode}"
+            with pipe.with_mode(mode) as a, loaded.with_mode(mode) as b:
+                want = a.search(*q)
+                reset_counts()
+                t0 = time.perf_counter()
+                got = b.search(*q)
+                res[path] = {"launches": read_counts(),
+                             "wall_s": time.perf_counter() - t0}
+            out[path] = {"launches": res[path]["launches"]}
+            check(path, same_bits(want, got),
+                  f"loaded {mode} batch of {BATCH_SIZE} vs the unsaved "
+                  f"tier's: ids, scores and bill bit for bit (wall "
+                  f"{res[path]['wall_s']:.2f} s)")
+        new = make_corpus(n_docs=RELOAD_INGEST, n_queries=1,
+                          d_cls=t.layout.d_cls, d_bow=t.layout.d_bow,
+                          max_len=CTX["cfg"].corpus.max_len,
+                          seed=INGEST_SEED + 1)
+        rng = np.random.default_rng(INGEST_SEED + 1)
+        n0, alive0 = t.layout.n_docs, t.alive.copy()
+        t0 = time.perf_counter()
+        gids = loaded.ingest(new.cls.astype(np.float32), new.bow)
+        torch.cuda.synchronize()
+        t_ingest = time.perf_counter() - t0
+        live = np.flatnonzero(lt.alive)
+        dead = np.concatenate([gids[::2], rng.choice(live, RELOAD_DELETES,
+                                                     replace=False)])
+        loaded.delete(np.unique(dead))
+        path = "mutation_loaded_ingest_espn"
+        with loaded.with_mode("espn") as b:
+            reset_counts()
+            t0 = time.perf_counter()
+            got = b.search(*first_queries(CTX["corpus"], CHECK_QUERIES))
+            res[path] = {"launches": read_counts(),
+                         "wall_s": time.perf_counter() - t0}
+        out[path] = {"launches": res[path]["launches"]}
+        follows = np.array_equal(gids, n0 + np.arange(RELOAD_INGEST))
+        untouched = t.layout.n_docs == n0 and np.array_equal(t.alive, alive0)
+        check(path, follows and untouched
+              and alive_only(got, lt.alive, path),
+              f"loaded pipeline alone: ingest of {RELOAD_INGEST} docs in "
+              f"{t_ingest:.2f} s, ids {int(gids[0]):,}-{int(gids[-1]):,} "
+              f"(the unsaved pipeline's last is {n0 - 1:,}); "
+              f"{len(np.unique(dead)):,} more tombstones; espn batch of "
+              f"{CHECK_QUERIES} with no tombstoned id (wall "
+              f"{res[path]['wall_s']:.2f} s); the unsaved tier untouched")
+    res["save_load"]["reload_ingest_s"] = t_ingest
+
+
 def mutation_phase(dev, failures, out):
     """Live mutation on the main path's 1M-doc artifacts (nothing rebuilt
     or cut) through ``MutableStorageCluster``: an unmutated 1x1 mutable
     cluster against the single tier; then, on 4 shards x 2 replicas,
     ingests, deletes, espn and cascade batches mid-churn, the side tables
     and the grown layout and index against a rebuild, the churned espn
-    answers against a rebuild oracle, and compact, rebalance and maintain
-    with the answers held."""
+    answers against a rebuild oracle, a save and load of the churned tier
+    in the ``mutation/`` format, and compact, rebalance and maintain with
+    the answers held."""
     import dataclasses
 
     import torch
@@ -2102,11 +2528,13 @@ def mutation_phase(dev, failures, out):
                       f", {int((~alive).sum()):,} tombstones): no "
                       f"tombstoned id in any answer (wall "
                       f"{res['mutation_cascade']['wall_s']:.2f} s)")
-                got = espn_batch(pipe, "mutation_espn")
+                # 16 queries (64 until the encoder and disk_ivf phases
+                # came: a depth cut)
+                got = espn_batch(pipe, "mutation_espn", q16)
                 check("mutation_espn", alive_only(got, alive,
                                                   "mutation_espn"),
-                      f"espn batch of {BATCH_SIZE} mid-churn: no tombstoned "
-                      f"id in any answer (wall "
+                      f"espn batch of {CHECK_QUERIES} mid-churn: no "
+                      f"tombstoned id in any answer (wall "
                       f"{res['mutation_espn']['wall_s']:.2f} s)")
         t = pipe.tier
         alive = t.alive.copy()
@@ -2182,6 +2610,11 @@ def mutation_phase(dev, failures, out):
               f"{'equal' if same_layout else 'DIFFERS'}): ids and scores "
               f"bit for bit")
         before = got
+
+        # 4b) the churned tier saved in the mutation/ format, loaded back
+        #     onto the card, and mutated on its own
+        save_and_load_mutable(pipe, dev, failures, res, out, q, check,
+                              alive_only)
 
         # 5) compaction: every dead row's blocks reclaimed, answers held
         phys = sum(t._shard_disk_blocks(s) for s in range(t.n_shards))
@@ -2259,7 +2692,7 @@ def free_main_path():
 
 
 # ---------------------------------------------------------------------------
-# phase 10: the card path agrees with the CPU path on a small input
+# phase 12: the card path agrees with the CPU path on a small input
 # ---------------------------------------------------------------------------
 
 def same_ranking(want, got):
@@ -2685,29 +3118,30 @@ def agreement_mutation(dev, failures, base, corpus, index, ragged, fixed,
 
 
 # ---------------------------------------------------------------------------
-# phases 11-12: the LM serving path (prefill, then KV-cache decode)
+# phases 13-14: the LM serving path (prefill, then KV-cache decode)
 # ---------------------------------------------------------------------------
 
 LM = "smollm-135m"              # full width and depth
 DECODE_BATCH, PROMPT_LEN, DECODE_STEPS = 8, 4096, 32
 
 
-def numpy_params(cfg, rng) -> dict:
+def numpy_params(table, rng) -> dict:
     """The reference's init from a numpy generator, in its sorted name
-    order: LeCun-normal dense weights, N(0, 0.02) embedding, ones for the
-    norms, zeros for the biases; nested as the reference's params."""
-    from repro_torch.models.transformer import param_table
-    out: dict = {"layers": {}}
-    for name, (shape, kind) in sorted(param_table(cfg).items()):
+    order over ``table`` (a model's ``param_table``): LeCun-normal dense
+    weights, N(0, 0.02) embeddings, ones for the norms, zeros for the
+    biases; nested by "/" as the reference's params."""
+    out: dict = {}
+    for name, (shape, kind) in sorted(table.items()):
         if kind in ("ones", "zeros"):
             a = np.full(shape, kind == "ones", np.float32)
         else:
             std = 0.02 if kind == "embed" else 1 / np.sqrt(shape[-2])
             a = rng.standard_normal(shape, dtype=np.float32) * np.float32(std)
-        if name.startswith("layers/"):
-            out["layers"][name.split("/", 1)[1]] = a
-        else:
-            out[name] = a
+        *parents, leaf = name.split("/")
+        d = out
+        for p in parents:
+            d = d.setdefault(p, {})
+        d[leaf] = a
     return out
 
 
@@ -2733,8 +3167,8 @@ def decode_path(dev, failures) -> dict:
     rng = np.random.default_rng(0)
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    model = convert.transformer_params_from_numpy(numpy_params(cfg, rng), cfg,
-                                                  dev)
+    model = convert.transformer_params_from_numpy(
+        numpy_params(transformer.param_table(cfg), rng), cfg, dev)
     n_params = sum(p.numel() for p in model.parameters())
     prompts = torch.tensor(rng.integers(0, cfg.vocab_size, (b, PROMPT_LEN)),
                            device=dev)
@@ -2824,7 +3258,7 @@ def decode_agreement(dev, failures):
     cfg = get_config(LM).scaled(n_layers=2, dtype=torch.float32)
     b, prompt_len, steps, tol = 2, 64, 8, 1e-4
     rng = np.random.default_rng(1)
-    params = numpy_params(cfg, rng)
+    params = numpy_params(transformer.param_table(cfg), rng)
     prompt = rng.integers(0, cfg.vocab_size, (b, prompt_len))
     runs = {}
     for where in (dev, torch.device("cpu")):
@@ -2937,6 +3371,8 @@ def main(argv=None) -> int:
                   path=main_path(dev, failures, args.profile))),
               ("persist", lambda: persist_phase(dev, failures, serving)),
               ("serve", lambda: serve_phase(dev, failures, serving)),
+              ("encoder", lambda: encoder_phase(dev, failures, serving)),
+              ("disk_ivf", lambda: disk_ivf_phase(dev, failures, serving)),
               ("faults", lambda: faults_phase(dev, failures, serving)),
               ("cluster", lambda: cluster_phase(dev, failures, serving)),
               ("mutation", lambda: (mutation_phase(dev, failures, serving),

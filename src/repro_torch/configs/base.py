@@ -1,8 +1,10 @@
-"""Transformer LM config and a small registry.
+"""Model configs (the transformer LM, the ColBERTer encoder) and a small
+registry.
 
-The reference's ``TransformerConfig`` with torch dtypes and without the
-knobs that only change how XLA lowers the model (sharding axes, layer scan,
-remat, the one-hot cache write, unrolled chunk loops): the port runs one
+The reference's ``TransformerConfig`` and ``ColberterConfig`` with torch
+dtypes and without the knobs that only change how XLA lowers the model
+(sharding axes, layer scan, remat, the one-hot cache write, unrolled chunk
+loops, a sharded encode, a reduced-precision score block): the port runs one
 device and computes the reference's default numerics (fp32 attention scores,
 every kv chunk visited).
 """
@@ -54,6 +56,33 @@ class TransformerConfig:
         return dataclasses.replace(self, **kw)
 
 
+@dataclass(frozen=True)
+class ColberterConfig:
+    """Late-interaction dual-head encoder (the paper's own model family):
+    a distilBERT-like backbone, a single-vector CLS head (candidate
+    generation) and a per-token BOW head (MaxSim re-ranking)."""
+    name: str = "colberter"
+    family: str = "retrieval"
+    n_layers: int = 6                # distilBERT-like
+    d_model: int = 768
+    n_heads: int = 12
+    n_kv_heads: int = 12
+    d_ff: int = 3072
+    vocab_size: int = 30_522
+    d_cls: int = 128                 # single-vector head dim
+    d_bow: int = 32                  # multi-vector (token) head dim
+    max_doc_len: int = 180
+    max_query_len: int = 32
+    dtype: Any = torch.bfloat16      # activation/compute dtype
+    param_dtype: Any = torch.float32
+    norm_eps: float = 1e-12
+    attn_chunk: int = 512
+    qkv_bias: bool = True
+
+    def scaled(self, **kw) -> "ColberterConfig":
+        return dataclasses.replace(self, **kw)
+
+
 _REGISTRY: dict[str, Callable[[], Any]] = {}
 
 
@@ -66,7 +95,8 @@ def register(name: str):
 
 def get_config(name: str):
     if name not in _REGISTRY:
-        from repro_torch.configs import smollm_135m  # noqa: F401  (registers)
+        from repro_torch.configs import (colberter,  # noqa: F401  (registers)
+                                         smollm_135m)
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")
     return _REGISTRY[name]()

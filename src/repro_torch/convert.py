@@ -4,8 +4,8 @@ Every function takes plain numpy arrays — the fields the reference's
 ``IVFIndex``, ``EmbeddingLayout``, ``BitTable`` and ``FDETable`` hold, under
 the names its ``.npz`` artifacts use — so a mapping from ``np.load`` of a
 saved ``index.npz`` / ``layout.npz`` / ``bits.npz`` / ``fde.npz`` works as
-well as a dict built in memory; and the transformer's nested parameter
-dict.
+well as a dict built in memory; and the transformer's and the ColBERTer
+encoder's nested parameter dicts.
 """
 from __future__ import annotations
 
@@ -13,8 +13,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.fde import FDEConfig, FDETable
-from repro_torch.configs.base import TransformerConfig
+from repro_torch.configs.base import ColberterConfig, TransformerConfig
 from repro_torch.core.ivf import IVFIndex
+from repro_torch.models import colberter
 from repro_torch.models.transformer import TransformerLM, param_table
 from repro_torch.storage.layout import BitTable, EmbeddingLayout
 
@@ -95,19 +96,43 @@ def transformer_params_from_numpy(params, cfg: TransformerConfig,
     dict (``embed``, ``final_norm``, [``lm_head``,] ``layers/{wq, ...}``,
     numpy arrays of the reference's shapes), on ``device`` in
     ``cfg.param_dtype``. A missing, extra or misshapen array raises."""
-    flat = {k: v for k, v in params.items() if k != "layers"}
-    flat.update({f"layers/{k}": v for k, v in params.get("layers",
-                                                         {}).items()})
-    table = param_table(cfg)
+    return _fill(TransformerLM(cfg, device), param_table(cfg), params,
+                 cfg.name)
+
+
+def colberter_params_from_numpy(params, cfg: ColberterConfig,
+                                device) -> colberter.Colberter:
+    """The ColBERTer encoder with the weights of the reference's nested
+    parameter dict (``embed``, ``pos_embed``, ``embed_norm/{scale,bias}``,
+    ``layers/{wq, ..., ln1/scale, ...}``, ``cls_head``, ``bow_head``,
+    ``score_scale``; numpy arrays of the reference's shapes), on ``device``
+    in ``cfg.param_dtype``. A missing, extra or misshapen array raises."""
+    return _fill(colberter.Colberter(cfg, device), colberter.param_table(cfg),
+                 params, cfg.name)
+
+
+def _flatten(tree, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flatten(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def _fill(model, table: dict, params, what: str):
+    """Copy the nested dict ``params`` into ``model``'s parameters, whose
+    names and shapes ``table`` lists ("/"-joined)."""
+    flat = _flatten(params)
     if set(flat) != set(table):
-        raise ValueError(f"parameter names differ from {cfg.name}'s: missing "
+        raise ValueError(f"parameter names differ from {what}'s: missing "
                          f"{sorted(set(table) - set(flat))}, extra "
                          f"{sorted(set(flat) - set(table))}")
-    model = TransformerLM(cfg, device)
     with torch.no_grad():
         for name, (shape, _) in table.items():
             a = np.asarray(flat[name])
-            if a.shape != shape:
+            if a.shape != tuple(shape):
                 raise ValueError(f"{name}: shape {a.shape}, expected {shape}")
             model.get_parameter(name.replace("/", ".")).copy_(
                 torch.tensor(a))

@@ -1,4 +1,5 @@
-"""Shared layers of the transformer: initializers, RMSNorm, the SwiGLU MLP.
+"""Shared layers of the models: initializers, RMSNorm and LayerNorm, the
+SwiGLU and GELU MLPs.
 
 Parameters are fp32 masters; compute casts them to the activation dtype
 (bf16 by default), with the rounding points of the reference's layers.
@@ -32,6 +33,26 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
     var = x.float().square().mean(dim=-1, keepdim=True)
     inv = torch.rsqrt(var + eps).to(x.dtype)
     return (x * inv) * scale.to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-12):
+    """LayerNorm in fp32 (population variance), cast back to x's dtype, as
+    in the reference; not ``F.layer_norm`` in the compute dtype."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    d = xf - mu
+    var = d.square().mean(dim=-1, keepdim=True)
+    y = d * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(x.dtype)
+
+
+def gelu_mlp(x, w1, b1, w2, b2):
+    """The encoder's FFN: tanh-approximate GELU (the reference's
+    ``jax.nn.gelu(approximate=True)``, not torch's default erf form);
+    weights and biases already in the compute dtype."""
+    h = F.gelu(x @ w1 + b1, approximate="tanh")
+    return h @ w2 + b2
 
 
 def swiglu_mlp(x, w_gate, w_up, w_down):

@@ -11,12 +11,12 @@ from repro_torch.pipeline.backends import (RetrievalBackend,
 from repro_torch.pipeline.config import (ClusterConfig, CorpusConfig,
                                          IndexConfig, MutationConfig,
                                          PipelineConfig, RetrievalConfig,
-                                         StorageConfig)
+                                         ServeConfig, StorageConfig)
 from repro_torch.pipeline.pipeline import Pipeline
 
 __all__ = [
     "Pipeline", "PipelineConfig", "CorpusConfig", "IndexConfig",
     "StorageConfig", "RetrievalConfig", "ClusterConfig", "MutationConfig",
-    "RetrievalBackend",
+    "ServeConfig", "RetrievalBackend",
     "register_backend", "get_backend", "available_backends",
 ]

@@ -28,9 +28,9 @@ tier, and ``cfg.obs`` a tracer to the whole stack. ``cfg.mutation`` builds
 the ``MutableStorageCluster`` (even on one shard and one replica: the
 segment machinery lives there), and ``ingest``/``delete``/``compact``/
 ``rebalance``/``maintain`` change the index while it serves; ``ingest``
-also adds the new docs to the IVF index on its device. Saving or loading a
-mutable tier (the reference's ``mutation/`` directory) is not ported yet:
-it raises ``NotImplementedError``.
+also adds the new docs to the IVF index on its device. ``save``/``load``
+keep a mutable tier in the reference's ``mutation/`` directory (each
+shard's base image, its append segments and the tombstone mask).
 """
 from __future__ import annotations
 
@@ -59,6 +59,7 @@ from repro_torch.storage.layout import (LAYOUT_MODES, BitTable,
                                         EmbeddingLayout, bits_from_layout,
                                         pack)
 from repro_torch.storage.mutation import MutableStorageCluster
+from repro_torch.storage.segments import Segment
 
 
 def _pack_layout(cfg: PipelineConfig, cls_embs: np.ndarray,
@@ -80,13 +81,6 @@ def _pack_layout(cfg: PipelineConfig, cls_embs: np.ndarray,
                     checksum=cfg.faults.checksum)
     return pack(cls_embs, bow_embs, dtype=np.dtype(s.dtype), block=s.block,
                 checksum=cfg.faults.checksum)
-
-
-def _unported_mutation_dir(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} a mutable tier needs the reference's mutation/ directory "
-        "(base shard images, segments, tombstones), which the port does not "
-        "have yet (ROADMAP Queue A item 3, the mutation/ save format)")
 
 
 class Pipeline:
@@ -429,13 +423,11 @@ class Pipeline:
     # -- persistence ---------------------------------------------------------
     def save(self, out_dir: str) -> str:
         """Write ``config.json``, the index, the layout (with its record
-        checksums), the corpus when one is attached, the resident tables
-        this pipeline carries and a sharded cluster's ``shards/``
-        sub-layouts, in the reference's format. A mutable tier raises
-        ``NotImplementedError`` (its ``mutation/`` directory is not ported
-        yet)."""
-        if isinstance(self.tier, MutableStorageCluster):
-            raise _unported_mutation_dir("saving")
+        checksums), the corpus when one is attached and the resident tables
+        this pipeline carries, in the reference's format; a mutable tier
+        adds its ``mutation/`` directory (the tombstone mask and segment
+        counts, each shard's base image, each segment), a sharded cluster
+        its ``shards/`` sub-layouts."""
         os.makedirs(out_dir, exist_ok=True)
         with open(os.path.join(out_dir, "config.json"), "w") as f:
             json.dump(self.cfg.to_dict(), f, indent=1)
@@ -450,7 +442,26 @@ class Pipeline:
         if self.tier.fde is not None:
             persist.save_fde(self.tier.fde,
                              os.path.join(out_dir, "fde.npz"))
-        if isinstance(self.tier, StorageCluster) and self.tier.n_shards > 1:
+        if isinstance(self.tier, MutableStorageCluster):
+            # the mutation state replaces the plain shards/ directory: the
+            # base sub-layouts have diverged from a fresh partition (ingest,
+            # compaction, migration), so every shard keeps its base image,
+            # its append segments, and the tombstone mask rides along
+            t = self.tier
+            mdir = os.path.join(out_dir, "mutation")
+            os.makedirs(mdir, exist_ok=True)
+            persist.atomic_savez(
+                os.path.join(mdir, "state.npz"), alive=t.alive,
+                seg_counts=np.array([len(s) for s in t.segments], np.int64))
+            for s, sh in enumerate(t.shards):
+                persist.save_shard_layout(
+                    sh.layout, t.shard_ids[s],
+                    os.path.join(mdir, f"shard_{s}.npz"))
+                for k, seg in enumerate(t.segments[s]):
+                    persist.save_shard_layout(
+                        seg.layout, seg.global_ids,
+                        os.path.join(mdir, f"seg_{s}_{k}.npz"))
+        elif isinstance(self.tier, StorageCluster) and self.tier.n_shards > 1:
             shard_dir = os.path.join(out_dir, "shards")
             os.makedirs(shard_dir, exist_ok=True)
             for s, sh in enumerate(self.tier.shards):
@@ -465,14 +476,12 @@ class Pipeline:
              device: str | torch.device = "cuda") -> "Pipeline":
         """Rebuild a saved stack (this package's or the reference's) on
         ``device`` without re-clustering or re-packing. ``mode`` overrides
-        the saved retrieval backend. A saved mutable tier raises
-        ``NotImplementedError`` (its ``mutation/`` directory is not ported
-        yet)."""
+        the saved retrieval backend. A saved mutable tier comes back with
+        its shard images, segments and tombstones, and goes on mutating
+        from the grown doc-id space."""
         dev = resolve_device(device)
         with open(os.path.join(out_dir, "config.json")) as f:
             cfg = PipelineConfig.from_dict(json.load(f))
-        if cfg.mutation.active():
-            raise _unported_mutation_dir("loading")
         if mode is not None:
             cfg.retrieval.mode = mode
         index = persist.load_index(os.path.join(out_dir, "index.npz"), dev)
@@ -481,10 +490,22 @@ class Pipeline:
         def optional(name, loader, *args):
             path = os.path.join(out_dir, name)
             return loader(path, *args) if os.path.exists(path) else None
-        shard_layouts = None
-        if cfg.cluster.enabled():
-            paths = [os.path.join(out_dir, "shards", f"shard_{s}.npz")
-                     for s in range(cfg.cluster.n_shards)]
+        shard_layouts = segments = alive = None
+        mdir = os.path.join(out_dir, "mutation")
+        shard_dir = os.path.join(out_dir, "shards")
+        n_shards = cfg.cluster.n_shards
+        if cfg.mutation.active() and os.path.isdir(mdir):
+            z = persist.verified_load(os.path.join(mdir, "state.npz"))
+            alive, seg_counts = z["alive"], z["seg_counts"]
+            shard_layouts = [persist.load_shard_layout(
+                os.path.join(mdir, f"shard_{s}.npz")) for s in range(n_shards)]
+            segments = [[Segment(*persist.load_shard_layout(
+                            os.path.join(mdir, f"seg_{s}_{k}.npz")))
+                         for k in range(int(seg_counts[s]))]
+                        for s in range(n_shards)]
+        elif cfg.cluster.enabled() and os.path.isdir(shard_dir):
+            paths = [os.path.join(shard_dir, f"shard_{s}.npz")
+                     for s in range(n_shards)]
             if all(os.path.exists(p) for p in paths):
                 shard_layouts = [persist.load_shard_layout(p) for p in paths]
         return cls._assemble(cfg, optional("corpus.npz", persist.load_corpus),
@@ -492,7 +513,8 @@ class Pipeline:
                              compute=compute,
                              bits=optional("bits.npz", persist.load_bits),
                              fde=optional("fde.npz", persist.load_fde, dev),
-                             shard_layouts=shard_layouts)
+                             shard_layouts=shard_layouts,
+                             segments=segments, alive=alive)
 
     # -- replica control ------------------------------------------------------
     def kill_replica(self, shard: int, replica: int) -> None:

@@ -43,6 +43,16 @@ class StorageSpec:
     def scaled(self, **kw) -> "StorageSpec":
         return replace(self, **kw)
 
+    def raid0(self, n_drives: int) -> "StorageSpec":
+        """Paper §7: GDS RAID-0 across drives multiplies random IOPS and
+        bandwidth; n independent device queues also multiply the aggregate
+        service rate (modelled as device_latency/n). The per-batch latency
+        floor (base_latency) is unchanged."""
+        return replace(self, name=f"{self.name}-raid0x{n_drives}",
+                       rand_iops=self.rand_iops * n_drives,
+                       seq_bw=self.seq_bw * n_drives,
+                       device_latency_s=self.device_latency_s / n_drives)
+
 
 # PM983 (paper's SSD): PCIe3 x4, ~3.0 GB/s seq read, ~540K 4K IOPS, ~90us lat.
 PM983_PCIE3 = StorageSpec("pm983-pcie3", 20e-6, 90e-6, 540_000, 3.0e9)

@@ -391,3 +391,138 @@ def test_churned_pipeline_equals_its_rebuild_on_the_card(card):
         assert np.array_equal(w.doc_ids, g.doc_ids)
         assert np.array_equal(w.scores, g.scores)
         assert alive[g.doc_ids].all()
+
+
+@pytest.mark.cuda
+def test_mutable_save_and_load_round_trip_on_the_card(card, tmp_path):
+    """A mutable 2 x 2 cascade pipeline on the card, saved mid-churn (one
+    shard compacted, the other holding its segment, tombstones in both),
+    loads back onto the card with the same tombstones and segments; its
+    cascade and espn answers and bills equal the unsaved pipeline's bit
+    for bit, and an ingest and a delete on each give the same ids and the
+    same answers after."""
+    import os
+
+    from repro_torch.data.synthetic import make_corpus
+    from repro_torch.pipeline import (MutationConfig, Pipeline,
+                                      PipelineConfig)
+    c = make_corpus(n_docs=3_000, n_queries=16, n_clusters=16, seed=13)
+    cfg = PipelineConfig()
+    cfg.index.ncells = 32
+    cfg.retrieval.mode = "cascade"
+    cfg.retrieval.nprobe, cfg.retrieval.k_candidates = 16, 100
+    cfg.mutation = MutationConfig(enabled=True)
+    cfg.cluster.n_shards, cfg.cluster.replication = 2, 2
+    rng = np.random.default_rng(14)
+
+    def docs(n):
+        cls = rng.standard_normal((n, c.cls.shape[1])).astype(np.float32)
+        cls /= np.linalg.norm(cls, axis=1, keepdims=True)
+        return cls, [rng.standard_normal((int(rng.integers(3, 40)),
+                                          c.bow[0].shape[1])).astype(
+                                              np.float32) for _ in range(n)]
+
+    def same(a, b):
+        assert a.breakdown.as_dict() == b.breakdown.as_dict()
+        for w, g in zip(a.ranked, b.ranked):
+            assert np.array_equal(w.doc_ids, g.doc_ids)
+            assert np.array_equal(w.scores, g.scores)
+
+    q = (c.queries_cls, c.queries_bow, c.query_lens)
+    with Pipeline.build(cfg, corpus=c, device=card) as pipe:
+        gids = np.concatenate([pipe.ingest(*docs(40)) for _ in (0, 1)])
+        pipe.delete(np.concatenate([gids[::3], [0, 7, 11]]))
+        pipe.compact(shard=0)
+        assert [len(s) for s in pipe.tier.segments] == [0, 1]
+        out = pipe.save(str(tmp_path / "art"))
+        assert os.path.isdir(os.path.join(out, "mutation"))
+        with Pipeline.load(out, device=card) as back:
+            assert back.device.type == back.tier.fde.vecs.device.type \
+                == torch.device(card).type
+            np.testing.assert_array_equal(back.tier.alive, pipe.tier.alive)
+            assert [len(s) for s in back.tier.segments] == [0, 1]
+            same(pipe.search(*q), back.search(*q))
+            with pipe.with_mode("espn") as a, back.with_mode("espn") as b:
+                same(a.search(*q), b.search(*q))
+            new = docs(5)
+            more = pipe.ingest(*new)
+            np.testing.assert_array_equal(back.ingest(*new), more)
+            assert more[0] == gids[-1] + 1
+            for p in (pipe, back):
+                p.delete(more[:2])
+            got = back.search(*q)
+            same(pipe.search(*q), got)
+            for r in got.ranked:
+                assert back.tier.alive[r.doc_ids].all()
+
+
+def assert_near_ties(want_ids, want_s, got_ids, got_s, tol=1e-5):
+    """ids equal up to neighbours whose scores lie within ``tol`` trading
+    places; scores within ``tol``."""
+    np.testing.assert_allclose(got_s, want_s, rtol=0, atol=tol)
+    for j in np.nonzero(want_ids != got_ids)[0]:
+        assert any(0 <= n < len(want_ids) and want_ids[n] == got_ids[j]
+                   and abs(want_s[n] - want_s[j]) <= tol
+                   for n in (j - 1, j + 1)), j
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", ["fp32", "int8"])
+def test_disk_search_on_the_card_equals_the_cpu(card, quant):
+    """The disk IVF over the same index: the image built from the card's
+    copy is the CPU's byte for byte; ``search_disk`` (probes by the
+    ``ivf_scan`` kernel, scores one product a query on the card) bills and
+    counts exactly as on the CPU, cold and warm, with the CPU's ids up to
+    near ties and its scores within 1e-5."""
+    from repro_torch.core.disk_ivf import build_disk_ivf, search_disk
+    from repro_torch.core.ivf import build_ivf
+    from repro_torch.data.synthetic import make_corpus
+    from repro_torch.kernels.ivf_scan.ops import centroid_scores
+    c = make_corpus(n_docs=8_000, n_queries=24, n_clusters=32,
+                    with_bow=False, seed=15)
+    cpu_index = build_ivf(c.cls, ncells=64, iters=4, quant=quant,
+                          device="cpu")
+    on_cpu = build_disk_ivf(cpu_index, cache_cells=8)
+    on_card = build_disk_ivf(cpu_index.to(card), cache_cells=8)
+    assert on_card.centroids.device.type == torch.device(card).type
+    assert on_card.blob.tobytes() == on_cpu.blob.tobytes()
+    assert on_card.memory_bytes() == on_cpu.memory_bytes()
+    before = centroid_scores.launches
+    for _ in range(2):
+        ws, wi, wio = search_disk(on_cpu, c.queries_cls, nprobe=16, k=200)
+        gs, gi, gio = search_disk(on_card, c.queries_cls, nprobe=16, k=200)
+        assert gio == wio and on_card.stats == on_cpu.stats
+        for b in range(len(wi)):
+            assert_near_ties(wi[b], ws[b], gi[b], gs[b])
+    assert centroid_scores.launches == before + 2
+
+
+@pytest.mark.cuda
+def test_encoder_on_the_card_equals_the_cpu(card):
+    """The ColBERTer encoder (2 layers at the published widths) from the
+    same weights: fp32 on the card within 1e-4 of fp32 on the CPU, pads
+    and all; bf16 on the card at cosine >= 0.99 a vector to fp32."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import colberter
+    cfg = get_config("colberter").scaled(n_layers=2, dtype=torch.float32)
+    cpu = colberter.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    on_card = colberter.Colberter(cfg, card)
+    on_card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(16)
+    toks = rng.integers(1, cfg.vocab_size, (8, cfg.max_doc_len))
+    toks[:, 0] = 0
+    for row, n in enumerate(rng.integers(1, cfg.max_doc_len, 8)):
+        toks[row, n:] = -1
+    want = colberter.encode(cfg, cpu, toks)
+    got = colberter.encode(cfg, on_card, toks)
+    for w, g in zip(want[:2], got[:2]):
+        assert g.device.type == torch.device(card).type
+        np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), rtol=0,
+                                   atol=1e-4)
+    assert torch.equal(got[2].cpu(), want[2])
+    half = colberter.encode(cfg.scaled(dtype=torch.bfloat16), on_card, toks)
+    mask = got[2]
+    for f, h in ((got[0], half[0]), (got[1][mask], half[1][mask])):
+        cos = torch.nn.functional.cosine_similarity(f.float(), h.float(),
+                                                    dim=-1)
+        assert float(cos.min()) >= 0.99

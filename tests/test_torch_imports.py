@@ -43,14 +43,17 @@ def test_every_module_imports_with_jax_and_repro_blocked():
     assert int(out.stdout.split()[-1]) == len(modules) >= 20
 
 
-#: the serving path's modules: persistence, faults, observability, serving
+#: the serving path's modules: persistence, faults, observability, serving,
+#: the disk IVF and the ColBERTer encoder
 SERVING_MODULES = (
     "repro_torch.pipeline.persist", "repro_torch.storage.faults",
     "repro_torch.obs", "repro_torch.obs.trace", "repro_torch.obs.metrics",
     "repro_torch.obs.analyze", "repro_torch.serve",
     "repro_torch.serve.scheduler", "repro_torch.serve.slo",
     "repro_torch.serve.workload", "repro_torch.serve.engine",
-    "repro_torch.launch", "repro_torch.launch.serve")
+    "repro_torch.launch", "repro_torch.launch.serve",
+    "repro_torch.core.disk_ivf", "repro_torch.configs.colberter",
+    "repro_torch.models.colberter")
 
 
 def test_serving_modules_are_walked_and_import_alone():
@@ -72,7 +75,8 @@ def test_sources_name_no_jax_or_reference_import():
     pattern = re.compile(r"^\s*(import\s+(jax|repro)\b(?!_torch)"
                          r"|from\s+(jax|repro)(\.|\s)(?!_torch))", re.M)
     files = [os.path.join(REPO, "chip_smoke.py"),
-             os.path.join(REPO, "kernel_ab.py")]
+             os.path.join(REPO, "kernel_ab.py"),
+             os.path.join(REPO, "examples", "espn_serving_torch.py")]
     for root, _, names in os.walk(PORT):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     hits = []

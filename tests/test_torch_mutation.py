@@ -3,8 +3,8 @@
 ``maintain`` and the background compactor over ``MutableStorageCluster``,
 the segment plumbing, ``ivf_add``, the side tables' appends and the arena
 cache's invalidation. Each case of ``tests/test_mutation.py`` has its
-counterpart here (all but the save/load of a mutable tier, whose
-``mutation/`` directory is not ported: the port raises).
+counterpart here, the save and load of a mutable tier (the reference's
+``mutation/`` directory) across the packages included.
 
 Both packages run on the same artifacts (the reference builds the index,
 the layout and the resident tables; ``repro_torch.convert`` carries them
@@ -18,6 +18,7 @@ the reference.
 import argparse
 import dataclasses
 import functools
+import os
 import time
 
 import numpy as np
@@ -627,18 +628,98 @@ def test_cli_builds_the_mutable_tier(capsys):
     assert "mrr@10" in capsys.readouterr().out.lower()
 
 
-def test_save_and_load_of_a_mutable_tier_raise(tmp_path):
-    """The ``mutation/`` directory is the next slice: saving a mutable tier,
-    or loading a saved config that asks for one, raises naming the roadmap
-    item, and writes nothing."""
-    ref, port = pair(mutation=True, cluster=True)
+def mid_churn(pipe, rng):
+    """The reference test's mid-churn state, mixed: 6 docs ingested in two
+    batches (each lands on the lightest shard, so both shards get a
+    segment), two of them and two base docs tombstoned, shard 0 compacted
+    (shard 1 keeps its segment). Returns the ingested ids."""
+    gids = np.concatenate([pipe.ingest(*new_docs(rng, 3)) for _ in (0, 1)])
+    pipe.delete(np.concatenate([gids[:2], [0, 7]]))
+    pipe.compact(shard=0)
+    return gids
+
+
+def test_save_load_mutable_pipeline_mid_churn(tmp_path):
+    """The reference's test on the port: a mutable cluster saved mid-churn
+    writes ``mutation/`` (no ``shards/``), loads back with the same
+    tombstones and segments, answers bit for bit as before, and goes on
+    mutating from the grown doc-id space: an ingest on the loaded pipeline
+    gives the ids the same ingest gives on the unsaved one."""
+    ref, pipe = pair(mutation=True, cluster=True)
+    ref.close()
+    gids = mid_churn(pipe, np.random.default_rng(8))
+    out = pipe.save(str(tmp_path / "art"))
+    assert os.path.isdir(os.path.join(out, "mutation"))
+    assert not os.path.isdir(os.path.join(out, "shards"))
+    with pipe, Pipeline.load(out, device="cpu") as pipe2:
+        assert isinstance(pipe2.tier, MutableStorageCluster)
+        np.testing.assert_array_equal(pipe2.tier.alive, pipe.tier.alive)
+        counts = [len(s) for s in pipe.tier.segments]
+        assert [len(s) for s in pipe2.tier.segments] == counts
+        assert counts[0] == 0 and sum(counts) == 1      # the mixed state
+        a, b = pipe.search(), pipe2.search()
+        assert_bitwise(a, b)
+        assert a.breakdown.as_dict() == b.breakdown.as_dict()
+        # the restored stack keeps mutating, as the unsaved one does
+        cls, bows = new_docs(np.random.default_rng(9), 2)
+        more = pipe.ingest(cls, bows)
+        np.testing.assert_array_equal(pipe2.ingest(cls, bows), more)
+        np.testing.assert_array_equal(more, gids[-1] + 1 + np.arange(2))
+        for p in (pipe, pipe2):
+            p.delete(more[:1])
+        a, b = pipe.search(), pipe2.search()
+        assert_bitwise(a, b)
+        assert a.breakdown.as_dict() == b.breakdown.as_dict()
+        assert pipe2.tier.stats["tombstones"] == 1
+        for r in b.ranked:
+            assert pipe2.tier.alive[r.doc_ids].all()
+
+
+@pytest.mark.parametrize("mode", ["espn", "cascade"])
+def test_save_and_load_of_a_mutable_tier_raise(tmp_path, mode):
+    """The ``mutation/`` directory across the packages: after the same
+    churn, the port writes the reference's files, fields, dtypes and
+    values; the reference loads the port's directory and the port the
+    reference's, and both answer, bill and go on mutating alike (in
+    cascade the appended bit and FDE tables ride along)."""
+    ref, port = pair(mode, mutation=True, cluster=True)
     with ref, port:
-        with pytest.raises(NotImplementedError, match="Queue A item 3"):
-            port.save(str(tmp_path / "port"))
-        assert not (tmp_path / "port").exists()
-        ref.save(str(tmp_path / "ref"))
-        with pytest.raises(NotImplementedError, match="Queue A item 3"):
-            Pipeline.load(str(tmp_path / "ref"), device="cpu")
+        both(ref, port, lambda p: mid_churn(p, np.random.default_rng(8)))
+        rdir, pdir = (str(tmp_path / w) for w in ("ref", "port"))
+        ref.save(rdir)
+        port.save(pdir)
+    for sub in ("", "mutation"):
+        names = sorted(os.listdir(os.path.join(rdir, sub)))
+        assert sorted(os.listdir(os.path.join(pdir, sub))) == names
+        for name in names:
+            if not name.endswith(".npz"):
+                continue
+            want, got = (np.load(os.path.join(d, sub, name))
+                         for d in (rdir, pdir))
+            assert sorted(got.files) == sorted(want.files), name
+            for k in want.files:
+                assert got[k].dtype == want[k].dtype, (name, k)
+                np.testing.assert_array_equal(got[k], want[k],
+                                              err_msg=f"{name}:{k}")
+    assert "shards" not in os.listdir(pdir)
+    with RefPipeline.load(pdir) as r2, \
+            Pipeline.load(rdir, device="cpu") as p2:
+        assert isinstance(p2.tier, MutableStorageCluster)
+        assert isinstance(r2.tier, RefMutable)
+        np.testing.assert_array_equal(p2.tier.alive, r2.tier.alive)
+        assert [len(s) for s in p2.tier.segments] == \
+            [len(s) for s in r2.tier.segments]
+        assert_parity(r2.search(), p2.search())
+        cls, bows = new_docs(np.random.default_rng(9), 2)
+        rg, gids = both(r2, p2, lambda p: p.ingest(cls, bows))
+        np.testing.assert_array_equal(gids, rg)
+        np.testing.assert_array_equal(gids, [406, 407])
+        both(r2, p2, lambda p: p.delete(gids[:1]))
+        got = p2.search()
+        assert_parity(r2.search(), got)
+        for r in got.ranked:
+            assert int(gids[0]) not in r.doc_ids.tolist()
+        assert p2.tier.stats == r2.tier.stats
 
 
 def test_mutation_needs_the_mutable_tier():

@@ -351,10 +351,10 @@ def test_entry_points_default_to_the_card(root):
 def test_cluster_and_mutation_configs_raise(root):
     """A saved config that shards or replicates builds a
     ``StorageCluster``; one that asks for live mutation (alone or on a
-    cluster) builds the ``MutableStorageCluster``. What still raises,
-    naming the roadmap item, is the mutable tier's save format (the
-    reference's ``mutation/`` directory); ``rebalance`` on an immutable
-    cluster raises for want of the mutable tier."""
+    cluster) builds the ``MutableStorageCluster``, which saves its
+    ``mutation/`` directory (no ``shards/``) and loads back as a mutable
+    tier with the same base images and tombstones. ``rebalance`` on an
+    immutable cluster raises for want of the mutable tier."""
     from repro_torch.storage.cluster import StorageCluster
     from repro_torch.storage.mutation import MutableStorageCluster
     c, index, layout = artifacts()
@@ -374,10 +374,19 @@ def test_cluster_and_mutation_configs_raise(root):
             assert isinstance(pipe.tier, StorageCluster)
             if cfg.mutation.active():
                 assert isinstance(pipe.tier, MutableStorageCluster)
-                with pytest.raises(NotImplementedError,
-                                   match="Queue A item 3"):
-                    pipe.save(os.path.join(root, "mutable"))
-                assert not os.path.exists(os.path.join(root, "mutable"))
+                out = pipe.save(os.path.join(
+                    root, f"mutable-{cfg.cluster.n_shards}"))
+                assert os.path.isdir(os.path.join(out, "mutation"))
+                assert not os.path.exists(os.path.join(out, "shards"))
+                with Pipeline.load(out, device="cpu") as back:
+                    assert isinstance(back.tier, MutableStorageCluster)
+                    np.testing.assert_array_equal(back.tier.alive,
+                                                  pipe.tier.alive)
+                    for s, sh in enumerate(pipe.tier.shards):
+                        np.testing.assert_array_equal(
+                            back.tier.shard_ids[s], pipe.tier.shard_ids[s])
+                        np.testing.assert_array_equal(
+                            back.tier.shards[s].layout.blob, sh.layout.blob)
             else:
                 assert not isinstance(pipe.tier, MutableStorageCluster)
                 with pytest.raises(RuntimeError, match="mutable tier"):
