@@ -90,7 +90,16 @@ Phases, each of which must pass:
    (every tombstone's blocks reclaimed), ``rebalance`` (both sides billed) and
    ``maintain``, each leaving the answers bit for bit; host seconds of
    each step;
-12. agreement: on a small corpus, at the main path's retrieval settings,
+12. train: ColBERTer at its published widths (bf16 compute over fp32
+   masters, weights from numpy seed 0) trained 20 ``Trainer`` steps of 32
+   ``synth_pairs`` pairs (AdamW, a checkpoint every 10 steps under
+   ``build/``): step ms, pairs/s, tokens/s, peak memory, the losses; a
+   fresh Trainer resumed from step 10 replaying steps 10-19; grad_accum=2
+   equal to its halves' averaged update; 5 compressed steps finite; one
+   fp32 step at 2 layers on the card = the CPU's; SmolLM-135M at full
+   width and depth, 3 steps of 8 x 512 tokens through its loss; no kernel
+   launched (the losses are plain PyTorch with autograd);
+13. agreement: on a small corpus, at the main path's retrieval settings,
    the card path ranks, scores and bills as the CPU path does in every
    mode (``fde`` in both branches, ``cspn`` on a pooled fixed layout), and
    the card builds the FDE table the CPU builds and builds its IVF index
@@ -103,12 +112,12 @@ Phases, each of which must pass:
    and a churn (ingest, delete, compact, ingest, delete, rebalance) on a
    mutable 2 x 2 cluster in every mode gives the CPU's ids, bills, reports
    and counters on the card;
-13. decode path: SmolLM-135M at full width and depth (random weights from a
+14. decode path: SmolLM-135M at full width and depth (random weights from a
    numpy seed), 8 requests of 4,096 tokens prefilled, then 32 greedy
    decode steps over the KV cache, every step's attention on the
    ``flash_decode`` kernel (30 launches a step, 960 in all, or the run
    fails); prefill and step wall, the step's split, tokens/s, peak memory;
-14. decode agreement: the same model in fp32 at 2 layers, its logits and
+15. decode agreement: the same model in fp32 at 2 layers, its logits and
    greedy tokens on the card against the CPU path.
 
 It then prints the card line, the ``{"kernels": [...]}`` line and, last,
@@ -2681,6 +2690,296 @@ def mutation_phase(dev, failures, out):
     require_launches(out, failures, *MUTATION_PATHS)
 
 
+# the [train] phase: examples/train_retriever_torch.py's recipe at the
+# published widths; the LM branch at SmolLM-135M's full width and depth
+TRAIN_PAIRS, TRAIN_STEPS, TRAIN_CKPT_EVERY = 32, 20, 10
+TRAIN_COMPRESSED_STEPS = 5
+TRAIN_AGREE_PAIRS = 8       # pairs of the fp32 card-vs-CPU step
+TRAIN_LOSS_TOL = 3e-2       # a replay on the card: the bf16 loss tolerance
+TRAIN_TOL = 1e-5            # fp32 card vs CPU: loss, grad norm, weights
+LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = 8, 512, 3
+
+
+def weights_disagree(w_a, w_b, m_a, m_b, lr_1) -> list[str]:
+    """The leaves where one AdamW step from the same weights disagrees
+    beyond the CPU tests' tolerance. Adam's first step moves a weight by
+    lr_1 x g / (|g| + 1e-8): +-lr_1 by the gradient's sign, unless |g|
+    is near Adam's eps. So a weight may differ by more than ``TRAIN_TOL``
+    only where the two gradients (the first moment m = 0.1 g) have
+    opposite signs or |g| < 1e-7, and then by at most 2 x lr_1."""
+    import torch
+
+    bad = []
+    for k, w in w_b.items():
+        dw = (w_a[k] - w).abs()
+        far = dw > TRAIN_TOL
+        loose = (torch.sign(m_a[k]) != torch.sign(m_b[k])) | (
+            m_b[k].abs() < 1e-8)
+        if float(dw.max()) > 2 * lr_1 + 1e-6 or bool((far & ~loose).any()):
+            bad.append(k)
+    return bad
+
+
+def train_phase(dev, failures, out):
+    """Training on the card. ColBERTer at its published widths (bf16
+    compute over fp32 masters, weights from numpy seed 0): 20 ``Trainer``
+    steps of 32 ``synth_pairs`` pairs with ``AdamW(lr=1e-3, grad_clip=5.0,
+    warmup_steps=30)``, a checkpoint every 10 steps under ``build/``; a
+    fresh Trainer resumed from step 10 replays steps 10-19 (within
+    ``TRAIN_LOSS_TOL``, and says whether bit for bit: PyTorch promises a
+    deterministic backward only under ``use_deterministic_algorithms``);
+    ``grad_accum=2`` equal to the average of its two halves' gradients
+    put through the same update; 5 steps with int8 error-feedback
+    compression finite; one fp32 step at 2 layers on the card and on the
+    CPU from the same weights (loss and grad norm within ``TRAIN_TOL``,
+    the weights as ``weights_disagree`` holds them); then
+    SmolLM-135M at full width and depth,
+    3 steps of 8 x 512 tokens through ``transformer.loss_fn``. No kernel
+    of the port may launch: the losses' MaxSim and attention are plain
+    PyTorch with autograd."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import make_lm_batch
+    from repro_torch.models import colberter, transformer
+    from repro_torch.train.optimizer import AdamW, named_params
+    from repro_torch.train.trainer import (Trainer, TrainerConfig,
+                                           make_train_step)
+    sys.path.insert(0, os.path.join(ROOT, "examples"))
+    from train_retriever_torch import synth_pairs
+
+    res = out["train"] = {}
+    cfg = get_config(ENCODER)
+    params = numpy_params(colberter.param_table(cfg), np.random.default_rng(0))
+    opt = AdamW(lr=1e-3, grad_clip=5.0, warmup_steps=30)
+    lr_1 = opt.schedule(torch.tensor(1)).item()      # the first update's lr
+
+    def loss_fn(c):
+        return lambda p, b: colberter.contrastive_loss(c, p, b)
+
+    def data(c, n=TRAIN_PAIRS, where=dev):
+        return lambda step: synth_pairs(step, n, c, where)
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="train-", dir=os.path.join(ROOT, "build"))
+    reset_counts()
+    try:
+        def trainer(directory, steps=TRAIN_STEPS, **kw):
+            model = convert.colberter_params_from_numpy(params, cfg, dev)
+            return Trainer(TrainerConfig(total_steps=steps,
+                                         ckpt_every=TRAIN_CKPT_EVERY,
+                                         log_every=TRAIN_CKPT_EVERY,
+                                         ckpt_dir=directory, **kw),
+                           loss_fn(cfg), opt, data(cfg), model)
+
+        tr = trainer(os.path.join(root, "run"))
+        n_params = sum(p.numel() for p in tr.params.parameters())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        hist = tr.run(verbose=False)
+        run_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev)
+        step_ms = np.array([m["step_s"] for m in hist]) * 1e3
+        med = float(np.median(step_ms[1:]))
+        tokens = TRAIN_PAIRS * (cfg.max_query_len + cfg.max_doc_len)
+        losses = [m["loss"] for m in hist]
+        ckpt = os.path.join(root, "run", f"step_{TRAIN_CKPT_EVERY}")
+        ckpt_bytes = dir_bytes(ckpt)
+        res.update(n_params=n_params, step_ms=step_ms.tolist(),
+                   median_step_ms=med, pairs_per_s=TRAIN_PAIRS / med * 1e3,
+                   tokens_per_s=tokens / med * 1e3, peak_bytes=peak,
+                   losses=losses, run_s=run_s, ckpt_bytes=ckpt_bytes,
+                   ckpts=tr.ckpt.all_steps())
+        finite = bool(np.isfinite(losses).all())
+        log(f"  {ENCODER}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+            f"{n_params:,} fp32 params on {dev}, {cfg.dtype} compute; "
+            f"{TRAIN_STEPS} steps of {TRAIN_PAIRS} pairs ({tokens:,} tokens "
+            f"a step) in {run_s:.2f} s: step 0 {step_ms[0]:.1f} ms, then a "
+            f"median {med:.2f} ms (range {step_ms[1:].min():.2f}-"
+            f"{step_ms[1:].max():.2f}), {res['pairs_per_s']:,.1f} pairs/s, "
+            f"{res['tokens_per_s']:,.0f} tokens/s; peak device memory "
+            f"{peak / 2**30:.2f} GiB")
+        log(f"  loss at steps 0 / 10 / 19: {losses[0]:.4f} / "
+            f"{losses[10]:.4f} / {losses[19]:.4f} "
+            f"({'all finite' if finite else 'NOT finite'}); checkpoints "
+            f"{res['ckpts']}, step_{TRAIN_CKPT_EVERY} {ckpt_bytes:,} bytes")
+        if not finite:
+            failures.append("train: a loss is not finite")
+        if res["ckpts"] != [TRAIN_CKPT_EVERY, TRAIN_STEPS]:
+            failures.append(f"train: checkpoints {res['ckpts']}")
+
+        # resume: a fresh Trainer from the step-10 checkpoint alone
+        shutil.copytree(ckpt, os.path.join(root, "resume",
+                                           f"step_{TRAIN_CKPT_EVERY}"),
+                        copy_function=os.link)
+        again = trainer(os.path.join(root, "resume"))
+        t0 = time.perf_counter()
+        start = again.maybe_resume()
+        resume_s = time.perf_counter() - t0
+        replay = again.run(verbose=False)
+        diffs = [abs(a["loss"] - b["loss"])
+                 for a, b in zip(hist[TRAIN_CKPT_EVERY:], replay)]
+        worst = max(diffs)
+        same = all(a["loss"] == b["loss"] and a["gnorm"] == b["gnorm"]
+                   for a, b in zip(hist[TRAIN_CKPT_EVERY:], replay))
+        w_diff = max(float((p.detach() - q.detach()).abs().max())
+                     for p, q in zip(tr.params.parameters(),
+                                     again.params.parameters()))
+        ok = (start == TRAIN_CKPT_EVERY and len(replay) == len(diffs)
+              == TRAIN_STEPS - TRAIN_CKPT_EVERY and worst <= TRAIN_LOSS_TOL)
+        res.update(resume_step=start, resume_s=resume_s,
+                   replay_loss_diffs=diffs, replay_bitwise=same,
+                   replay_weight_diff=w_diff)
+        log(f"  resumed at step {start} in {resume_s:.2f} s; steps "
+            f"{TRAIN_CKPT_EVERY}-{TRAIN_STEPS - 1} replayed: max |loss diff| "
+            f"{worst:.3g} (tol {TRAIN_LOSS_TOL}), "
+            f"{'bit for bit' if same else 'not bit for bit'}; final weights "
+            f"max |diff| {w_diff:.3g} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append("train: the resumed run does not replay")
+        del tr, again
+
+        # accumulation: grad_accum=2 against its halves' mean gradient
+        batch = data(cfg)(0)
+        m2 = convert.colberter_params_from_numpy(params, cfg, dev)
+        m2, _, acc_metrics = make_train_step(loss_fn(cfg), opt,
+                                             grad_accum=2)(m2, opt.init(m2),
+                                                           batch)
+        m1 = convert.colberter_params_from_numpy(params, cfg, dev)
+        leaves = named_params(m1)
+        half = TRAIN_PAIRS // 2
+        grads = None
+        for i in range(2):
+            loss, _ = loss_fn(cfg)(m1, {k: v[i * half:(i + 1) * half]
+                                        for k, v in batch.items()})
+            g = torch.autograd.grad(loss, list(leaves.values()),
+                                    materialize_grads=True)
+            grads = ({k: t.float() for k, t in zip(leaves, g)}
+                     if grads is None else
+                     {k: grads[k] + t for k, t in zip(leaves, g)})
+        opt.update({k: t / 2 for k, t in grads.items()}, opt.init(m1), m1)
+        acc_err = {k: float((p - named_params(m2)[k]).detach().abs().max())
+                   for k, p in leaves.items()}
+        full = convert.colberter_params_from_numpy(params, cfg, dev)
+        full, _, _ = make_train_step(loss_fn(cfg), opt)(full, opt.init(full),
+                                                        batch)
+        vs_full = float(np.median([float((p - q).detach().abs().max())
+                                   for p, q in zip(full.parameters(),
+                                                   m2.parameters())]))
+        ok = all(e <= (2 * lr_1 + 1e-6 if k == "embed" else 1e-6)
+                 for k, e in acc_err.items())
+        res.update(accum_max_diff=acc_err, accum_vs_full_median=vs_full,
+                   accum_loss=float(acc_metrics["loss"]))
+        log(f"  grad_accum=2 on step 0's batch vs the update of its halves' "
+            f"mean gradient: max |weight diff| {max(acc_err.values()):.3g} "
+            f"(embed {acc_err['embed']:.3g}, tol 2 x lr_1 = {2 * lr_1:.3g}; "
+            f"others {max(v for k, v in acc_err.items() if k != 'embed'):.3g}"
+            f", tol 1e-6) -> {'ok' if ok else 'FAIL'}; against grad_accum=1 "
+            f"on the whole batch (other in-batch negatives) median of the "
+            f"leaves' max |diff| {vs_full:.3g}")
+        if not ok:
+            failures.append("train: grad_accum=2 differs from its halves")
+        del m1, m2, full, grads
+
+        # int8 error-feedback compression
+        comp = trainer(os.path.join(root, "compressed"),
+                       TRAIN_COMPRESSED_STEPS, grad_compression=True)
+        c_hist = comp.run(verbose=False)
+        c_losses = [m["loss"] for m in c_hist]
+        ok = len(c_losses) == TRAIN_COMPRESSED_STEPS and bool(
+            np.isfinite(c_losses).all())
+        res.update(compressed_losses=c_losses)
+        log(f"  {TRAIN_COMPRESSED_STEPS} steps with int8 error-feedback "
+            f"compression: losses {[round(x, 4) for x in c_losses]} "
+            f"(uncompressed {[round(x, 4) for x in losses[:5]]}) -> "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append("train: a compressed step is not finite")
+        del comp
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # one fp32 step on the card and on the CPU from the same weights
+    f32 = cfg.scaled(n_layers=2, dtype=torch.float32)
+    small = numpy_params(colberter.param_table(f32), np.random.default_rng(1))
+    step = make_train_step(loss_fn(f32), opt)
+    got = {}
+    for where in (dev, torch.device("cpu")):
+        model = convert.colberter_params_from_numpy(small, f32, where)
+        model, state, m = step(model, opt.init(model),
+                               data(f32, TRAIN_AGREE_PAIRS, where)(0))
+        got[where.type] = (m, {k: p.detach().cpu() for k, p in
+                               named_params(model).items()},
+                           {k: t.cpu() for k, t in state["m"].items()})
+    (m_card, w_card, g_card), (m_cpu, w_cpu, g_cpu) = got[dev.type], got["cpu"]
+    errs = {k: abs(float(m_card[k]) - float(m_cpu[k])) / max(
+        1.0, abs(float(m_cpu[k]))) for k in ("loss", "gnorm")}
+    bad = weights_disagree(w_card, w_cpu, g_card, g_cpu, lr_1)
+    w_err = {k: float((w_card[k] - w).abs().max()) for k, w in w_cpu.items()}
+    flips = sum(int(((w_card[k] - w).abs() > TRAIN_TOL).sum())
+                for k, w in w_cpu.items())
+    ok = max(errs.values()) <= TRAIN_TOL and not bad
+    res.update(card_vs_cpu=errs, card_vs_cpu_weights=w_err,
+               card_vs_cpu_flips=flips)
+    log(f"  fp32, 2 layers, {TRAIN_AGREE_PAIRS} pairs, one step, card vs "
+        f"CPU: loss {errs['loss']:.3g}, grad norm {errs['gnorm']:.3g} x "
+        f"max(1, |cpu|) (tol {TRAIN_TOL}); weights max |diff| "
+        f"{max(w_err.values()):.3g}, {flips} beyond {TRAIN_TOL} (each where "
+        f"the gradients' signs differ or |g| < 1e-7, <= 2 x lr_1 = "
+        f"{2 * lr_1:.3g}) -> {'ok' if ok else 'FAIL: ' + ', '.join(bad)}")
+    if not ok:
+        failures.append("train: the card's step disagrees with the CPU's")
+
+    # the LM branch at full width and depth
+    lm = get_config(LM)
+    model = convert.transformer_params_from_numpy(
+        numpy_params(transformer.param_table(lm), np.random.default_rng(0)),
+        lm, dev)
+    lm_root = tempfile.mkdtemp(prefix="train-lm-",
+                               dir=os.path.join(ROOT, "build"))
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        lm_tr = Trainer(
+            TrainerConfig(total_steps=LM_TRAIN_STEPS, ckpt_every=1_000,
+                          ckpt_dir=lm_root),
+            lambda p, b: transformer.loss_fn(lm, p, b), AdamW(),
+            lambda i: {k: torch.as_tensor(v, device=dev) for k, v in
+                       make_lm_batch(i, LM_TRAIN_BATCH, LM_TRAIN_SEQ,
+                                     lm.vocab_size).items()}, model)
+        lm_hist = lm_tr.run(verbose=False)
+        lm_peak = torch.cuda.max_memory_allocated(dev)
+    finally:
+        shutil.rmtree(lm_root, ignore_errors=True)
+    lm_ms = np.array([m["step_s"] for m in lm_hist]) * 1e3
+    lm_losses = [m["loss"] for m in lm_hist]
+    lm_tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    ok = len(lm_losses) == LM_TRAIN_STEPS and bool(
+        np.isfinite(lm_losses).all())
+    res.update(lm_step_ms=lm_ms.tolist(),
+               lm_tokens_per_s=lm_tokens / float(np.median(lm_ms[1:])) * 1e3,
+               lm_peak_bytes=lm_peak, lm_losses=lm_losses,
+               launches=read_counts())
+    log(f"  {LM}: {lm.n_layers} layers, d_model {lm.d_model}, "
+        f"{sum(p.numel() for p in model.parameters()):,} fp32 params; "
+        f"{LM_TRAIN_STEPS} steps of {LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} tokens: "
+        f"step ms {[round(float(x), 1) for x in lm_ms]}, "
+        f"{res['lm_tokens_per_s']:,.0f} tokens/s after the first; peak "
+        f"device memory {lm_peak / 2**30:.2f} GiB; losses "
+        f"{[round(x, 4) for x in lm_losses]} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("train: an LM loss is not finite")
+    launched = {k: v for k, v in res["launches"].items() if v}
+    log(f"  kernel launches in [train]: {launched or 'none'}")
+    if launched:
+        failures.append(f"train: kernels launched {launched}")
+
+
 def free_main_path():
     """After the last phase on the main path's artifacts: drop them (the
     servers' threads hold their pipelines in reference cycles, so collect
@@ -3377,6 +3676,7 @@ def main(argv=None) -> int:
               ("cluster", lambda: cluster_phase(dev, failures, serving)),
               ("mutation", lambda: (mutation_phase(dev, failures, serving),
                                     free_main_path())),
+              ("train", lambda: train_phase(dev, failures, serving)),
               ("agreement", lambda: agreement(dev, failures)),
               ("decode path", lambda: rows.update(
                   decode=decode_path(dev, failures))),

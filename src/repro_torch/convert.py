@@ -5,7 +5,9 @@ Every function takes plain numpy arrays — the fields the reference's
 the names its ``.npz`` artifacts use — so a mapping from ``np.load`` of a
 saved ``index.npz`` / ``layout.npz`` / ``bits.npz`` / ``fde.npz`` works as
 well as a dict built in memory; and the transformer's and the ColBERTer
-encoder's nested parameter dicts.
+encoder's nested parameter dicts. The way back gives the reference's nested
+dicts of a model's parameters and of an optimizer state, so that both
+packages start from, and can compare, the same weights.
 """
 from __future__ import annotations
 
@@ -15,9 +17,12 @@ import torch
 from repro_torch.core.fde import FDEConfig, FDETable
 from repro_torch.configs.base import ColberterConfig, TransformerConfig
 from repro_torch.core.ivf import IVFIndex
+from repro_torch.device import resolve_device
 from repro_torch.models import colberter
 from repro_torch.models.transformer import TransformerLM, param_table
 from repro_torch.storage.layout import BitTable, EmbeddingLayout
+from repro_torch.train.checkpoint import flatten, to_host, unflatten
+from repro_torch.train.optimizer import named_params
 
 
 def _optional(a) -> np.ndarray | None:
@@ -111,20 +116,10 @@ def colberter_params_from_numpy(params, cfg: ColberterConfig,
                  params, cfg.name)
 
 
-def _flatten(tree, prefix: str = "") -> dict:
-    out = {}
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            out.update(_flatten(v, f"{prefix}{k}/"))
-        else:
-            out[f"{prefix}{k}"] = v
-    return out
-
-
 def _fill(model, table: dict, params, what: str):
     """Copy the nested dict ``params`` into ``model``'s parameters, whose
     names and shapes ``table`` lists ("/"-joined)."""
-    flat = _flatten(params)
+    flat = flatten(params)
     if set(flat) != set(table):
         raise ValueError(f"parameter names differ from {what}'s: missing "
                          f"{sorted(set(table) - set(flat))}, extra "
@@ -137,3 +132,29 @@ def _fill(model, table: dict, params, what: str):
             model.get_parameter(name.replace("/", ".")).copy_(
                 torch.tensor(a))
     return model
+
+
+def params_to_numpy(params) -> dict:
+    """The reference's nested parameter dict (host numpy copies) of a model
+    (``Colberter``, ``TransformerLM``) or a dict of tensors."""
+    return unflatten({k: to_host(v) for k, v in named_params(params).items()})
+
+
+def opt_state_to_numpy(state: dict) -> dict:
+    """The reference's optimizer state (``m``, ``v``: nested dicts like the
+    parameters', fp32; ``step``: int32 scalar) from the port's."""
+    return {k: to_host(v) if k == "step" else
+            unflatten({n: to_host(t) for n, t in v.items()})
+            for k, v in state.items()}
+
+
+def opt_state_from_numpy(tree: dict, device) -> dict:
+    """The port's optimizer state on ``device`` from the reference's (or a
+    restored checkpoint's): flat dicts of fp32 tensors under "/"-joined
+    names, and ``step`` as an int32 scalar tensor."""
+    dev = resolve_device(device)
+    return {k: torch.tensor(np.asarray(v), dtype=torch.int32, device=dev)
+            if k == "step" else
+            {n: torch.tensor(np.asarray(a), dtype=torch.float32, device=dev)
+             for n, a in flatten(v).items()}
+            for k, v in tree.items()}

@@ -100,3 +100,11 @@ def make_corpus(n_docs: int = 20_000, n_queries: int = 64, *,
     qrels = [{int(t)} for t in targets]
     return Corpus(cls=cls, bow=bow, doc_lens=lens, queries_cls=q_cls,
                   queries_bow=q_bow, query_lens=q_lens, qrels=qrels)
+
+
+def make_lm_batch(rng_seed: int, batch: int, seq: int, vocab: int):
+    """Synthetic LM tokens for train examples/smoke tests."""
+    rng = np.random.default_rng(rng_seed)
+    toks = rng.integers(0, vocab, (batch, seq + 1), dtype=np.int64)
+    return {"tokens": toks[:, :-1].astype(np.int32),
+            "targets": toks[:, 1:].astype(np.int32)}

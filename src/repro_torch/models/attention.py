@@ -38,10 +38,18 @@ def blockwise_attention(q, k, v, *, causal: bool, chunk: int,
     """Flash-style attention: running (m, l, o) in fp32 over KV chunks.
 
     q: (B, Sq, H, Dh); k/v: (B, Skv, KV, Dh); GQA by head grouping (no
-    repeated KV). One (B, Sq, KV, G, chunk) fp32 score block is live at a
-    time. The last chunk is zero-padded, its pad slots masked, as in the
-    reference.
+    repeated KV). The last chunk is zero-padded, its pad slots masked, as in
+    the reference.
+
+    Under ``no_grad`` (serving) one (B, Sq, KV, G, chunk) fp32 score block
+    is live at a time: the scale, mask and exp are written into its
+    storage. When autograd records (grad enabled and an input requires
+    grad) the same operations run out of place, since the block is saved
+    for the backward; each is the same elementwise kernel, so both forms
+    give the same bits.
     """
+    grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad)
     b, sq, h, dh = q.shape
     skv, kv = k.shape[1], k.shape[2]
     group = h // kv
@@ -68,13 +76,19 @@ def blockwise_attention(q, k, v, *, causal: bool, chunk: int,
     for i in range(n_chunks):
         sl = slice(i * chunk, (i + 1) * chunk)
         kb, vb, pb = k[:, sl], v[:, sl], kv_positions[:, sl]
-        s = torch.einsum("bqkgd,bckd->bqkgc", qg, kb.float()).mul_(scale)
+        s = torch.einsum("bqkgd,bckd->bqkgc", qg, kb.float())
         pb = pb[:, None, None, None, :]
         mask = pb <= qp if causal else pb < INT32_MAX
-        s.masked_fill_(~mask, NEG_INF)
+        if grad:
+            s = (s * scale).masked_fill(~mask, NEG_INF)
+        else:
+            s.mul_(scale).masked_fill_(~mask, NEG_INF)
         del mask
         m_new = torch.maximum(m, s.amax(dim=-1))
-        p = s.sub_(m_new[..., None]).exp_()             # s's storage
+        if grad:
+            p = (s - m_new[..., None]).exp()
+        else:
+            p = s.sub_(m_new[..., None]).exp_()         # s's storage
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(dim=-1)
         # p is rounded to v's dtype for the PV product, as in the reference

@@ -1,6 +1,7 @@
-"""ColBERTer-style late-interaction encoder, forward only: a distilBERT-like
-backbone with a CLS head (128-d single vector, candidate generation) and a
-BOW head (32-d per-token vectors, MaxSim re-ranking), as used by ESPN.
+"""ColBERTer-style late-interaction encoder: a distilBERT-like backbone with
+a CLS head (128-d single vector, candidate generation) and a BOW head (32-d
+per-token vectors, MaxSim re-ranking), as used by ESPN, and its in-batch
+contrastive training loss.
 
 Bidirectional attention, learned positional embeddings, GELU FFN, post-LN,
 as the reference's ``repro.models.colberter``. The parameters keep the
@@ -10,7 +11,10 @@ reference's names and stacked ``(L, ...)`` shapes (``embed``, ``pos_embed``,
 weights across is a copy (``convert.colberter_params_from_numpy``). The
 layers run as a Python loop; attention is the blockwise online-softmax
 attention of ``models/attention.py``, with the padding mask passed as fake
-key positions. Training (the contrastive loss) is not ported.
+key positions. ``encode`` is the serving form (under ``no_grad``);
+``contrastive_loss`` runs the same body with autograd recording, and its
+all-pairs MaxSim is the plain ``core/maxsim.maxsim_scores`` (the CUDA
+``maxsim`` kernel has no backward and stays on the serving path).
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ColberterConfig
+from repro_torch.core.maxsim import maxsim_scores
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import INT32_MAX, blockwise_attention
 from repro_torch.models.layers import (dense_init, embed_init, gelu_mlp,
@@ -137,6 +142,11 @@ def encode(cfg: ColberterConfig, params: Colberter, tokens, mask=None):
     Returns (cls (B, d_cls) fp32 L2-normed, bow (B, S, d_bow) L2-normed in
     the compute dtype and zero at pads, mask (B, S) bool).
     """
+    return _encode(cfg, params, tokens, mask)
+
+
+def _encode(cfg: ColberterConfig, params: Colberter, tokens, mask=None):
+    """``encode``'s body, differentiable in the parameters."""
     dt = cfg.dtype
     dev = params.embed.device
     tokens = torch.as_tensor(tokens, device=dev)
@@ -168,6 +178,31 @@ def encode(cfg: ColberterConfig, params: Colberter, tokens, mask=None):
     cls = _l2_normed(x[:, 0, :] @ params.cls_head.to(dt))
     bow = _l2_normed(x @ params.bow_head.to(dt)) * mask[..., None]
     return cls, bow.to(dt), mask
+
+
+def contrastive_loss(cfg: ColberterConfig, params: Colberter, batch):
+    """In-batch late-interaction contrastive loss (ColBERT-style training).
+
+    batch: query_tokens (B, Sq), pos_doc_tokens (B, Sd). Each query's
+    positive is its own doc; the other in-batch docs are negatives. Score =
+    alpha * CLS dot + MaxSim(BOW). Returns (loss, {"ce", "alpha"}).
+    """
+    q_cls, q_bow, q_mask = _encode(cfg, params, batch["query_tokens"])
+    d_cls, d_bow, d_mask = _encode(cfg, params, batch["pos_doc_tokens"])
+    n = q_bow.shape[0]
+    # all pairs: queries x docs
+    sim_bow = maxsim_scores(q_bow, q_mask, d_bow[None].expand(n, -1, -1, -1),
+                            d_mask[None].expand(n, -1, -1))
+    sim_cls = q_cls @ d_cls.T
+    alpha = params.score_scale.float()
+    # normalize by query length so logits stay O(1) at init (MaxSim sums
+    # over Lq tokens); a fixed temperature sharpens the in-batch softmax
+    n_q = q_mask.sum(dim=-1, keepdim=True).float().clamp_min(1.0)
+    logits = (sim_bow / n_q + alpha * sim_cls) * 8.0
+    labels = torch.arange(n, device=logits.device)
+    lse = torch.logsumexp(logits, dim=-1)
+    loss = (lse - logits[labels, labels]).mean()
+    return loss, {"ce": loss, "alpha": alpha}
 
 
 def smoke_config(cfg: ColberterConfig) -> ColberterConfig:

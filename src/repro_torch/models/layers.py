@@ -1,5 +1,5 @@
 """Shared layers of the models: initializers, RMSNorm and LayerNorm, the
-SwiGLU and GELU MLPs.
+SwiGLU and GELU MLPs, the token cross-entropy.
 
 Parameters are fp32 masters; compute casts them to the activation dtype
 (bf16 by default), with the rounding points of the reference's layers.
@@ -59,3 +59,15 @@ def swiglu_mlp(x, w_gate, w_up, w_down):
     """LLaMA-style gated MLP. x: (..., D); weights already in compute dtype."""
     h = F.silu(x @ w_gate) * (x @ w_up)
     return h @ w_down
+
+
+def cross_entropy_logits(logits, targets, z_loss: float = 0.0):
+    """Token CE with an fp32 logsumexp; logits (..., V) any float dtype,
+    targets (...) int."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = lf.gather(-1, targets[..., None].long())[..., 0]
+    loss = lse - gold
+    if z_loss:
+        loss = loss + z_loss * lse ** 2
+    return loss

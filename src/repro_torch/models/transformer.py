@@ -1,9 +1,14 @@
-"""Dense GQA transformer LM: parameters, init, prefill and KV-cache decode.
+"""Dense GQA transformer LM: parameters, init, the training loss, prefill and
+KV-cache decode.
 
 The parameters keep the reference's names and stacked ``(L, ...)`` shapes
 (``embed`` (V, D), ``layers.wq`` (L, D, H*Dh), ...), and every product is
 ``x @ W``, so carrying weights across is a copy (``convert.
 transformer_params_from_numpy``). The layers run as a Python loop.
+
+Training: ``loss_fn`` is the reference's next-token loss (targets < 0
+masked), differentiable in the parameters: ``forward`` runs the same
+blockwise attention with autograd recording.
 
 Serving: ``init_cache``, ``prefill`` and ``decode_step`` take the
 reference's arguments and cache dict (``k``, ``v``, ``slot_pos``,
@@ -14,6 +19,8 @@ on CPU tensors the same call takes its plain version.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 from torch import nn
 
@@ -22,8 +29,8 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_decode.ops import flash_decode
 from repro_torch.models.attention import (INT32_MAX, apply_rope,
                                           blockwise_attention)
-from repro_torch.models.layers import (dense_init, embed_init, rms_norm,
-                                       swiglu_mlp)
+from repro_torch.models.layers import (cross_entropy_logits, dense_init,
+                                       embed_init, rms_norm, swiglu_mlp)
 
 
 def padded_vocab(v: int) -> int:
@@ -192,6 +199,20 @@ def logits_from_hidden(cfg: TransformerConfig, params: TransformerLM, x):
     return x @ head.to(cfg.dtype)
 
 
+def loss_fn(cfg: TransformerConfig, params: TransformerLM, batch,
+            aux_weight: float = 0.01):
+    """Mean next-token CE over the targets >= 0 (fp32 logsumexp), plus
+    ``aux_weight`` x the aux loss (0 for a dense model). batch: tokens and
+    targets, (B, S) int. Returns (loss, {"ce", "aux"})."""
+    x, aux, _ = forward(cfg, params, batch["tokens"])
+    logits = logits_from_hidden(cfg, params, x)
+    targets = batch["targets"]
+    mask = targets >= 0
+    ce = cross_entropy_logits(logits, targets.clamp_min(0))
+    loss = (ce * mask).sum() / mask.sum().clamp_min(1)
+    return loss + aux_weight * aux, {"ce": loss, "aux": aux}
+
+
 # ---------------------------------------------------------------------------
 # serving: prefill + decode with KV cache
 # ---------------------------------------------------------------------------
@@ -256,3 +277,15 @@ def decode_step(cfg: TransformerConfig, params: TransformerLM, tokens,
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
     cache["length"] = write_pos + 1
     return logits_from_hidden(cfg, params, x[:, -1, :]), cache
+
+
+def smoke_config(cfg: TransformerConfig) -> TransformerConfig:
+    """Reduced same-family config for CPU smoke tests."""
+    kw = dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=max(
+        1, cfg.n_kv_heads * 4 // cfg.n_heads), d_head=16, d_ff=128,
+        vocab_size=512, attn_chunk=32, max_seq_len=256)
+    if cfg.moe is not None:
+        kw["moe"] = dataclasses.replace(cfg.moe, n_experts=4,
+                                        top_k=min(2, cfg.moe.top_k),
+                                        d_ff_expert=64)
+    return cfg.scaled(**kw)

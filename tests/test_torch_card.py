@@ -526,3 +526,107 @@ def test_encoder_on_the_card_equals_the_cpu(card):
         cos = torch.nn.functional.cosine_similarity(f.float(), h.float(),
                                                     dim=-1)
         assert float(cos.min()) >= 0.99
+
+
+def _pairs(cfg, n, seed):
+    """``n`` query/doc pairs of the published lengths, [CLS] first, docs
+    with ragged pads."""
+    rng = np.random.default_rng(seed)
+    q = rng.integers(1, cfg.vocab_size, (n, cfg.max_query_len))
+    d = rng.integers(1, cfg.vocab_size, (n, cfg.max_doc_len))
+    q[:, 0] = d[:, 0] = 0
+    for row, k in enumerate(rng.integers(8, cfg.max_doc_len, n)):
+        d[row, k:] = -1
+    return {"query_tokens": q.astype(np.int32),
+            "pos_doc_tokens": d.astype(np.int32)}
+
+
+@pytest.mark.cuda
+def test_train_step_on_the_card_equals_the_cpu(card):
+    """One AdamW step of the contrastive loss (2 layers at the published
+    widths, fp32, 4 pairs) on the card and on the CPU from the same
+    weights: loss and grad norm within 1e-5 x max(1, |cpu|); the updated
+    weights within 1e-5, except where Adam's first step, lr_1 x g /
+    (|g| + 1e-8), can tell the two apart: where the two gradients (the
+    first moment m = 0.1 g) have opposite signs or |g| < 1e-7 (near
+    Adam's eps); there within the sign-flip bound 2 x lr_1. (``layers/bk``'s
+    exact gradient is 0: a key bias cancels in the softmax, so its
+    weights are all such.)"""
+    from repro_torch.configs import get_config
+    from repro_torch.models import colberter
+    from repro_torch.train.optimizer import AdamW, named_params
+    from repro_torch.train.trainer import make_train_step
+    cfg = get_config("colberter").scaled(n_layers=2, dtype=torch.float32)
+    opt = AdamW(lr=1e-3, grad_clip=5.0, warmup_steps=30)
+    step = make_train_step(lambda p, b: colberter.contrastive_loss(cfg, p, b),
+                           opt)
+    batch = _pairs(cfg, 4, 17)
+    out = {}
+    for dev in (torch.device("cpu"), card):
+        model = colberter.init_params(cfg, torch.Generator().manual_seed(0),
+                                      dev)
+        b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        model, state, m = step(model, opt.init(model), b)
+        out[dev.type] = (m, {k: p.detach().cpu()
+                             for k, p in named_params(model).items()},
+                         {k: t.cpu() for k, t in state["m"].items()})
+    (m_cpu, w_cpu, g_cpu), (m_card, w_card, g_card) = (out["cpu"],
+                                                       out[card.type])
+    for k in ("loss", "gnorm"):
+        assert abs(float(m_card[k]) - float(m_cpu[k])) <= 1e-5 * max(
+            1.0, abs(float(m_cpu[k]))), k
+    lr_1 = opt.lr * 2 / 30
+    for name, w in w_cpu.items():
+        dw = (w_card[name] - w).abs()
+        loose = (torch.sign(g_card[name]) != torch.sign(g_cpu[name])) | (
+            g_cpu[name].abs() < 1e-8)
+        assert float(dw.max()) <= 2 * lr_1 + 1e-6, name
+        assert not ((dw > 1e-5) & ~loose).any(), name
+
+
+@pytest.mark.cuda
+def test_checkpoint_saved_on_the_card_restores_on_the_cpu(card, tmp_path):
+    """Two steps on the card with a checkpoint after the second; a Trainer
+    on the CPU resumes from it with the card's weights and optimizer state
+    bit for bit, and its next step's loss is the card's within 1e-5."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import colberter
+    from repro_torch.train.optimizer import AdamW, named_params
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    cfg = get_config("colberter").scaled(n_layers=2, dtype=torch.float32)
+
+    def trainer(dev, total):
+        model = colberter.init_params(cfg, torch.Generator().manual_seed(1),
+                                      dev)
+        return Trainer(
+            TrainerConfig(total_steps=total, ckpt_every=2,
+                          ckpt_dir=str(tmp_path)),
+            lambda p, b: colberter.contrastive_loss(cfg, p, b),
+            AdamW(lr=1e-3, warmup_steps=2),
+            lambda i: {k: torch.as_tensor(v, device=dev)
+                       for k, v in _pairs(cfg, 4, i).items()}, model)
+
+    on_card = trainer(card, 3)
+    hist = on_card.run(verbose=False)
+    assert on_card.ckpt.all_steps() == [2]
+    cpu = trainer(torch.device("cpu"), 3)
+    # the card's state before its third step: the checkpoint's
+    _, saved = on_card.ckpt.restore(2, device=card)
+    assert cpu.maybe_resume() == 2
+    for name, p in named_params(cpu.params).items():
+        assert p.device.type == "cpu"
+        assert torch.equal(p.detach(), _leaf(saved["params"], name).cpu())
+    for k in ("m", "v"):
+        for name, t in cpu.opt_state[k].items():
+            assert torch.equal(t, _leaf(saved["opt_state"][k], name).cpu())
+    assert int(cpu.opt_state["step"]) == 2
+    h = cpu.run(verbose=False)
+    assert [m["step"] for m in h] == [2]
+    assert abs(h[0]["loss"] - hist[2]["loss"]) <= 1e-5 * max(
+        1.0, abs(hist[2]["loss"]))
+
+
+def _leaf(tree, name):
+    for part in name.split("/"):
+        tree = tree[part]
+    return tree

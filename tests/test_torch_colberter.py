@@ -8,12 +8,21 @@ fp32 2e-5 (sums taken in another order), bf16 3e-2 (a bf16 rounding of the
 residual stream at each layer). ``layer_norm`` and ``gelu_mlp`` are held
 alone; the parameter table to the reference's ``param_shapes``; and the
 serving example runs end to end at a tiny size with ``--device cpu``.
+
+Training: ``contrastive_loss`` from the reference's own ``init_params``
+carried across, on a batch with pads in queries and docs: the loss in fp32
+within 2e-5 and in bf16 within 3e-2; every parameter's gradient in fp32
+against ``jax.grad`` (tolerance in ``test_contrastive_grads_match_jax``);
+the loss history and the weights over 5 AdamW steps; resume replaying the
+history bit for bit on the CPU.
 """
 import dataclasses
 import os
+import shutil
 import subprocess
 import sys
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,10 +32,15 @@ from repro.configs.base import get_config as ref_get_config
 from repro.models import colberter as ref_col
 from repro.models.layers import gelu_mlp as ref_gelu_mlp
 from repro.models.layers import layer_norm as ref_layer_norm
+from repro.train.optimizer import AdamW as RefAdamW
+from repro.train.trainer import make_train_step as ref_make_train_step
 from repro_torch import convert
 from repro_torch.configs import ColberterConfig, get_config
 from repro_torch.models import colberter
 from repro_torch.models.layers import gelu_mlp, layer_norm
+from repro_torch.train.checkpoint import flatten
+from repro_torch.train.optimizer import AdamW, named_params
+from repro_torch.train.trainer import Trainer, TrainerConfig, make_train_step
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = {"fp32": 2e-5, "bf16": 3e-2}
@@ -270,3 +284,139 @@ def test_example_runs_on_the_cpu():
     assert lines[0].startswith("encoder:")
     for mode in ("mmap", "gds", "espn"):
         assert any(ln.startswith(mode) and "MRR@10=" in ln for ln in lines)
+
+
+# -- training ---------------------------------------------------------------
+
+def pair_batch(cfg, seed=5, n=6):
+    """``n`` query/doc pairs, [CLS] first, with pads (-1) at the tails of
+    most rows (one query of a single token, one full doc)."""
+    r = np.random.default_rng(seed)
+    q = r.integers(1, cfg.vocab_size, (n, cfg.max_query_len))
+    d = r.integers(1, cfg.vocab_size, (n, cfg.max_doc_len))
+    q[:, 0] = d[:, 0] = 0
+    for row in range(n):
+        q[row, r.integers(1, cfg.max_query_len + 1):] = -1
+        d[row, (cfg.max_doc_len, 2)[row] if row < 2 else
+          r.integers(1, cfg.max_doc_len):] = -1
+    return {"query_tokens": q.astype(np.int32),
+            "pos_doc_tokens": d.astype(np.int32)}
+
+
+def ref_init(ref_cfg, seed=0):
+    """The reference's own ``init_params`` at PRNGKey(seed), as numpy."""
+    return jax.tree.map(np.asarray,
+                        ref_col.init_params(ref_cfg, jax.random.PRNGKey(seed)))
+
+
+def torch_batch(batch):
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_contrastive_loss_matches_reference(dtype):
+    ref_cfg, cfg = configs(dtype)
+    params = ref_init(ref_cfg)
+    batch = pair_batch(cfg)
+    want, aux = ref_col.contrastive_loss(ref_cfg, _to_jnp(params),
+                                         _to_jnp(batch))
+    model = convert.colberter_params_from_numpy(params, cfg, "cpu")
+    loss, got_aux = colberter.contrastive_loss(cfg, model,
+                                               torch_batch(batch))
+    assert set(got_aux) == set(aux) == {"ce", "alpha"}
+    assert loss.dtype == torch.float32 and loss.requires_grad
+    assert abs(float(loss.detach()) - float(want)) <= TOL[dtype]
+    assert float(got_aux["alpha"].detach()) == float(aux["alpha"]) == 1.0
+    assert torch.equal(got_aux["ce"], loss)
+
+
+def test_contrastive_grads_match_jax():
+    """Every leaf's gradient within 1e-4 of the leaf's largest |gradient|
+    (fp32 sums in other orders through 2 layers, LayerNorm and the softmax),
+    plus 1e-7: ``layers/bk``'s gradient is zero in exact arithmetic (a key
+    bias adds the same to every score of a query, which the softmax
+    cancels), so both packages give rounding noise of ~1e-8 there."""
+    ref_cfg, cfg = configs("fp32")
+    params = ref_init(ref_cfg)
+    batch = pair_batch(cfg)
+    want = flatten(jax.tree.map(np.asarray, jax.grad(
+        lambda p: ref_col.contrastive_loss(ref_cfg, p, _to_jnp(batch))[0])(
+        _to_jnp(params))))
+    model = convert.colberter_params_from_numpy(params, cfg, "cpu")
+    loss, _ = colberter.contrastive_loss(cfg, model, torch_batch(batch))
+    named = named_params(model)
+    grads = torch.autograd.grad(loss, list(named.values()))
+    assert set(named) == set(want)
+    for name, g in zip(named, grads):
+        assert g.dtype == torch.float32 and g.shape == want[name].shape
+        err = float(np.abs(g.numpy() - want[name]).max())
+        assert err <= 1e-4 * float(np.abs(want[name]).max()) + 1e-7, name
+    assert float(np.abs(want["layers/bk"]).max()) < 1e-6
+
+
+def test_adamw_steps_match_reference():
+    """5 AdamW steps (lr 1e-3, warm-up 30, clip 5: the example's) from the
+    reference's init in both packages: each step's loss and grad norm
+    within 1e-5 x max(1, |ref|), and the weights after. A weight whose
+    gradient is near zero moves by about +-lr_t at each step whatever the
+    gradient's size (Adam divides by its own scale), so where the two
+    packages' rounding gives that gradient the other sign the weight
+    differs by up to 2 x sum(lr_t) = 1.33e-3: ``layers/bk``, whose exact
+    gradient is 0, is all such weights, and is held to that bound; every
+    other weight within 1e-5."""
+    ref_cfg, cfg = configs("fp32")
+    params = ref_init(ref_cfg)
+    ref_opt, opt = (RefAdamW(lr=1e-3, grad_clip=5.0, warmup_steps=30),
+                    AdamW(lr=1e-3, grad_clip=5.0, warmup_steps=30))
+    ref_step = jax.jit(ref_make_train_step(
+        lambda p, b: ref_col.contrastive_loss(ref_cfg, p, b), ref_opt))
+    step = make_train_step(lambda p, b: colberter.contrastive_loss(cfg, p, b),
+                           opt)
+    ref_p, ref_o = _to_jnp(params), ref_opt.init(_to_jnp(params))
+    model = convert.colberter_params_from_numpy(params, cfg, "cpu")
+    state = opt.init(model)
+    for i in range(5):
+        batch = pair_batch(cfg, seed=10 + i)
+        ref_p, ref_o, want = ref_step(ref_p, ref_o, _to_jnp(batch))
+        model, state, got = step(model, state, torch_batch(batch))
+        assert set(got) == set(want) == {"loss", "gnorm", "ce", "alpha"}
+        for k in ("loss", "gnorm", "alpha"):
+            assert abs(float(got[k]) - float(want[k])) <= 1e-5 * max(
+                1.0, abs(float(want[k]))), (i, k)
+    assert int(state["step"]) == int(ref_o["step"]) == 5
+    lr_sum = sum(ref_opt.lr * min(1.0, (t + 1) / 30) for t in range(1, 6))
+    for name, a in flatten(jax.tree.map(np.asarray, ref_p)).items():
+        err = np.abs(named_params(model)[name].detach().numpy() - a).max()
+        assert err <= (2 * lr_sum + 1e-6 if name == "layers/bk" else 1e-5), \
+            name
+
+
+def test_resume_replays_the_history_bit_for_bit(tmp_path):
+    """A Trainer resumed from its step-4 checkpoint gives steps 4-7's
+    losses and grad norms bit for bit, and the same final weights (the CPU
+    is deterministic; on the card the embedding backward's atomics are
+    not, see ``train/trainer.py``)."""
+    _, cfg = configs("fp32")
+
+    def trainer(directory):
+        model = colberter.init_params(cfg, torch.Generator().manual_seed(3),
+                                      "cpu")
+        return Trainer(TrainerConfig(total_steps=8, ckpt_every=4,
+                                     ckpt_dir=str(directory)),
+                       lambda p, b: colberter.contrastive_loss(cfg, p, b),
+                       AdamW(lr=1e-3, warmup_steps=2),
+                       lambda i: torch_batch(pair_batch(cfg, seed=i)), model)
+
+    full = trainer(tmp_path / "a")
+    h1 = full.run(verbose=False)
+    assert full.ckpt.all_steps() == [4, 8]
+    shutil.copytree(tmp_path / "a" / "step_4", tmp_path / "b" / "step_4")
+    again = trainer(tmp_path / "b")
+    assert again.maybe_resume() == 4
+    h2 = again.run(verbose=False)
+    assert [m["step"] for m in h2] == [4, 5, 6, 7]
+    for a, b in zip(h1[4:], h2):
+        assert (a["loss"], a["gnorm"]) == (b["loss"], b["gnorm"])
+    for (name, p), q in zip(full.params.named_parameters(),
+                            again.params.parameters()):
+        assert torch.equal(p, q), name

@@ -71,12 +71,41 @@ def test_serving_modules_are_walked_and_import_alone():
     assert out.returncode == 0, out.stderr
 
 
+#: the training path's modules: the optimizers, compression, checkpoints,
+#: the trainer, the data pipeline, the launcher, the losses and quantize
+TRAIN_MODULES = (
+    "repro_torch.train", "repro_torch.train.optimizer",
+    "repro_torch.train.compress", "repro_torch.train.checkpoint",
+    "repro_torch.train.trainer", "repro_torch.data.pipeline",
+    "repro_torch.data.synthetic", "repro_torch.launch.train",
+    "repro_torch.models.colberter", "repro_torch.models.transformer",
+    "repro_torch.models.layers", "repro_torch.core.quantize",
+    "repro_torch.convert")
+
+
+def test_train_modules_are_walked_and_import_alone():
+    """As above, for the training path: walked, and each imports on its
+    own with jax and repro refused."""
+    modules = {m.name for m in pkgutil.walk_packages([PORT], "repro_torch.")}
+    assert set(TRAIN_MODULES) <= modules
+    script = _BLOCKED_IMPORT.split("import repro_torch")[0] + "".join(
+        f"import {name}\n" for name in TRAIN_MODULES) + (
+        "assert not [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro')]\n")
+    out = subprocess.run([sys.executable, "-c", script],
+                         capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": SRC})
+    assert out.returncode == 0, out.stderr
+
+
 def test_sources_name_no_jax_or_reference_import():
     pattern = re.compile(r"^\s*(import\s+(jax|repro)\b(?!_torch)"
                          r"|from\s+(jax|repro)(\.|\s)(?!_torch))", re.M)
     files = [os.path.join(REPO, "chip_smoke.py"),
              os.path.join(REPO, "kernel_ab.py"),
-             os.path.join(REPO, "examples", "espn_serving_torch.py")]
+             os.path.join(REPO, "examples", "espn_serving_torch.py"),
+             os.path.join(REPO, "examples", "quickstart_torch.py"),
+             os.path.join(REPO, "examples", "train_retriever_torch.py")]
     for root, _, names in os.walk(PORT):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     hits = []

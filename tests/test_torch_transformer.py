@@ -10,6 +10,11 @@ between the reference's own decode attention and flash_decode's oracle is
 9.8e-3), and the port's greedy token is the reference's, or one whose
 reference logit lies within one bf16 ulp of the reference's top logit (a
 tie at the dtype's resolution, which either rounding may break).
+
+Training: ``blockwise_attention`` with autograd recording gives the
+``no_grad`` path's bits and ``reference_attention``'s gradients;
+``cross_entropy_logits`` and ``loss_fn`` at the reference's
+``smoke_config`` match in loss and in every parameter's gradient (fp32).
 """
 import jax
 import jax.numpy as jnp
@@ -302,3 +307,99 @@ def test_prefill_and_decode_match_reference(variant, dtype):
             np.testing.assert_allclose(cache[k].numpy(),
                                        np.asarray(ref_cache[k]), rtol=0,
                                        atol=1e-5)
+
+
+# -- training ----------------------------------------------------------------
+
+@pytest.mark.parametrize("b,sq,h,kv,dh,chunk,causal", ATTN_CASES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_blockwise_attention_grad_path(b, sq, h, kv, dh, chunk, causal,
+                                       dtype):
+    """With autograd recording the forward runs out of place: the same
+    bits as the in-place ``no_grad`` form. Its gradients (fp32) against
+    autograd through the naive ``reference_attention``: within 1e-5 x
+    max(1, |ref|) (the same softmax, summed in another order)."""
+    r = np.random.default_rng(sq * 10 + h + 1)
+    q, k, v = (torch.from_numpy(r.standard_normal(shape).astype(np.float32))
+               .to(DTYPES[dtype][1]) for shape in
+               ((b, sq, h, dh), (b, sq, kv, dh), (b, sq, kv, dh)))
+    with torch.no_grad():
+        serving = attention.blockwise_attention(q, k, v, causal=causal,
+                                                chunk=chunk)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = attention.blockwise_attention(*leaves, causal=causal, chunk=chunk)
+    assert out.requires_grad and torch.equal(out.detach(), serving)
+    if dtype != "float32":
+        return
+    w = torch.from_numpy(r.standard_normal(out.shape).astype(np.float32))
+    got = torch.autograd.grad((out * w).sum(), leaves)
+    naive = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(
+        (attention.reference_attention(*naive, causal=causal) * w).sum(),
+        naive)
+    for g, wg in zip(got, want):
+        assert_rel(g, wg, 1e-5)
+
+
+@pytest.mark.parametrize("z_loss", [0.0, 1e-4])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_cross_entropy_logits_matches_reference(dtype, z_loss):
+    r = np.random.default_rng(4)
+    logits = (3 * r.standard_normal((3, 5, 40))).astype(np.float32)
+    tgt = r.integers(0, 40, (3, 5)).astype(np.int32)
+    jl, tl = both(logits, dtype)
+    want = ref_layers.cross_entropy_logits(jl, jnp.asarray(tgt), z_loss)
+    got = layers.cross_entropy_logits(tl, torch.from_numpy(tgt), z_loss)
+    assert got.dtype == torch.float32
+    assert_rel(got, want, 1e-6)
+
+
+def test_smoke_config_matches_reference():
+    for name, kv in (("smollm-135m", 1), ("mha", 4)):
+        ref, port = ref_get_config("smollm-135m"), get_config("smollm-135m")
+        if name == "mha":
+            ref, port = (c.scaled(n_heads=9, n_kv_heads=9) for c in (ref, port))
+        ref, port = ref_tf.smoke_config(ref), transformer.smoke_config(port)
+        for f in ("name", "family", "n_layers", "d_model", "n_heads",
+                  "n_kv_heads", "d_head", "d_ff", "vocab_size", "qkv_bias",
+                  "attn_chunk", "max_seq_len", "tie_embeddings", "moe"):
+            assert getattr(port, f) == getattr(ref, f), f
+        assert port.n_kv_heads == kv
+    moe = get_config("smollm-135m").scaled(
+        family="lm-moe", moe=MoEConfig(n_experts=16, top_k=4,
+                                       d_ff_expert=512))
+    assert transformer.smoke_config(moe).moe == MoEConfig(
+        n_experts=4, top_k=2, d_ff_expert=64)
+
+
+@pytest.mark.parametrize("variant", ["smoke", "kv3-h9-bias"])
+def test_loss_fn_and_grads_match_reference(variant):
+    """The LM loss (targets < 0 masked) within 2e-5 and every parameter's
+    gradient within 1e-4 of the leaf's largest |gradient| (fp32), from the
+    same numpy weights; aux is 0 for the dense model."""
+    ref_cfg, cfg = smoke_cfgs("float32", variant)
+    params = numpy_params(ref_cfg)
+    r = np.random.default_rng(6)
+    toks = r.integers(0, cfg.vocab_size, (3, 41)).astype(np.int32)
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:].copy()}
+    batch["targets"][0, 30:] = -1
+    batch["targets"][2, :5] = -1
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    (want, want_aux), want_g = jax.value_and_grad(
+        lambda p: ref_tf.loss_fn(ref_cfg, p, jb), has_aux=True)(
+        jax.tree.map(jnp.asarray, params))
+    model = convert.transformer_params_from_numpy(params, cfg, "cpu")
+    loss, aux = transformer.loss_fn(cfg, model, {
+        k: torch.from_numpy(v) for k, v in batch.items()})
+    assert abs(float(loss.detach()) - float(want)) <= 2e-5
+    assert float(aux["aux"]) == float(want_aux["aux"]) == 0.0
+    assert abs(float(aux["ce"].detach()) - float(want_aux["ce"])) <= 2e-5
+    named = dict(model.named_parameters())
+    grads = dict(zip(named, torch.autograd.grad(loss, list(named.values()))))
+    want_g = jax.tree.map(np.asarray, want_g)
+    flat = {k: v for k, v in want_g.items() if k != "layers"}
+    flat.update({f"layers.{k}": v for k, v in want_g["layers"].items()})
+    assert set(flat) == set(grads)
+    for name, g in grads.items():
+        err = float(np.abs(g.numpy() - flat[name]).max())
+        assert err <= 1e-4 * float(np.abs(flat[name]).max()), name
