@@ -112,13 +112,23 @@ Phases, each of which must pass:
    and a churn (ingest, delete, compact, ingest, delete, rebalance) on a
    mutable 2 x 2 cluster in every mode gives the CPU's ids, bills, reports
    and counters on the card;
-14. decode path: SmolLM-135M at full width and depth (random weights from a
-   numpy seed), 8 requests of 4,096 tokens prefilled, then 32 greedy
+14. decode path: SmolLM-135M at full width and depth (random weights drawn
+   on the card from a seed), 8 requests of 4,096 tokens prefilled, then 32 greedy
    decode steps over the KV cache, every step's attention on the
    ``flash_decode`` kernel (30 launches a step, 960 in all, or the run
    fails); prefill and step wall, the step's split, tokens/s, peak memory;
 15. decode agreement: the same model in fp32 at 2 layers, its logits and
-   greedy tokens on the card against the CPU path.
+   greedy tokens on the card against the CPU path;
+16. moe: the other LM configs through the same ``decode_path`` (bf16 over
+   fp32 masters drawn on the card): granite-moe-1b-a400m (24 layers, 32
+   experts top-8) and qwen2-0.5b (24 layers, G 7) at full width and depth,
+   8 x 4,096-token prefill and 32 decode steps (768 flash_decode launches
+   each, or the run fails; granite's prefill aux loss and drops per layer),
+   llama4-scout-17b-a16e at full width and 2 of its 48 layers (16 experts
+   top-1 + a shared expert), 8 x 1,024 tokens and 8 steps; granite trained
+   3 steps of 8 x 512 tokens (finite ce and aux, no kernel launched); and
+   granite in fp32 at 2 layers card vs CPU, its expert choices equal up to
+   near ties (each logged), keep masks equal where routing agrees.
 
 It then prints the card line, the ``{"kernels": [...]}`` line and, last,
 the ``{"ok": ...}`` line. Any failed phase exits non-zero without them.
@@ -842,12 +852,16 @@ def check_gather_pack(dev, rng, failures) -> dict:
 
 def check_flash_decode(dev, rng, failures) -> dict:
     """Every dtype, Dh and G the kernel takes, ragged lengths with 1, S and
-    0, S no multiple of the split; then the decode path's first step and
-    decode_32k's context, timed. fp32 within REL_TOL x max(1, |ref|);
+    0, S no multiple of the split; the other LMs' decode shapes (granite's
+    G 2 over KV 8, qwen2's G 7 over KV 2, llama4's G 5 over KV 8 at Dh
+    128); then each decode path's first step (SmolLM's and the three of
+    [moe], at the shapes their configs give) and decode_32k's context,
+    timed. fp32 within REL_TOL x max(1, |ref|);
     bf16/fp16 within one ulp of the output dtype."""
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.configs import get_config
     from repro_torch.kernels.flash_decode.ops import flash_decode, split_slots
     from repro_torch.kernels.flash_decode.ref import flash_decode_ref
     ulp = {torch.float32: REL_TOL, torch.bfloat16: 2**-7,
@@ -865,11 +879,28 @@ def check_flash_decode(dev, rng, failures) -> dict:
     cases = [(f"B=4 S=300 KV=3 G={g} Dh={dh} {str(dt).split('.')[-1]} "
               f"lens 1,S,0,123", 4, 300, 3, g, dh, dt, [1, 300, 0, 123])
              for dt in ulp for dh in (16, 32, 64, 128) for g in (1, 3, 8)]
-    cases += [  # the decode path's first step; decode_32k's context
-        ("path B=8 S=4128 KV=3 G=3 Dh=64 bf16 lens 4097", 8, 4128, 3, 3, 64,
-         torch.bfloat16, [4097] * 8),
-        ("decode_32k B=8 S=32768 KV=3 G=3 Dh=64 bf16 lens S", 8, 32_768, 3,
-         3, 64, torch.bfloat16, [32_768] * 8)]
+    cases += [(f"B=4 S=300 KV={kv} G={g} Dh={dh} {str(dt).split('.')[-1]} "
+               f"lens 1,S,0,123 ({arch})", 4, 300, kv, g, dh, dt,
+               [1, 300, 0, 123])
+              for dt in ulp for kv, g, dh, arch in (
+                  (8, 2, 64, "granite"), (2, 7, 64, "qwen2"),
+                  (8, 5, 128, "llama4"))]
+    # each decode path's first step (SmolLM's, then [moe]'s, at the shapes
+    # its config gives), each timed under its row suffix; decode_32k's
+    # context
+    timed = {"decode_32k": "_32k"}
+    for arch, (_, prompt, steps) in {LM: (None, PROMPT_LEN, DECODE_STEPS),
+                                     **MOE_DECODES}.items():
+        c = get_config(arch)
+        path = "path" if arch == LM else f"path {arch}"
+        timed[path] = "" if arch == LM else "_" + arch.split("-")[0]
+        s_, kv, g = prompt + steps, c.n_kv_heads, c.n_heads // c.n_kv_heads
+        cases.append((f"{path} B={DECODE_BATCH} S={s_} KV={kv} G={g} "
+                      f"Dh={c.head_dim} bf16 lens {prompt + 1}", DECODE_BATCH,
+                      s_, kv, g, c.head_dim, torch.bfloat16,
+                      [prompt + 1] * DECODE_BATCH))
+    cases += [("decode_32k B=8 S=32768 KV=3 G=3 Dh=64 bf16 lens S", 8, 32_768,
+               3, 3, 64, torch.bfloat16, [32_768] * 8)]
     row: dict = {}
     worst = 0.0
     for name, b, s, kv, g, dh, dtype, lens in cases:
@@ -893,7 +924,8 @@ def check_flash_decode(dev, rng, failures) -> dict:
             f"{same} -> {'ok' if ok else 'FAIL'}")
         if not ok:
             failures.append(f"flash_decode {name}")
-        if not name.startswith(("path", "decode_32k")):
+        key = timed.get(name.split(" B=")[0])
+        if key is None:
             continue
         # one library call for the same function: SDPA over the same cache,
         # its (B, KV, S, Dh) operands strided views of it (made inside the
@@ -911,7 +943,6 @@ def check_flash_decode(dev, rng, failures) -> dict:
         n = int(lens_t.clamp(0, s).sum())
         elt = kc.element_size()
         n_bytes = 2 * kv * n * dh * elt + 2 * b * kv * g * dh * elt + 4 * b
-        key = "" if name.startswith("path") else "_32k"
         row.update(timings(lambda: flash_decode(q, kc, vc, lens_t),
                            lambda: flash_decode_ref(q, kc, vc, lens_t), sdpa,
                            n_bytes, 4 * kv * g * n * dh, suffix=key))
@@ -944,10 +975,12 @@ class StageClock:
         self.maxsim_kernels: dict = defaultdict(int)   # kernel_for's names
         self.bitsim_k: dict = defaultdict(list)   # K of each bitsim call
         self.bitsim_kernels: dict = defaultdict(int)
+        self._wrapped: list = []
 
     def wrap(self, owner, name, key, sync=False):
         import torch
         orig = getattr(owner, name)
+        self._wrapped.append((owner, name, orig))
 
         def timed(*a, **kw):
             if sync:
@@ -961,6 +994,11 @@ class StageClock:
                 self.s[key] += time.perf_counter() - t0
                 self.s[key + "_cpu"] += time.thread_time() - c0
         setattr(owner, name, timed)
+
+    def restore(self):
+        """Undo every ``wrap``, the last first."""
+        while self._wrapped:
+            setattr(*self._wrapped.pop())
 
     def install(self):
         from repro_torch.core import prefetcher, rerank
@@ -2744,8 +2782,7 @@ def train_phase(dev, failures, out):
 
     from repro_torch import convert
     from repro_torch.configs import get_config
-    from repro_torch.data.synthetic import make_lm_batch
-    from repro_torch.models import colberter, transformer
+    from repro_torch.models import colberter
     from repro_torch.train.optimizer import AdamW, named_params
     from repro_torch.train.trainer import (Trainer, TrainerConfig,
                                            make_train_step)
@@ -2936,48 +2973,72 @@ def train_phase(dev, failures, out):
         failures.append("train: the card's step disagrees with the CPU's")
 
     # the LM branch at full width and depth
-    lm = get_config(LM)
-    model = convert.transformer_params_from_numpy(
-        numpy_params(transformer.param_table(lm), np.random.default_rng(0)),
-        lm, dev)
-    lm_root = tempfile.mkdtemp(prefix="train-lm-",
-                               dir=os.path.join(ROOT, "build"))
-    try:
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
-        lm_tr = Trainer(
-            TrainerConfig(total_steps=LM_TRAIN_STEPS, ckpt_every=1_000,
-                          ckpt_dir=lm_root),
-            lambda p, b: transformer.loss_fn(lm, p, b), AdamW(),
-            lambda i: {k: torch.as_tensor(v, device=dev) for k, v in
-                       make_lm_batch(i, LM_TRAIN_BATCH, LM_TRAIN_SEQ,
-                                     lm.vocab_size).items()}, model)
-        lm_hist = lm_tr.run(verbose=False)
-        lm_peak = torch.cuda.max_memory_allocated(dev)
-    finally:
-        shutil.rmtree(lm_root, ignore_errors=True)
-    lm_ms = np.array([m["step_s"] for m in lm_hist]) * 1e3
-    lm_losses = [m["loss"] for m in lm_hist]
-    lm_tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
-    ok = len(lm_losses) == LM_TRAIN_STEPS and bool(
-        np.isfinite(lm_losses).all())
-    res.update(lm_step_ms=lm_ms.tolist(),
-               lm_tokens_per_s=lm_tokens / float(np.median(lm_ms[1:])) * 1e3,
-               lm_peak_bytes=lm_peak, lm_losses=lm_losses,
+    lm = lm_train(dev, failures, get_config(LM))
+    res.update({f"lm_{k}": v for k, v in lm.items()},
                launches=read_counts())
-    log(f"  {LM}: {lm.n_layers} layers, d_model {lm.d_model}, "
-        f"{sum(p.numel() for p in model.parameters()):,} fp32 params; "
-        f"{LM_TRAIN_STEPS} steps of {LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} tokens: "
-        f"step ms {[round(float(x), 1) for x in lm_ms]}, "
-        f"{res['lm_tokens_per_s']:,.0f} tokens/s after the first; peak "
-        f"device memory {lm_peak / 2**30:.2f} GiB; losses "
-        f"{[round(x, 4) for x in lm_losses]} -> {'ok' if ok else 'FAIL'}")
-    if not ok:
-        failures.append("train: an LM loss is not finite")
     launched = {k: v for k, v in res["launches"].items() if v}
     log(f"  kernel launches in [train]: {launched or 'none'}")
     if launched:
         failures.append(f"train: kernels launched {launched}")
+
+
+def lm_train(dev, failures, cfg) -> dict:
+    """``cfg`` at full width trained ``LM_TRAIN_STEPS`` ``Trainer`` steps of
+    ``LM_TRAIN_BATCH`` x ``LM_TRAIN_SEQ`` tokens through
+    ``transformer.loss_fn`` with AdamW, from random weights (``lm_model``):
+    step ms, tokens/s, peak memory, finite losses (and, from the
+    loss's metrics, finite ``ce`` and ``aux``)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.data.synthetic import make_lm_batch
+    from repro_torch.models import transformer
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    model = lm_model(cfg, dev, np.random.default_rng(0))
+    n_params = sum(p.numel() for p in model.parameters())
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="train-lm-", dir=os.path.join(ROOT, "build"))
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        tr = Trainer(
+            TrainerConfig(total_steps=LM_TRAIN_STEPS, ckpt_every=1_000,
+                          ckpt_dir=root),
+            lambda p, b: transformer.loss_fn(cfg, p, b), AdamW(),
+            lambda i: {k: torch.as_tensor(v, device=dev) for k, v in
+                       make_lm_batch(i, LM_TRAIN_BATCH, LM_TRAIN_SEQ,
+                                     cfg.vocab_size).items()}, model)
+        hist = tr.run(verbose=False)
+        peak = torch.cuda.max_memory_allocated(dev)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del tr, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    ms = np.array([m["step_s"] for m in hist]) * 1e3
+    metrics = {k: [m[k] for m in hist] for k in ("loss", "ce", "aux")}
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    ok = len(hist) == LM_TRAIN_STEPS and all(
+        bool(np.isfinite(v).all()) for v in metrics.values())
+    res = {"n_params": n_params, "step_ms": ms.tolist(),
+           "tokens_per_s": tokens / float(np.median(ms[1:])) * 1e3,
+           "peak_bytes": peak, "losses": metrics["loss"],
+           "ce": metrics["ce"], "aux": metrics["aux"]}
+    log(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{n_params:,} fp32 params; {LM_TRAIN_STEPS} steps of "
+        f"{LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} tokens: step ms "
+        f"{[round(float(x), 1) for x in ms]}, {res['tokens_per_s']:,.0f} "
+        f"tokens/s after the first; peak device memory {peak / 2**30:.2f} "
+        f"GiB; loss {[round(x, 4) for x in metrics['loss']]}, ce "
+        f"{[round(x, 4) for x in metrics['ce']]}, aux "
+        f"{[round(x, 4) for x in metrics['aux']]} -> "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"train: a {cfg.name} loss is not finite")
+    return res
 
 
 def free_main_path():
@@ -3422,6 +3483,9 @@ def agreement_mutation(dev, failures, base, corpus, index, ragged, fixed,
 
 LM = "smollm-135m"              # full width and depth
 DECODE_BATCH, PROMPT_LEN, DECODE_STEPS = 8, 4096, 32
+ROUTE_TIE = 1e-6    # card vs CPU in fp32: an MoE expert choice may differ
+                    # only where the k-th and (k+1)-th router probabilities
+                    # lie within this
 
 
 def numpy_params(table, rng) -> dict:
@@ -3449,62 +3513,130 @@ def greedy(logits, vocab: int):
     return logits[:, :vocab].float().argmax(dim=-1)
 
 
-def decode_path(dev, failures) -> dict:
-    """SmolLM-135M at full width and depth on the card (bf16 activations,
-    fp32 masters, weights from numpy seed 0): 8 requests of 4,096 random
-    token ids prefilled, then 32 greedy decode steps, as a server answering
-    8 requests would. The first half of the steps run as they are (their
-    wall is the step time); for the second half ``StageClock`` wraps the
-    flash_decode call with synchronisation, to split the step."""
+def lm_model(cfg, dev, rng):
+    """Random weights for ``cfg`` drawn on the card: the reference's init
+    kinds through ``transformer.init_params`` on a CUDA generator seeded
+    from ``rng`` (fast at any size; llama4-scout's ~6.5 B would take long
+    on the host)."""
     import torch
 
-    from repro_torch import convert
+    from repro_torch.models import transformer
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(rng.integers(2**31)))
+    return transformer.init_params(cfg, gen, dev)
+
+
+class MoERecorder:
+    """Each MoE layer call's aux loss and keep mask, read by wrapping
+    ``moe.route`` and ``moe.dispatch`` while it is entered (the port carries
+    no instrumentation); the tensors stay on their device until read. With
+    ``routes``, also each call's router probabilities (recomputed as
+    ``route`` computes them) and experts, copied to the host."""
+
+    def __init__(self, routes=False):
+        self.routes = routes
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.models import moe
+        self.aux, self.keep, self.probs, self.experts = [], [], [], []
+        self._orig = moe.route, moe.dispatch
+        route, dispatch = self._orig
+
+        def routed(x, router_w, cfg):
+            out = route(x, router_w, cfg)
+            self.aux.append(out[2].detach())
+            if self.routes:
+                self.probs.append(torch.softmax(
+                    x.float() @ router_w.float(), dim=-1).detach().cpu())
+                self.experts.append(out[1].cpu())
+            return out
+
+        def dispatched(*a, **kw):
+            out = dispatch(*a, **kw)
+            self.keep.append(out[1])
+            return out
+        moe.route, moe.dispatch = routed, dispatched
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.route, moe.dispatch = self._orig
+
+
+def decode_path(dev, failures, arch=LM, n_layers=None, prompt_len=PROMPT_LEN,
+                steps=DECODE_STEPS) -> dict:
+    """``arch`` at full width (all its layers, or ``n_layers``) on the card,
+    bf16 activations over fp32 masters, random weights drawn on the card
+    from seed 0 (``lm_model``): 8 requests of ``prompt_len`` random
+    token ids prefilled, then ``steps`` greedy decode steps, as a server
+    answering them would. The first half of the steps run as they are
+    (their wall is the step time); for the second half ``StageClock`` wraps
+    the flash_decode call with synchronisation, to split the step. An MoE
+    model's prefill also gives its aux loss and the tokens each layer
+    dropped (``MoERecorder``)."""
+    import torch
+
     from repro_torch.configs import get_config
     from repro_torch.models import transformer
-    cfg = get_config(LM)
-    b, steps = DECODE_BATCH, DECODE_STEPS
+    from repro_torch.models.moe import capacity
+    cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = cfg.scaled(n_layers=n_layers)
+    b = DECODE_BATCH
     rng = np.random.default_rng(0)
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    model = convert.transformer_params_from_numpy(
-        numpy_params(transformer.param_table(cfg), rng), cfg, dev)
+    model = lm_model(cfg, dev, rng)
     n_params = sum(p.numel() for p in model.parameters())
-    prompts = torch.tensor(rng.integers(0, cfg.vocab_size, (b, PROMPT_LEN)),
+    prompts = torch.tensor(rng.integers(0, cfg.vocab_size, (b, prompt_len)),
                            device=dev)
-    cache = transformer.init_cache(cfg, b, PROMPT_LEN + steps, dev)
+    cache = transformer.init_cache(cfg, b, prompt_len + steps, dev)
     torch.cuda.synchronize()
     cache_bytes = sum(cache[k].numel() * cache[k].element_size()
                       for k in ("k", "v"))
-    log(f"  {LM}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+    moe = cfg.moe
+    log(f"  {arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
         f"{cfg.n_heads} heads / {cfg.n_kv_heads} KV heads of "
-        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; "
-        f"{n_params:,} fp32 params on {dev}, {cache_bytes / 1e6:.0f} MB bf16 "
-        f"cache of {PROMPT_LEN + steps} slots; set up in "
+        f"{cfg.head_dim}, "
+        + (f"{moe.n_experts} experts top-{moe.top_k} of d_ff "
+           f"{moe.d_ff_expert} + {moe.n_shared_experts} shared, "
+           if moe else f"d_ff {cfg.d_ff}, ")
+        + f"vocab {cfg.vocab_size}; {n_params:,} fp32 params (drawn "
+        f"on the card) on {dev}, {cache_bytes / 1e6:.0f} MB bf16 cache of "
+        f"{prompt_len + steps} slots; set up in "
         f"{time.perf_counter() - t0:.1f} s")
 
     reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits, cache = transformer.prefill(cfg, model, prompts, cache)
+    with MoERecorder() as rec:
+        logits, cache = transformer.prefill(cfg, model, prompts, cache)
     tok = greedy(logits, cfg.vocab_size)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     finite = bool(torch.isfinite(logits).all())
     clock = StageClock()
     walls, kernel_s = [], []
-    for step in range(steps):
-        if step == steps // 2:
-            clock.wrap(transformer, "flash_decode", "flash_decode", sync=True)
-        clock.s.clear()
-        t0 = time.perf_counter()
-        pos = torch.full((b,), cache["length"], dtype=torch.int32, device=dev)
-        logits, cache = transformer.decode_step(cfg, model, tok[:, None], pos,
-                                                cache)
-        tok = greedy(logits, cfg.vocab_size)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-        kernel_s.append(clock.s["flash_decode"])
-        finite &= bool(torch.isfinite(logits).all())
+    try:
+        for step in range(steps):
+            if step == steps // 2:
+                clock.wrap(transformer, "flash_decode", "flash_decode",
+                           sync=True)
+            clock.s.clear()
+            t0 = time.perf_counter()
+            pos = torch.full((b,), cache["length"], dtype=torch.int32,
+                             device=dev)
+            logits, cache = transformer.decode_step(cfg, model, tok[:, None],
+                                                    pos, cache)
+            tok = greedy(logits, cfg.vocab_size)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            kernel_s.append(clock.s["flash_decode"])
+            finite &= bool(torch.isfinite(logits).all())
+    finally:
+        clock.restore()
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated(dev)
 
@@ -3512,14 +3644,28 @@ def decode_path(dev, failures) -> dict:
     synced = np.array(walls[steps // 2:]) * 1e3
     kern = np.array(kernel_s[steps // 2:]) * 1e3
     want = cfg.n_layers * steps
-    out = {"prefill_s": prefill_s, "step_ms": plain.tolist(),
+    out = {"arch": arch, "n_layers": cfg.n_layers, "n_params": n_params,
+           "prefill_s": prefill_s, "step_ms": plain.tolist(),
            "tokens_per_s": b * len(plain) / (plain.sum() / 1e3),
            "synced_step_ms": synced.tolist(),
            "flash_decode_ms_per_step": kern.tolist(),
            "peak_bytes": peak, "launches": launches,
            "length": cache["length"]}
-    log(f"  prefill of {b} x {PROMPT_LEN} tokens: {prefill_s:.3f} s "
-        f"({b * PROMPT_LEN / prefill_s:,.0f} tokens/s)")
+    log(f"  prefill of {b} x {prompt_len} tokens: {prefill_s:.3f} s "
+        f"({b * prompt_len / prefill_s:,.0f} tokens/s)")
+    if moe:
+        cap = capacity(prompt_len, moe)
+        dropped = [int((~k).sum()) for k in rec.keep]
+        out.update(prefill_aux=float(torch.stack(rec.aux).sum()),
+                   capacity=cap, dropped_per_layer=dropped)
+        log(f"  prefill MoE: capacity {cap} a group, aux loss "
+            f"{out['prefill_aux']:.4f} summed over {len(rec.aux)} layers; "
+            f"tokens dropped per layer (of {b * prompt_len * moe.top_k} "
+            f"choices) {dropped}")
+        if len(rec.keep) != cfg.n_layers or not np.isfinite(
+                out["prefill_aux"]):
+            failures.append(f"decode {arch}: {len(rec.keep)} MoE layers "
+                            f"ran, aux {out['prefill_aux']}")
     log(f"  decode steps 0-{steps // 2 - 1}: wall per step median "
         f"{np.median(plain):.3f} ms (range {plain.min():.3f}-"
         f"{plain.max():.3f}), {out['tokens_per_s']:,.1f} tokens/s at "
@@ -3534,69 +3680,162 @@ def decode_path(dev, failures) -> dict:
         f"{'finite' if finite else 'NOT finite'}; peak device memory "
         f"{peak / 2**30:.2f} GiB")
     if launches["flash_decode"] != want:
-        failures.append(f"decode: flash_decode launched "
+        failures.append(f"decode {arch}: flash_decode launched "
                         f"{launches['flash_decode']} times, not {want}")
-    if cache["length"] != PROMPT_LEN + steps:
-        failures.append(f"decode: cache length {cache['length']}")
-    if not finite or tuple(logits.shape) != (b, cfg.vocab_size):
-        failures.append("decode: logits not finite or misshapen")
+    if cache["length"] != prompt_len + steps:
+        failures.append(f"decode {arch}: cache length {cache['length']}")
+    if not finite or tuple(logits.shape) != (
+            b, transformer.padded_vocab(cfg.vocab_size)):
+        failures.append(f"decode {arch}: logits not finite or misshapen")
+    del model, cache, logits
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 
-def decode_agreement(dev, failures):
-    """The same model at full width, 2 layers, in fp32: 2 prompts of 64
-    tokens, then 8 greedy decode steps, on the card (flash_decode) and on
-    the CPU (its plain version) from the same numpy weights. Logits within
-    1e-4 x max(1, |ref|) (fp32 sums in other orders over 2 layers and a
-    576-wide product), greedy tokens equal."""
+def decode_agreement(dev, failures, arch=LM, tol=1e-4):
+    """``arch`` at full width, 2 layers, in fp32: 2 prompts of 64 tokens,
+    then 8 greedy decode steps, on the card (flash_decode) and on the CPU
+    (its plain version) from the same numpy weights. Logits within ``tol``
+    x max(1, |ref|) (fp32 sums in other orders over 2 layers; SmolLM's
+    1e-4, granite's 2e-5), greedy tokens equal.
+
+    An MoE model's routing is recorded on both (``MoERecorder``): an
+    expert choice may differ only at a near tie (the CPU's k-th and
+    (k+1)-th router probabilities within ``ROUTE_TIE``), each logged by
+    name; a request whose routing differed is compared no further, and
+    where the routing agrees the keep masks (drops included: 64 tokens
+    top-8 over 32 experts of capacity 24 for granite) are equal."""
     import torch
 
     from repro_torch import convert
     from repro_torch.configs import get_config
     from repro_torch.models import transformer
-    cfg = get_config(LM).scaled(n_layers=2, dtype=torch.float32)
-    b, prompt_len, steps, tol = 2, 64, 8, 1e-4
+    cfg = get_config(arch).scaled(n_layers=2, dtype=torch.float32)
+    b, prompt_len, steps = 2, 64, 8
     rng = np.random.default_rng(1)
     params = numpy_params(transformer.param_table(cfg), rng)
     prompt = rng.integers(0, cfg.vocab_size, (b, prompt_len))
-    runs = {}
+    runs, recs = {}, {}
     for where in (dev, torch.device("cpu")):
         model = convert.transformer_params_from_numpy(params, cfg, where)
         cache = transformer.init_cache(cfg, b, prompt_len + steps, where)
-        logits, cache = transformer.prefill(
-            cfg, model, torch.tensor(prompt, device=where), cache)
-        seq = [logits.cpu()]
-        for _ in range(steps):
-            tok = greedy(logits, cfg.vocab_size)
-            pos = torch.full((b,), cache["length"], dtype=torch.int32,
-                             device=where)
-            logits, cache = transformer.decode_step(cfg, model, tok[:, None],
-                                                    pos, cache)
-            seq.append(logits.cpu())
+        with MoERecorder(routes=True) as recs[where.type]:
+            logits, cache = transformer.prefill(
+                cfg, model, torch.tensor(prompt, device=where), cache)
+            seq = [logits.cpu()]
+            for _ in range(steps):
+                tok = greedy(logits, cfg.vocab_size)
+                pos = torch.full((b,), cache["length"], dtype=torch.int32,
+                                 device=where)
+                logits, cache = transformer.decode_step(
+                    cfg, model, tok[:, None], pos, cache)
+                seq.append(logits.cpu())
         runs[where.type] = seq
-    worst, same_tokens = 0.0, True
-    for card, cpu in zip(runs[dev.type], runs["cpu"]):
+        del model, cache
+    # the step (0: prefill) at which each request's routing first differed
+    first_flip = {}
+    if cfg.moe:
+        card, cpu = recs[dev.type], recs["cpu"]
+        k, n_keep_diff, n_dropped = cfg.moe.top_k, 0, 0
+        for i, (e_card, e_cpu, p_cpu) in enumerate(zip(
+                card.experts, cpu.experts, cpu.probs)):
+            step, layer = divmod(i, cfg.n_layers)
+            differ = (e_card.sort(-1).values != e_cpu.sort(-1).values).any(-1)
+            for g, t in differ.nonzero().tolist():
+                p = p_cpu[g, t].sort(descending=True).values
+                gap = float(p[k - 1] - p[k])
+                near = gap <= ROUTE_TIE
+                log(f"  routing differs: {'prefill' if step == 0 else f'step {step}'}"
+                    f" layer {layer} request {g} token {t}: card experts "
+                    f"{e_card[g, t].tolist()}, CPU {e_cpu[g, t].tolist()}; "
+                    f"CPU k-th minus (k+1)-th probability {gap:.3g} -> "
+                    f"{'near tie' if near else 'NOT a near tie'}")
+                if not near:
+                    failures.append(f"decode {arch}: an expert choice "
+                                    f"differs away from a tie")
+                first_flip[g] = min(first_flip.get(g, step), step)
+            for g in range(b):
+                if g not in first_flip and not torch.equal(
+                        card.keep[i][g].cpu(), cpu.keep[i][g].cpu()):
+                    n_keep_diff += 1
+            n_dropped += int((~cpu.keep[i]).sum())
+        log(f"  {arch} routing, card vs CPU: {len(cpu.experts)} MoE calls, "
+            f"{n_dropped} of the CPU's choices dropped, requests whose "
+            f"routing differed {sorted(first_flip) or 'none'}; keep masks "
+            f"{'equal' if not n_keep_diff else f'DIFFER in {n_keep_diff}'}"
+            " where the routing agrees")
+        if n_keep_diff or len(card.experts) != len(cpu.experts):
+            failures.append(f"decode {arch}: keep masks differ")
+    worst, same_tokens, compared = 0.0, True, 0
+    for step, (card, cpu) in enumerate(zip(runs[dev.type], runs["cpu"])):
+        rows = [g for g in range(b) if first_flip.get(g, steps + 1) > step]
+        compared += len(rows)
+        if not rows:
+            continue
+        card, cpu = card[rows], cpu[rows]
         err = float((card - cpu).abs().max())
         worst = max(worst, err / max(1.0, float(cpu.abs().max())))
         same_tokens &= bool(torch.equal(greedy(card, cfg.vocab_size),
                                         greedy(cpu, cfg.vocab_size)))
-    ok = worst <= tol and same_tokens
-    log(f"  {LM} fp32, 2 layers, {b} x {prompt_len}-token prompts + {steps} "
-        f"steps, card vs CPU: max logit diff {worst:.3g} x max(1, |ref|) "
-        f"(tol {tol}), greedy tokens {'equal' if same_tokens else 'DIFFER'}"
-        f" -> {'ok' if ok else 'FAIL'}")
+    ok = worst <= tol and same_tokens and compared > 0
+    log(f"  {arch} fp32, 2 layers, {b} x {prompt_len}-token prompts + "
+        f"{steps} steps, card vs CPU: max logit diff {worst:.3g} x max(1, "
+        f"|ref|) (tol {tol}) over {compared} of {b * (steps + 1)} request "
+        f"steps, greedy tokens {'equal' if same_tokens else 'DIFFER'} -> "
+        f"{'ok' if ok else 'FAIL'}")
     if not ok:
-        failures.append("decode: the card's logits disagree with the CPU's")
+        failures.append(f"decode {arch}: the card's logits disagree with "
+                        f"the CPU's")
+
+
+# phase 16 [moe]: arch -> (layers run, None for all; prompt tokens; decode
+# steps), each served at DECODE_BATCH, its weights drawn on the card (fast
+# at any size)
+MOE_LM = "granite-moe-1b-a400m"     # served, trained and held card vs CPU
+MOE_DECODES = {
+    MOE_LM: (None, PROMPT_LEN, DECODE_STEPS),
+    "qwen2-0.5b": (None, PROMPT_LEN, DECODE_STEPS),
+    # depth 2 of 48: at full depth ~108 B params (431 GB fp32) fit no card
+    "llama4-scout-17b-a16e": (2, 1024, 8),
+}
+MOE_KERNELS = {f"decode {arch}": ("flash_decode",) for arch in MOE_DECODES}
+MOE_AGREE_TOL = 2e-5    # granite fp32 card vs CPU, where routing agrees
+
+
+def moe_phase(dev, failures) -> dict:
+    """The other LM configs on the card, bf16 over fp32 masters: each of
+    ``MOE_DECODES`` served by ``decode_path`` (flash_decode once a layer a
+    step, or the run fails); granite trained by ``lm_train`` (no kernel may
+    launch); granite in fp32 at 2 layers held card vs CPU by
+    ``decode_agreement``, routing recorded. TF32 stays off: the routers'
+    fp32 logits decide which experts run."""
+    from repro_torch.configs import get_config
+    tf32_off(failures, "before [moe]")
+    out = {}
+    for arch, (layers, prompt, steps) in MOE_DECODES.items():
+        out[f"decode {arch}"] = decode_path(dev, failures, arch, layers,
+                                            prompt, steps)
+    reset_counts()
+    out["train"] = lm_train(dev, failures, get_config(MOE_LM))
+    launched = {k: v for k, v in read_counts().items() if v}
+    log(f"  kernel launches in {MOE_LM}'s training: {launched or 'none'}")
+    if launched:
+        failures.append(f"moe: kernels launched in training {launched}")
+    decode_agreement(dev, failures, MOE_LM, MOE_AGREE_TOL)
+    tf32_off(failures, "after [moe]")
+    return out
 
 
 def kernel_rows(rows) -> list[dict]:
     """The ``{"kernels": [...]}`` line's rows. Each kernel's launches are
-    those of the paths that run it (the retrieval modes, the LM decode),
+    those of the paths that run it (the retrieval modes, the LM decodes),
     each path's count read around its own run."""
-    paths = {**rows["path"], **rows["serving"], "decode": rows["decode"]}
+    paths = {**rows["path"], **rows["serving"], "decode": rows["decode"],
+             **{p: rows["moe"][p] for p in MOE_KERNELS}}
     by_path = {name: {mode: paths[mode]["launches"][name]
-                      for mode, names in {**PATH_KERNELS,
-                                          **SERVING_KERNELS}.items()
+                      for mode, names in {**PATH_KERNELS, **SERVING_KERNELS,
+                                          **MOE_KERNELS}.items()
                       if name in names}
                for name in KERNELS}
     # maxsim over the path's calls: each call's device_ms and bound taken
@@ -3680,7 +3919,8 @@ def main(argv=None) -> int:
               ("agreement", lambda: agreement(dev, failures)),
               ("decode path", lambda: rows.update(
                   decode=decode_path(dev, failures))),
-              ("decode agreement", lambda: decode_agreement(dev, failures))]
+              ("decode agreement", lambda: decode_agreement(dev, failures)),
+              ("moe", lambda: rows.update(moe=moe_phase(dev, failures)))]
     for name, fn in phases:
         log(f"[{name}]")
         t0 = time.perf_counter()

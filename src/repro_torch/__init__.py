@@ -11,9 +11,9 @@ sign-bit and FDE tables, and ``cspn`` over the constant-space
 kernels: ``kernels/maxsim``, ``kernels/ivf_scan``, ``kernels/bitsim``,
 ``kernels/fdescan`` and ``kernels/gather_pack`` (the restructuring step
 that packs every rerank's tiles from the raw rows a read moved to the
-device). The dense transformer LM's serving path (``models/``,
-``configs/``: prefill, then decode over a KV cache) runs its decode
-attention on a sixth, ``kernels/flash_decode``.
+device). The transformer LMs' serving path (``models/``, ``configs/``:
+the dense and MoE configs, prefill, then decode over a KV cache) runs its
+decode attention on a sixth, ``kernels/flash_decode``.
 
     from repro_torch.pipeline import Pipeline, PipelineConfig
 

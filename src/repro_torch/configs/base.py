@@ -22,7 +22,7 @@ class MoEConfig:
     n_experts: int
     top_k: int
     d_ff_expert: int
-    n_shared_experts: int = 0
+    n_shared_experts: int = 0       # llama4-style always-on shared expert
     capacity_factor: float = 1.25
     router_jitter: float = 0.0
 
@@ -39,7 +39,7 @@ class TransformerConfig:
     vocab_size: int
     d_head: int = 0                  # 0 -> d_model // n_heads
     qkv_bias: bool = False
-    moe: MoEConfig | None = None     # the port runs dense models only
+    moe: MoEConfig | None = None
     rope_theta: float = 10_000.0
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
@@ -95,8 +95,7 @@ def register(name: str):
 
 def get_config(name: str):
     if name not in _REGISTRY:
-        from repro_torch.configs import (colberter,  # noqa: F401  (registers)
-                                         smollm_135m)
+        import repro_torch.configs  # noqa: F401  (registers every config)
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")
     return _REGISTRY[name]()

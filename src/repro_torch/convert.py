@@ -97,10 +97,12 @@ def fde_table_from_numpy(arrays, device) -> FDETable:
 
 def transformer_params_from_numpy(params, cfg: TransformerConfig,
                                   device) -> TransformerLM:
-    """The dense LM with the weights of the reference's nested parameter
-    dict (``embed``, ``final_norm``, [``lm_head``,] ``layers/{wq, ...}``,
-    numpy arrays of the reference's shapes), on ``device`` in
-    ``cfg.param_dtype``. A missing, extra or misshapen array raises."""
+    """The LM with the weights of the reference's nested parameter dict
+    (``embed``, ``final_norm``, [``lm_head``,] ``layers/{wq, ...}``, with an
+    MoE model's ``layers/{router, w_gate, ...}`` and shared-expert
+    ``layers/{w_gate_s, ...}``; numpy arrays of the reference's shapes), on
+    ``device`` in ``cfg.param_dtype``. A missing, extra or misshapen array
+    raises."""
     return _fill(TransformerLM(cfg, device), param_table(cfg), params,
                  cfg.name)
 

@@ -1,9 +1,12 @@
 """Training launcher: ``python -m repro_torch.launch.train --arch colberter
 --steps 200``. Trains on the card (``--device cpu`` to train on the CPU):
-LM pretraining (``--arch smollm-135m``) or ColBERTer contrastive retrieval
-training (``--arch colberter``), with checkpoint/resume. The weights start
-from seed 0 on a CPU generator through the model's ``init_params``, so the
-card and the CPU start alike."""
+LM pretraining (a dense LM such as ``--arch smollm-135m``, or an MoE LM
+such as ``--arch granite-moe-1b-a400m``, whose loss adds the routers' aux
+loss) or ColBERTer contrastive retrieval training (``--arch colberter``),
+with checkpoint/resume. The weights start from seed 0 on a CPU generator
+through the model's ``init_params``, so the card and the CPU start alike.
+The last line gives the final and first losses, and the LM's last ``ce``
+and ``aux``."""
 from __future__ import annotations
 
 import argparse
@@ -87,8 +90,10 @@ def main(argv: list[str] | None = None) -> None:
     if args.resume:
         print("resumed at", tr.maybe_resume())
     hist = tr.run()
+    parts = "".join(f" {k}={hist[-1][k]:.4f}" for k in ("ce", "aux")
+                    if k in hist[-1])
     print(f"final loss {hist[-1]['loss']:.4f} "
-          f"(start {hist[0]['loss']:.4f})")
+          f"(start {hist[0]['loss']:.4f}){parts}")
 
 
 if __name__ == "__main__":

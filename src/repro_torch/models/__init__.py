@@ -1,1 +1,2 @@
-"""The dense transformer LM of the port: layers, attention, the model."""
+"""The port's models: the dense and MoE transformer LMs (layers, attention,
+the MoE layer, the model) and the ColBERTer encoder."""

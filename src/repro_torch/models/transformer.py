@@ -1,5 +1,5 @@
-"""Dense GQA transformer LM: parameters, init, the training loss, prefill and
-KV-cache decode.
+"""Dense and MoE GQA transformer LM: parameters, init, the training loss,
+prefill and KV-cache decode.
 
 The parameters keep the reference's names and stacked ``(L, ...)`` shapes
 (``embed`` (V, D), ``layers.wq`` (L, D, H*Dh), ...), and every product is
@@ -27,6 +27,7 @@ from torch import nn
 from repro_torch.configs.base import TransformerConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_decode.ops import flash_decode
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.attention import (INT32_MAX, apply_rope,
                                           blockwise_attention)
 from repro_torch.models.layers import (cross_entropy_logits, dense_init,
@@ -39,16 +40,8 @@ def padded_vocab(v: int) -> int:
     return -(-v // 512) * 512
 
 
-def _dense_only(cfg: TransformerConfig):
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the port runs dense transformers only; the MoE "
-            "layer is still to port (ROADMAP Queue A)")
-
-
 def param_table(cfg: TransformerConfig) -> dict[str, tuple[tuple, str]]:
     """name -> (shape, init kind), under the reference's names."""
-    _dense_only(cfg)
     L, D, H, KV, Dh, F = (cfg.n_layers, cfg.d_model, cfg.n_heads,
                           cfg.n_kv_heads, cfg.head_dim, cfg.d_ff)
     t = {"embed": ((padded_vocab(cfg.vocab_size), D), "embed"),
@@ -67,15 +60,66 @@ def param_table(cfg: TransformerConfig) -> dict[str, tuple[tuple, str]]:
         lyr["bq"] = ((L, H * Dh), "zeros")
         lyr["bk"] = ((L, KV * Dh), "zeros")
         lyr["bv"] = ((L, KV * Dh), "zeros")
-    lyr["w_gate"] = ((L, D, F), "dense")
-    lyr["w_up"] = ((L, D, F), "dense")
-    lyr["w_down"] = ((L, F, D), "dense")
+    if cfg.moe is None:
+        lyr["w_gate"] = ((L, D, F), "dense")
+        lyr["w_up"] = ((L, D, F), "dense")
+        lyr["w_down"] = ((L, F, D), "dense")
+    else:
+        E, Fe = cfg.moe.n_experts, cfg.moe.d_ff_expert
+        lyr["router"] = ((L, D, E), "dense")
+        lyr["w_gate"] = ((L, E, D, Fe), "dense")
+        lyr["w_up"] = ((L, E, D, Fe), "dense")
+        lyr["w_down"] = ((L, E, Fe, D), "dense")
+        if cfg.moe.n_shared_experts:
+            Fs = Fe * cfg.moe.n_shared_experts
+            lyr["w_gate_s"] = ((L, D, Fs), "dense")
+            lyr["w_up_s"] = ((L, D, Fs), "dense")
+            lyr["w_down_s"] = ((L, Fs, D), "dense")
     t.update({f"layers/{k}": v for k, v in lyr.items()})
     return t
 
 
+def _nest(flat: dict) -> dict:
+    """``{"layers/wq": a}`` -> ``{"layers": {"wq": a}}``, as the reference
+    nests its parameters."""
+    out: dict = {}
+    for k, v in flat.items():
+        if "/" in k:
+            a, b = k.split("/", 1)
+            out.setdefault(a, {})[b] = v
+        else:
+            out[k] = v
+    return out
+
+
+def param_shapes(cfg: TransformerConfig) -> dict:
+    """The reference's nested parameter dict as empty ``meta`` tensors of
+    the parameters' shapes and dtype."""
+    return _nest({name: torch.empty(shape, dtype=cfg.param_dtype,
+                                    device="meta")
+                  for name, (shape, _) in param_table(cfg).items()})
+
+
+def _cache_layout(cfg: TransformerConfig, batch: int,
+                  max_len: int) -> dict[str, tuple[tuple, torch.dtype]]:
+    """The KV cache's tensors: name -> (shape, dtype)."""
+    kv = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": (kv, cfg.dtype), "v": (kv, cfg.dtype),
+            "slot_pos": ((batch, max_len), torch.int32)}
+
+
+def cache_shapes(cfg: TransformerConfig, batch: int, max_len: int) -> dict:
+    """``init_cache``'s tensors as empty ``meta`` tensors (``length`` a
+    0-d int32 one, as in the reference)."""
+    out = {name: torch.empty(shape, dtype=dtype, device="meta")
+           for name, (shape, dtype)
+           in _cache_layout(cfg, batch, max_len).items()}
+    out["length"] = torch.empty((), dtype=torch.int32, device="meta")
+    return out
+
+
 class TransformerLM(nn.Module):
-    """The dense LM's fp32 master parameters (``param_table``), allocated
+    """The LM's fp32 master parameters (``param_table``), allocated
     uninitialised on ``device``; ``init_params`` or ``convert.
     transformer_params_from_numpy`` fill them."""
 
@@ -132,10 +176,11 @@ def _layer(cfg: TransformerConfig, x, lp, positions, *, cache=None,
     """One transformer block. x: (B, S, D).
 
     Prefill: cache is None -> blockwise causal self-attention; returns
-    (y, (k, v)). Decode: cache = (k_cache, v_cache, write_pos), this
+    (y, aux, (k, v)). Decode: cache = (k_cache, v_cache, write_pos), this
     layer's (B, S_max, KV, Dh) cache views; the new k/v are written at
     ``write_pos`` in place and the attention runs over the first
-    ``lengths`` slots; returns (y, None).
+    ``lengths`` slots; returns (y, aux, None). aux is the MoE layer's aux
+    loss (0 for a dense layer).
     """
     dt = cfg.dtype
     B, S, _ = x.shape
@@ -167,31 +212,36 @@ def _layer(cfg: TransformerConfig, x, lp, positions, *, cache=None,
 
     x = x + attn.reshape(B, S, H * Dh) @ lp["wo"].to(dt)
     h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-    y = swiglu_mlp(h, lp["w_gate"].to(dt), lp["w_up"].to(dt),
-                   lp["w_down"].to(dt))
-    return x + y, kv_out
+    if cfg.moe is None:
+        y = swiglu_mlp(h, lp["w_gate"].to(dt), lp["w_up"].to(dt),
+                       lp["w_down"].to(dt))
+        aux = torch.zeros((), device=x.device)
+    else:
+        # groups = the batch rows: capacity and drops are per request
+        y, aux = moe_lib.moe_ffn(h, lp, cfg.moe, dt)
+    return x + y, aux, kv_out
 
 
 def forward(cfg: TransformerConfig, params: TransformerLM, tokens,
             positions=None, *, collect_kv: bool = False):
-    """Token ids (B, S) -> (final hidden states (B, S, D), aux loss (0 for
-    a dense model), stacked (L, B, S, KV, Dh) k and v or None)."""
-    _dense_only(cfg)
+    """Token ids (B, S) -> (final hidden states (B, S, D), the aux loss
+    summed over the layers (0 for a dense model), stacked (L, B, S, KV, Dh)
+    k and v or None)."""
     B, S = tokens.shape
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32,
                                  device=tokens.device).expand(B, S)
     x = params.embed[tokens].to(cfg.dtype)
-    ks, vs = [], []
+    ks, vs, auxes = [], [], []
     for i in range(cfg.n_layers):
-        x, (k, v) = _layer(cfg, x, params.layer(i), positions)
+        x, aux, (k, v) = _layer(cfg, x, params.layer(i), positions)
+        auxes.append(aux)
         if collect_kv:
             ks.append(k)
             vs.append(v)
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
-    aux = torch.zeros((), device=x.device)
-    return x, aux, ((torch.stack(ks), torch.stack(vs)) if collect_kv
-                    else None)
+    return x, torch.stack(auxes).sum(), (
+        (torch.stack(ks), torch.stack(vs)) if collect_kv else None)
 
 
 def logits_from_hidden(cfg: TransformerConfig, params: TransformerLM, x):
@@ -202,8 +252,8 @@ def logits_from_hidden(cfg: TransformerConfig, params: TransformerLM, x):
 def loss_fn(cfg: TransformerConfig, params: TransformerLM, batch,
             aux_weight: float = 0.01):
     """Mean next-token CE over the targets >= 0 (fp32 logsumexp), plus
-    ``aux_weight`` x the aux loss (0 for a dense model). batch: tokens and
-    targets, (B, S) int. Returns (loss, {"ce", "aux"})."""
+    ``aux_weight`` x the MoE layers' summed aux loss (0 for a dense model).
+    batch: tokens and targets, (B, S) int. Returns (loss, {"ce", "aux"})."""
     x, aux, _ = forward(cfg, params, batch["tokens"])
     logits = logits_from_hidden(cfg, params, x)
     targets = batch["targets"]
@@ -220,16 +270,12 @@ def loss_fn(cfg: TransformerConfig, params: TransformerLM, batch,
 def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
                device="cuda") -> dict:
     dev = resolve_device(device)
-    L, KV, Dh = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
-    return {
-        "k": torch.zeros((L, batch, max_len, KV, Dh), dtype=cfg.dtype,
-                         device=dev),
-        "v": torch.zeros((L, batch, max_len, KV, Dh), dtype=cfg.dtype,
-                         device=dev),
-        "slot_pos": torch.full((batch, max_len), INT32_MAX,
-                               dtype=torch.int32, device=dev),
-        "length": 0,
-    }
+    cache = {name: torch.zeros(shape, dtype=dtype, device=dev)
+             for name, (shape, dtype)
+             in _cache_layout(cfg, batch, max_len).items()}
+    cache["slot_pos"].fill_(INT32_MAX)
+    cache["length"] = 0
+    return cache
 
 
 @torch.no_grad()
@@ -256,7 +302,6 @@ def decode_step(cfg: TransformerConfig, params: TransformerLM, tokens,
     """One decode step. tokens: (B, 1); positions: (B,). Writes slot
     ``cache["length"]`` of every layer in place and returns (logits (B, V),
     cache) with ``length`` advanced by one."""
-    _dense_only(cfg)
     write_pos = int(cache["length"])
     if write_pos >= cache["k"].shape[2]:
         raise ValueError(f"decode_step: the cache's {write_pos} slots are "
@@ -271,9 +316,9 @@ def decode_step(cfg: TransformerConfig, params: TransformerLM, tokens,
     lengths = torch.full((B,), write_pos + 1, dtype=torch.int32,
                          device=x.device)
     for i in range(cfg.n_layers):
-        x, _ = _layer(cfg, x, params.layer(i), positions[:, None],
-                      cache=(cache["k"][i], cache["v"][i], write_pos),
-                      lengths=lengths)
+        x, _, _ = _layer(cfg, x, params.layer(i), positions[:, None],
+                         cache=(cache["k"][i], cache["v"][i], write_pos),
+                         lengths=lengths)
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
     cache["length"] = write_pos + 1
     return logits_from_hidden(cfg, params, x[:, -1, :]), cache

@@ -64,6 +64,58 @@ def test_kernel_matches_plain_version_on_the_card(card, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("kv,g,dh", [(8, 2, 64), (2, 7, 64), (8, 5, 128)])
+def test_kernel_at_the_other_lms_decode_shapes(card, kv, g, dh, dtype):
+    """granite's G 2 over KV 8 (a part-filled G tile of 3), qwen2's G 7
+    over KV 2 and llama4's G 5 over KV 8 at Dh 128 (part-filled tiles of
+    8), ragged lengths: as above."""
+    ulp = {torch.float32: 1e-5, torch.bfloat16: 2**-7,
+           torch.float16: 2**-10}[dtype]
+    s = 300
+    r = np.random.default_rng(kv * 100 + g * 10 + dh)
+    args = [torch.from_numpy(r.standard_normal(shape).astype(np.float32)).to(
+        card, dtype) for shape in ((4, kv, g, dh), (4, s, kv, dh),
+                                   (4, s, kv, dh))]
+    args.append(torch.tensor([1, s, 0, 123], dtype=torch.int32, device=card))
+    before = ops.flash_decode.launches
+    out = ops.flash_decode(*args)
+    again = ops.flash_decode(*args)
+    ref = flash_decode_ref(*args)
+    torch.cuda.synchronize()
+    assert ops.flash_decode.launches == before + 2
+    assert torch.equal(out, again)
+    assert out.dtype == dtype and out.shape == ref.shape
+    err = float((out.float() - ref.float()).abs().max())
+    assert err <= ulp * max(1.0, float(ref.float().abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,kv,g,dh", [(4128, 3, 3, 64), (4128, 8, 2, 64),
+                                       (4128, 2, 7, 64), (1032, 8, 5, 128)])
+def test_kernel_at_the_decode_paths_first_step(card, s, kv, g, dh):
+    """The first decode step of SmolLM's, granite's and qwen2's 8 x 4,096
+    prompts and llama4's 8 x 1,024 (cache of prompt + steps slots, every
+    length prompt + 1), bf16: within one ulp, one launch a call."""
+    r = np.random.default_rng(s + kv * 100 + g * 10 + dh)
+    args = [torch.from_numpy(r.standard_normal(shape).astype(np.float32)).to(
+        card, torch.bfloat16) for shape in ((8, kv, g, dh), (8, s, kv, dh),
+                                            (8, s, kv, dh))]
+    steps = 32 if s == 4128 else 8
+    args.append(torch.full((8,), s - steps + 1, dtype=torch.int32,
+                           device=card))
+    before = ops.flash_decode.launches
+    out = ops.flash_decode(*args)
+    ref = flash_decode_ref(*args)
+    torch.cuda.synchronize()
+    assert ops.flash_decode.launches == before + 1
+    assert out.dtype == torch.bfloat16 and out.shape == ref.shape
+    err = float((out.float() - ref.float()).abs().max())
+    assert err <= 2**-7 * max(1.0, float(ref.float().abs().max()))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("b,n,d,fp16,kernel", [
     (1, 1000, 256, True, "wgmma"), (33, 1037, 128, True, "wgmma"),
     (64, 4099, 256, True, "wgmma"), (70, 3001, 256, True, "wgmma"),
@@ -526,6 +578,60 @@ def test_encoder_on_the_card_equals_the_cpu(card):
         cos = torch.nn.functional.cosine_similarity(f.float(), h.float(),
                                                     dim=-1)
         assert float(cos.min()) >= 0.99
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,k,shared", [(32, 8, 0), (16, 1, 1)])
+def test_moe_ffn_on_the_card_equals_the_cpu(card, e, k, shared):
+    """The MoE layer in fp32 (granite's 32 experts top-8, llama4's 16 top-1
+    + a shared expert; d_model 1,024, 4 groups of 64 tokens, capacity
+    factor 1.25: drops happen) on the card and on the CPU from the same
+    weights: an expert choice may differ only at a near tie (the CPU's
+    k-th and (k+1)-th probabilities within 1e-6); in every group whose
+    routing agrees, keep masks equal and outputs within 1e-5 x max(1,
+    |cpu|); aux within 1e-6; the card's output the same bits twice. TF32
+    stays off (PyTorch's default)."""
+    from repro_torch.configs import MoEConfig
+    from repro_torch.models import moe
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = MoEConfig(n_experts=e, top_k=k, d_ff_expert=512,
+                    n_shared_experts=shared)
+    d = 1024
+    r = np.random.default_rng(e + k)
+    shapes = {"router": (d, e), "w_gate": (e, d, 512), "w_up": (e, d, 512),
+              "w_down": (e, 512, d)}
+    if shared:
+        shapes |= {"w_gate_s": (d, 512), "w_up_s": (d, 512),
+                   "w_down_s": (512, d)}
+    params = {n: torch.from_numpy((r.standard_normal(sh) / np.sqrt(sh[-2]))
+                                  .astype(np.float32))
+              for n, sh in shapes.items()}
+    x = torch.from_numpy(r.standard_normal((4, 64, d)).astype(np.float32))
+    got = {}
+    for dev in (torch.device("cpu"), card):
+        p = {n: t.to(dev) for n, t in params.items()}
+        xd = x.to(dev)
+        y, aux = moe.moe_ffn(xd, p, cfg, torch.float32)
+        probs = torch.softmax(xd @ p["router"], dim=-1)
+        _, experts, _ = moe.route(xd, p["router"], cfg)
+        _, keep = moe.dispatch(experts, e, moe.capacity(64, cfg))
+        got[dev.type] = [t.cpu() for t in (y, aux, probs, experts, keep)]
+        if dev.type == "cuda":
+            again, _ = moe.moe_ffn(xd, p, cfg, torch.float32)
+            assert torch.equal(y, again)
+    (y0, a0, p0, e0, k0), (y1, a1, _, e1, k1) = got["cpu"], got[card.type]
+    assert abs(float(a1) - float(a0)) <= 1e-6
+    assert int((~k0).sum()) > 0
+    differ = (e0.sort(-1).values != e1.sort(-1).values).any(-1)
+    for g, t in differ.nonzero().tolist():
+        pv = p0[g, t].sort(descending=True).values
+        assert float(pv[k - 1] - pv[k]) <= 1e-6, (g, t)
+    agreed = [g for g in range(4) if not differ[g].any()]
+    assert agreed
+    for g in agreed:
+        assert torch.equal(k0[g], k1[g])
+        err = float((y1[g] - y0[g]).abs().max())
+        assert err <= 1e-5 * max(1.0, float(y0[g].abs().max()))
 
 
 def _pairs(cfg, n, seed):

@@ -72,7 +72,8 @@ def test_serving_modules_are_walked_and_import_alone():
 
 
 #: the training path's modules: the optimizers, compression, checkpoints,
-#: the trainer, the data pipeline, the launcher, the losses and quantize
+#: the trainer, the data pipeline, the launcher, the losses and quantize;
+#: the LM configs it trains and the MoE layer
 TRAIN_MODULES = (
     "repro_torch.train", "repro_torch.train.optimizer",
     "repro_torch.train.compress", "repro_torch.train.checkpoint",
@@ -80,7 +81,10 @@ TRAIN_MODULES = (
     "repro_torch.data.synthetic", "repro_torch.launch.train",
     "repro_torch.models.colberter", "repro_torch.models.transformer",
     "repro_torch.models.layers", "repro_torch.core.quantize",
-    "repro_torch.convert")
+    "repro_torch.convert", "repro_torch.models.moe",
+    "repro_torch.configs.qwen2_0_5b", "repro_torch.configs.qwen2_72b",
+    "repro_torch.configs.granite_moe_1b_a400m",
+    "repro_torch.configs.llama4_scout_17b_a16e")
 
 
 def test_train_modules_are_walked_and_import_alone():

@@ -574,6 +574,23 @@ def test_launch_train_lm_branch(tmp_path):
     assert np.isfinite(loss) and abs(loss - np.log(512)) < 1.0
 
 
+def test_launch_train_moe_branch(tmp_path):
+    """The MoE LM trains through the same branch: finite loss, ce and aux
+    (the routers' Switch loss summed over the 2 smoke layers, ~1 each),
+    loss = ce + 0.01 aux."""
+    out = run(["-m", "repro_torch.launch.train", "--arch",
+               "granite-moe-1b-a400m", "--smoke", "--steps", "4", "--seq",
+               "32", "--device", "cpu", "--ckpt-dir", str(tmp_path)])
+    assert out[0].startswith("arch=granite-moe-1b-a400m")
+    words = out[-1].split()
+    loss = float(words[2])
+    metrics = dict(w.split("=") for w in words[5:])
+    ce, aux = float(metrics["ce"]), float(metrics["aux"])
+    assert np.isfinite([loss, ce, aux]).all()
+    assert abs(ce - np.log(512)) < 1.0 and 1.0 < aux < 4.0
+    assert abs(loss - (ce + 0.01 * aux)) < 1e-3
+
+
 def test_launch_train_defaults_to_the_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
