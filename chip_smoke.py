@@ -62,12 +62,14 @@ Phases, each of which must pass:
    non-degraded queries alone; a batch whose every read fails (no maxsim,
    no gather_pack); one traced server batch exported to Perfetto and read
    back by ``analyze_trace``;
-10. cluster: the storage cluster on the same artifacts: a 1x1 cluster's
-   espn batch equal to the single tier's bit for bit (bill included); 4
-   shards x 2 replicas in cascade and espn, equal in ids, scores and byte
-   bills (only the clock moves); a sharded espn server whose 32 answers
-   equal ``search`` of each query alone; a killed replica failing over with
-   nothing degraded, and its recovery's re-sync bill; gds on stragglers
+10. cluster: the storage cluster on the same artifacts (its espn batches
+   of 16 queries, held to a single-tier batch of the same 16): a 1x1
+   cluster's espn batch equal to the single tier's bit for bit (bill
+   included); 4 shards x 2 replicas in cascade and espn, equal in ids,
+   scores and byte bills (only the clock moves); a sharded espn server
+   whose 32 answers equal ``search`` of each query alone; a killed replica
+   failing over with nothing degraded, and its recovery's re-sync bill; gds
+   on stragglers
    (a 3x primary, jitter, hedging past the 0.95 quantile, a 4,000 MB arena
    cache): three batches, the first hedged, the next two from the cache
    with no critical I/O; an autoscaled gds server under a 50 ms SLO and
@@ -128,7 +130,26 @@ Phases, each of which must pass:
    top-1 + a shared expert), 8 x 1,024 tokens and 8 steps; granite trained
    3 steps of 8 x 512 tokens (finite ce and aux, no kernel launched); and
    granite in fp32 at 2 layers card vs CPU, its expert choices equal up to
-   near ties (each logged), keep masks equal where routing agrees.
+   near ties (each logged), keep masks equal where routing agrees;
+17. recsys: fm, autoint, dlrm-mlperf and two-tower-retrieval at their
+   published widths (bf16 over fp32 masters drawn on the card; tables
+   capped at 20,000,000 rows to serve, 4,000,000 to train): a serve_p99
+   (512) and a serve_bulk (262,144) batch through ``forward`` each (ms a
+   batch, rows/s, peak memory, the same bits twice, a loss twice),
+   two-tower's 1,000,448-candidate top 100 and its query tower alone; 3
+   AdamW steps each (65,536 rows, two-tower 16,384; ms a step, peak
+   memory, the first step's weights the same bits twice); ESPN-for-RecSys
+   over a 2,000,000 x 64 fp16 table at the benchmark's three settings and
+   at the measured query-tower budget (hit rate, simulated critical and
+   direct I/O); each smoke config in fp32 card vs CPU;
+18. gnn: gatedgcn at its published width (16 layers, d_hidden 70, 47
+   classes) trained 3 AdamW steps each on full_graph_sm (edges padded by
+   ``pad512``), a ``sample_block`` block of minibatch_lg (fanouts 15 and
+   10, 1,024 seeds, on a 232,965-node graph of average degree 50) and a
+   molecule batch (128 graphs, ``graph_ids`` readout): ms a step, peak
+   memory, finite losses and gradients, the same bits twice; the smoke
+   config in fp32 card vs CPU, and with 512 pad edges vs none on the card.
+   Neither phase may launch any of the six kernels.
 
 It then prints the card line, the ``{"kernels": [...]}`` line and, last,
 the ``{"ok": ...}`` line. Any failed phase exits non-zero without them.
@@ -1554,6 +1575,8 @@ MUTATION_PATHS = [p for p in SERVING_KERNELS if p.startswith("mutation_")]
 # the [cluster] phase: the reference's CI scale-out settings (ci.yml), at the
 # main path's size
 SHARDS, REPLICAS = 4, 2
+CLUSTER_ESPN_QUERIES = 16   # its espn batches (64 until [recsys] and [gnn]
+                            # came: a depth cut)
 STRAGGLERS = dict(replica_mults=[3.0, 1.0], jitter_sigma=0.25,
                   hedge_quantile=0.95, arena_cache_mb=4000.0)
 AUTOSCALE_REQUESTS = 128
@@ -2175,20 +2198,34 @@ def cluster_phase(dev, failures, out):
         if not ok:
             failures.append(f"cluster: {path}: {what}")
 
-    # 1) a 1x1 cluster IS the single tier: ids, scores and the whole bill
+    # the espn batches here are of CLUSTER_ESPN_QUERIES (a depth cut), held
+    # to a single-tier batch of the same queries, whose answers are the
+    # main path's for them (a query's answer is its own alone)
     ecfg = mode_cfg(cfg, "espn")
+    q16 = first_queries(corpus, CLUSTER_ESPN_QUERIES)
+    with Pipeline.from_artifacts(ecfg, index=idx, layout=layout,
+                                 device=dev) as single:
+        want16 = single.search(*q16)
+    first = {"espn": want16, "cascade": FIRST["cascade"]}
+    check("cluster_single_espn", all(
+        np.array_equal(w.doc_ids, g.doc_ids)
+        and np.array_equal(w.scores, g.scores)
+        for w, g in zip(FIRST["espn"].ranked, want16.ranked)),
+        f"single-tier espn batch of {CLUSTER_ESPN_QUERIES}: ids and scores "
+        f"those of the main path's batch of {BATCH_SIZE} for its queries")
+    # 1) a 1x1 cluster IS the single tier: ids, scores and the whole bill
     clus = StorageCluster(layout, t_max=ecfg.storage.t_max, device=dev)
     backend = get_backend("espn")(idx, clus,
                                   ecfg.retrieval.to_espn_config())
     reset_counts()
     t0 = time.perf_counter()
-    got = backend.query_batch(*q)
+    got = backend.query_batch(*q16)
     out["cluster_1x1_espn"] = {"launches": read_counts(),
                                "wall_s": time.perf_counter() - t0}
     clus.close()
-    check("cluster_1x1_espn", same_bits(FIRST["espn"], got),
-          f"1x1 cluster espn batch of {BATCH_SIZE} vs the single tier: ids, "
-          f"scores and bill bit for bit (wall "
+    check("cluster_1x1_espn", same_bits(want16, got),
+          f"1x1 cluster espn batch of {CLUSTER_ESPN_QUERIES} vs the single "
+          f"tier: ids, scores and bill bit for bit (wall "
           f"{out['cluster_1x1_espn']['wall_s']:.2f} s)")
     # 2) 4 shards x 2 replicas, cascade then espn on the same shard
     #    layouts: only the clock moves
@@ -2206,20 +2243,21 @@ def cluster_phase(dev, failures, out):
     CTX["shard_layouts"] = list(zip((sh.layout for sh in casc.tier.shards),
                                     casc.tier.shard_ids))
     with casc, casc.with_mode("espn") as espn:
-        for mode, pipe in (("cascade", casc), ("espn", espn)):
+        for mode, pipe, qs in (("cascade", casc, q), ("espn", espn, q16)):
             reset_counts()
             t0 = time.perf_counter()
-            got = pipe.search(*q)
+            got = pipe.search(*qs)
             path = f"cluster_{mode}"
             out[path] = {"launches": read_counts(),
                          "wall_s": time.perf_counter() - t0,
                          "critical_io_ms": got.breakdown.critical_io_s * 1e3}
-            check(path, same_answers(FIRST[mode], got)
+            check(path, same_answers(first[mode], got)
                   and pipe.tier.stats["hedged_reads"] == 0,
-                  f"{SHARDS}x{REPLICAS} {mode} batch vs the single tier: "
-                  f"ids, scores, byte bills bit for bit; critical I/O "
-                  f"{got.breakdown.critical_io_s * 1e3:.3f} ms (single "
-                  f"tier {FIRST[mode].breakdown.critical_io_s * 1e3:.3f}); "
+                  f"{SHARDS}x{REPLICAS} {mode} batch of {len(qs[0])} vs the "
+                  f"single tier: ids, scores, byte bills bit for bit; "
+                  f"critical I/O {got.breakdown.critical_io_s * 1e3:.3f} ms "
+                  f"(single tier "
+                  f"{first[mode].breakdown.critical_io_s * 1e3:.3f}); "
                   f"wall {out[path]['wall_s']:.2f} s")
         # 3) a sharded server: every answer is search's of its query alone
         alone = CTX.pop("alone")[:SERVE_MAX_BATCH]
@@ -2248,7 +2286,7 @@ def cluster_phase(dev, failures, out):
         #    recovery bills the shard image's re-sync
         espn.kill_replica(0, 0)
         reset_counts()
-        got = espn.search(*q)
+        got = espn.search(*q16)
         out["cluster_failover"] = {"launches": read_counts()}
         st = espn.tier.stats
         rec = espn.recover_replica(0, 0)
@@ -2256,7 +2294,7 @@ def cluster_phase(dev, failures, out):
         out["cluster_failover"].update(
             failovers=st["failovers"], degraded=got.breakdown
             .degraded_queries, recovery=rec)
-        check("cluster_failover", same_answers(FIRST["espn"], got)
+        check("cluster_failover", same_answers(want16, got)
               and st["failovers"] > 0 and got.breakdown.degraded_queries == 0
               and rec["bytes"] == image == st["recovery_bytes"]
               and espn.tier.replica_status() == [[True] * REPLICAS] * SHARDS,
@@ -3827,6 +3865,636 @@ def moe_phase(dev, failures) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 17-18 [recsys], [gnn]: the RecSys models, ESPN-for-RecSys and
+# GatedGCN at their published widths. The reference reaches no Pallas kernel
+# on these paths (plain PyTorch here), so none of the six may launch.
+# ---------------------------------------------------------------------------
+
+RECSYS_ARCHS = ("fm", "autoint", "dlrm-mlperf", "two-tower-retrieval")
+# rows a table holds (a depth cut): dlrm-mlperf's 96.1 GB and
+# two-tower-retrieval's 207.2 GB of published fp32 tables fit no card;
+# fm's and autoint's 1,000,000-row tables stay whole
+SERVE_ROW_CAP = 20_000_000
+TRAIN_ROW_CAP = 4_000_000       # params, grads and AdamW's two moments
+RECSYS_TRAIN_STEPS = 3
+# two-tower trains at 16,384 (its (B, B) fp32 logits and their gradient take
+# ~34 GB at train_batch's 65,536)
+TWO_TOWER_TRAIN_BATCH = 16_384
+SERVE_REPS = {"serve_p99": 10, "serve_bulk": 3}
+TOPK_REPS = 5
+RECSYS_AGREE_BATCH, RECSYS_AGREE_CANDIDATES = 64, 4096
+RECSYS_TOL = 1e-5       # fp32 card vs CPU: scores, logits, loss, grad norm
+TOPK_TIE = 1e-6         # retrieval ids may differ only between neighbours
+                        # whose CPU scores lie within this
+# ESPN-for-RecSys: benchmarks/bench_espn_embedding.py's table and its three
+# (overlap budget ms, candidates, hit fraction) settings; a fourth whose
+# budget is two-tower's query-tower forward at serve_p99, measured here
+ESPN_EMB_ROWS, ESPN_EMB_DIM = 2_000_000, 64
+ESPN_EMB_SETTINGS = ((3.0, 1000, 0.9), (3.0, 4000, 0.9), (6.0, 16000, 0.85))
+ESPN_EMB_MEASURED = (4000, 0.9)
+
+
+def capped(cfg, cap: int):
+    return cfg.scaled(table_sizes=tuple(min(r, cap) for r in cfg.table_sizes))
+
+
+def recsys_batch(cfg, b: int, gen, dev, labels=True, n_cand=0) -> dict:
+    """``b`` rows drawn on the card from ``gen``: ids uniform over each
+    field's rows, dense features N(0, 1), 0/1 labels; two-tower: query and
+    item ids, or the query's ``n_cand`` candidates."""
+    import torch
+
+    def ids(sizes, n):
+        return torch.stack([torch.randint(0, r, (n,), generator=gen,
+                                          device=dev) for r in sizes], dim=1)
+    if cfg.variant == "two-tower":
+        nq = cfg.n_query_fields
+        items = "candidate_ids" if n_cand else "item_ids"
+        return {"query_ids": ids(cfg.table_sizes[:nq], b),
+                items: ids(cfg.table_sizes[nq:], n_cand or b)}
+    out = {"sparse_ids": ids(cfg.table_sizes, b)}
+    if cfg.n_dense:
+        out["dense"] = torch.randn((b, cfg.n_dense), generator=gen,
+                                   device=dev)
+    if labels:
+        out["labels"] = torch.randint(0, 2, (b,), generator=gen,
+                                      device=dev).float()
+    return out
+
+
+def bits_digest(tree) -> list[int]:
+    """Each fp32 leaf's bit patterns summed in int64 (exact in any order):
+    two runs that differ in any one weight differ here."""
+    import torch
+
+    from repro_torch.train.optimizer import named_params
+    return [int(t.detach().view(torch.int32).sum(dtype=torch.int64))
+            for t in named_params(tree).values()]
+
+
+def tree_to(tree, where):
+    """A nested dict of tensors copied to ``where`` (fresh tensors even on
+    the same device)."""
+    return {k: tree_to(v, where) if isinstance(v, dict)
+            else v.to(where, copy=True) for k, v in tree.items()}
+
+
+def free_card():
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def recsys_serve(dev, failures, arch) -> dict:
+    """``arch`` at published widths, its tables capped at ``SERVE_ROW_CAP``
+    rows, fp32 masters drawn on the card, bf16 compute: one serve_p99 and
+    one serve_bulk batch through ``forward`` (ms a batch by events, rows/s,
+    the same bits twice), a batch's loss twice; two-tower also the
+    retrieval_cand shape (1 query, pad512(1,000,000) candidates, top 100)
+    and its query tower alone at serve_p99 (the ESPN budget)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RECSYS_SHAPES, pad512
+    from repro_torch.models import recsys
+    from repro_torch.models.embedding import padded_rows
+    pub = get_config(arch)
+    cfg = capped(pub, SERVE_ROW_CAP)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = recsys.init_params(cfg, gen, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    table_bytes = sum(t.numel() * t.element_size()
+                      for t in params["tables"].values())
+    pub_bytes = sum(padded_rows(r) * cfg.embed_dim * 4
+                    for r in pub.table_sizes)
+    res = {"table_bytes": table_bytes, "published_table_bytes": pub_bytes,
+           "init_s": init_s}
+    log(f"  {arch} ({cfg.variant}): {cfg.n_sparse} tables x embed_dim "
+        f"{cfg.embed_dim}, {table_bytes / 1e9:.2f} GB fp32 on the card "
+        f"(published {pub_bytes / 1e9:.2f} GB; rows capped at "
+        f"{SERVE_ROW_CAP:,}), drawn in {init_s:.2f} s")
+    with torch.no_grad():
+        for shape in ("serve_p99", "serve_bulk"):
+            b = RECSYS_SHAPES[shape].dims["batch"]
+            batch = recsys_batch(cfg, b, gen, dev, labels=False)
+            out = recsys.forward(cfg, params, batch)
+            same = torch.equal(out, recsys.forward(cfg, params, batch))
+            ms = time_ms(lambda: recsys.forward(cfg, params, batch),
+                         reps=SERVE_REPS[shape], warmup=0)
+            ok = (tuple(out.shape) == (b,) and bool(torch.isfinite(out).all())
+                  and same)
+            res[shape] = {"batch": b, "ms": ms, "rows_per_s": b / ms * 1e3,
+                          "same_bits": same}
+            log(f"  {arch} {shape} (batch {b:,}): {ms:.3f} ms a batch, "
+                f"{b / ms * 1e3:,.0f} rows/s; scores finite, "
+                f"{'the same bits twice' if same else 'BITS DIFFER'} -> "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"recsys {arch} {shape}: scores not finite "
+                                f"or not the same twice")
+        batch = recsys_batch(cfg, RECSYS_SHAPES["serve_p99"].dims["batch"],
+                             gen, dev)
+        losses = [recsys.loss_fn(cfg, params, batch)[0] for _ in range(2)]
+        ok = bool(torch.isfinite(losses[0])) and torch.equal(*losses)
+        res["loss"] = float(losses[0])
+        log(f"  {arch} loss of a serve_p99 batch {res['loss']:.6f}, the same "
+            f"bits twice: {torch.equal(*losses)} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"recsys {arch}: loss not finite or not the "
+                            f"same twice")
+        if cfg.variant == "two-tower":
+            nc = pad512(RECSYS_SHAPES["retrieval_cand"].dims["n_candidates"])
+            batch = recsys_batch(cfg, 1, gen, dev, n_cand=nc)
+            v, i = recsys.retrieval_topk(cfg, params, batch, k=100)
+            v2, i2 = recsys.retrieval_topk(cfg, params, batch, k=100)
+            ms = time_ms(lambda: recsys.retrieval_topk(cfg, params, batch,
+                                                       k=100),
+                         reps=TOPK_REPS, warmup=0)
+            ok = (tuple(i.shape) == (1, 100) and bool(torch.isfinite(v).all())
+                  and bool((v[:, :-1] >= v[:, 1:]).all())
+                  and int(i.max()) < nc and torch.equal(i, i2)
+                  and torch.equal(v, v2))
+            res["retrieval_cand"] = {"candidates": nc, "ms": ms,
+                                     "top1": float(v[0, 0])}
+            log(f"  {arch} retrieval_cand: 1 query x {nc:,} candidates, top "
+                f"100 in {ms:.3f} ms; scores {float(v[0, -1]):.4f}.."
+                f"{float(v[0, 0]):.4f}, descending, the same bits twice -> "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"recsys {arch}: retrieval_topk misshapen, "
+                                f"unordered or not the same twice")
+            q = recsys_batch(cfg, RECSYS_SHAPES["serve_p99"].dims["batch"],
+                             gen, dev, labels=False)["query_ids"]
+            res["query_tower_ms"] = time_ms(
+                lambda: recsys.query_embed(cfg, params, q), reps=20, warmup=2)
+            log(f"  {arch} query tower alone at serve_p99: "
+                f"{res['query_tower_ms']:.4f} ms (the ESPN-for-RecSys "
+                f"overlap budget)")
+    res["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    log(f"  {arch} serving peak device memory "
+        f"{res['peak_bytes'] / 2**30:.2f} GiB")
+    del params, batch
+    free_card()
+    return res
+
+
+def recsys_train(dev, failures, arch) -> dict:
+    """``arch`` at published widths, tables capped at ``TRAIN_ROW_CAP``
+    rows: ``RECSYS_TRAIN_STEPS`` AdamW steps through ``make_train_step``
+    from weights drawn on the card (ms a step, peak memory, finite loss
+    and grad norm), then the first step again from the same draw: its
+    weights the same bits (``bits_digest``)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RECSYS_SHAPES
+    from repro_torch.models import recsys
+    from repro_torch.train.optimizer import AdamW, named_params
+    from repro_torch.train.trainer import make_train_step
+    cfg = capped(get_config(arch), TRAIN_ROW_CAP)
+    b = (TWO_TOWER_TRAIN_BATCH if cfg.variant == "two-tower"
+         else RECSYS_SHAPES["train_batch"].dims["batch"])
+    opt = AdamW()
+    step = make_train_step(lambda p, bt: recsys.loss_fn(cfg, p, bt), opt)
+
+    def run(steps):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        params = recsys.init_params(cfg, gen, dev)
+        n = sum(t.numel() for t in named_params(params).values())
+        for t in named_params(params).values():
+            t.requires_grad_(True)
+        state = opt.init(params)
+        hist, digest = [], None
+        for i in range(steps):
+            batch = recsys_batch(cfg, b, gen, dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, batch)
+            torch.cuda.synchronize()
+            hist.append({"ms": (time.perf_counter() - t0) * 1e3,
+                         "loss": float(m["loss"]),
+                         "gnorm": float(m["gnorm"])})
+            if i == 0:
+                digest = bits_digest(params)
+        return hist, digest, n
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    hist, digest, n = run(RECSYS_TRAIN_STEPS)
+    peak = torch.cuda.max_memory_allocated(dev)
+    free_card()
+    again, digest2, _ = run(1)
+    free_card()
+    finite = all(np.isfinite([h["loss"], h["gnorm"]]).all() for h in hist)
+    same = digest == digest2 and again[0]["loss"] == hist[0]["loss"]
+    ms = [h["ms"] for h in hist]
+    res = {"batch": b, "n_params": n, "param_bytes": 4 * n,
+           "step_ms": ms, "losses": [h["loss"] for h in hist],
+           "gnorms": [h["gnorm"] for h in hist], "peak_bytes": peak,
+           "rows_per_s": b / float(np.median(ms[1:])) * 1e3,
+           "same_bits": same}
+    log(f"  {arch} training: {n:,} fp32 params ({4 * n / 1e9:.2f} GB; rows "
+        f"capped at {TRAIN_ROW_CAP:,}), {RECSYS_TRAIN_STEPS} AdamW steps of "
+        f"{b:,} rows: step ms {[round(x, 1) for x in ms]}, "
+        f"{res['rows_per_s']:,.0f} rows/s after the first; peak "
+        f"{peak / 2**30:.2f} GiB; loss {[round(x, 5) for x in res['losses']]}"
+        f", gnorm {[round(x, 5) for x in res['gnorms']]}; the first step "
+        f"again: {'the same bits' if same else 'WEIGHTS DIFFER'} -> "
+        f"{'ok' if finite and same else 'FAIL'}")
+    if not finite or not same:
+        failures.append(f"recsys {arch} training: a loss or grad norm is not "
+                        f"finite, or a step is not the same twice")
+    return res
+
+
+def recsys_agreement(dev, failures) -> dict:
+    """Each arch's ``smoke_config`` in fp32, the same weights (drawn on the
+    CPU) and batch on the card and the CPU: the forward within
+    ``RECSYS_TOL`` x max(1, |cpu|); one AdamW step's loss and grad norm
+    within ``RECSYS_TOL``; two-tower's top 100 of 4,096 candidates with
+    the CPU's ids up to neighbours within ``TOPK_TIE``."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import recsys
+    from repro_torch.train.optimizer import AdamW, named_params
+    from repro_torch.train.trainer import make_train_step
+    cpu = torch.device("cpu")
+    out = {}
+    for arch in RECSYS_ARCHS:
+        cfg = recsys.smoke_config(get_config(arch)).scaled(
+            dtype=torch.float32)
+        gen = torch.Generator()
+        gen.manual_seed(1)
+        params = recsys.init_params(cfg, gen, cpu)
+        batch = recsys_batch(cfg, RECSYS_AGREE_BATCH, gen, cpu)
+        cand = recsys_batch(cfg, 1, gen, cpu, n_cand=RECSYS_AGREE_CANDIDATES)
+        opt = AdamW(lr=1e-3, warmup_steps=2)
+        step = make_train_step(lambda p, b: recsys.loss_fn(cfg, p, b), opt)
+        got = {}
+        for where in (cpu, dev):
+            p, b = tree_to(params, where), tree_to(batch, where)
+            top = ()
+            with torch.no_grad():
+                fwd = recsys.forward(cfg, p, {k: v for k, v in b.items()
+                                              if k != "labels"}).cpu()
+                if cfg.variant == "two-tower":
+                    v, i = recsys.retrieval_topk(cfg, p, tree_to(cand, where),
+                                                 k=100)
+                    top = (v.cpu(), i.cpu())
+            for t in named_params(p).values():
+                t.requires_grad_(True)
+            _, _, m = step(p, opt.init(p), b)
+            got[where.type] = (fwd, float(m["loss"]), float(m["gnorm"]),
+                               *top)
+        (f0, l0, g0, *top0), (f1, l1, g1, *top1) = got["cpu"], got[dev.type]
+        err = float((f1 - f0).abs().max()) / max(1.0, float(f0.abs().max()))
+        dl = abs(l1 - l0) / max(1.0, abs(l0))
+        dg = abs(g1 - g0) / max(1.0, abs(g0))
+        ok = err <= RECSYS_TOL and dl <= RECSYS_TOL and dg <= RECSYS_TOL
+        what = (f"forward {err:.3g} x max(1, |cpu|), one step's loss "
+                f"{dl:.3g}, grad norm {dg:.3g}")
+        if top0:
+            v0, i0 = top0
+            v1, i1 = top1
+            moved = (i0 != i1).nonzero()[:, 1].tolist()
+            ties = all(abs(float(v0[0, k]) - float(v1[0, k])) <= TOPK_TIE
+                       for k in moved)
+            ok &= ties and float((v1 - v0).abs().max()) <= RECSYS_TOL
+            what += (f"; top 100 of {RECSYS_AGREE_CANDIDATES:,} ids "
+                     f"{'equal' if not moved else f'{len(moved)} swapped'}"
+                     f"{'' if ties else ' AWAY FROM A TIE'}")
+        out[arch] = {"forward": err, "loss": dl, "gnorm": dg}
+        log(f"  {arch} smoke config, fp32, card vs CPU: {what} (tol "
+            f"{RECSYS_TOL}) -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"recsys {arch}: the card disagrees with the "
+                            f"CPU at the smoke config")
+    return out
+
+
+def espn_embedding_run(dev, failures, tower_ms: float) -> dict:
+    """``ESPNEmbeddingServer`` over a 2,000,000 x 64 fp16 table (drawn on
+    the card, held on the host as the storage tier's image) at the
+    benchmark's three settings and at the measured query-tower budget: hit
+    rate, the simulated critical and direct I/O (the PM983 model's clock,
+    not the card's), the gathered rows equal to a direct fetch's."""
+    import torch
+
+    from repro_torch.storage.espn_embedding import (EmbeddingBlockStore,
+                                                    ESPNEmbeddingServer)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    table = torch.randn((ESPN_EMB_ROWS, ESPN_EMB_DIM), generator=gen,
+                        device=dev, dtype=torch.float16).cpu().numpy()
+    store = EmbeddingBlockStore(table=table)
+    srv = ESPNEmbeddingServer(store)
+    rng = np.random.default_rng(0)
+    out = []
+    log(f"  ESPN-for-RecSys: {ESPN_EMB_ROWS:,} x {ESPN_EMB_DIM} fp16 "
+        f"({store.nbytes / 2**20:.0f} MiB, {store.rows_per_block} rows a "
+        f"4 KiB block)")
+    for budget_ms, n_cand, hit_frac in (ESPN_EMB_SETTINGS
+                                        + ((tower_ms,) + ESPN_EMB_MEASURED,)):
+        approx = rng.integers(0, ESPN_EMB_ROWS, int(n_cand / hit_frac))
+        final = np.concatenate([
+            approx[: int(n_cand * hit_frac)],
+            rng.integers(0, ESPN_EMB_ROWS, n_cand - int(n_cand * hit_frac))])
+        t0 = time.perf_counter()
+        rows_p, st = srv.fetch(approx, final,
+                               overlap_budget_s=budget_ms / 1e3)
+        rows_d, st_d = srv.fetch_direct(final)
+        host_s = time.perf_counter() - t0
+        speedup = st_d.critical_io_s / max(st.critical_io_s, 1e-9)
+        # (a prefetch longer than its budget leaks into the critical path,
+        # where it can cost more than a direct fetch: not a failure)
+        ok = np.array_equal(rows_p, rows_d) and st.hit_rate >= hit_frac - 0.01
+        out.append({"budget_ms": budget_ms, "candidates": n_cand,
+                    "hit_rate": st.hit_rate,
+                    "critical_ms": st.critical_io_s * 1e3,
+                    "direct_ms": st_d.critical_io_s * 1e3,
+                    "prefetch_ms": st.prefetch_io_s * 1e3,
+                    "speedup": speedup, "blocks": st.blocks,
+                    "host_s": host_s})
+        log(f"  budget {budget_ms:.4f} ms, {n_cand:,} candidates: hit "
+            f"{st.hit_rate:.4f}, simulated critical I/O "
+            f"{st.critical_io_s * 1e3:.4f} ms (prefetch "
+            f"{st.prefetch_io_s * 1e3:.4f}, hidden {st.hidden_s * 1e3:.4f})"
+            f" vs direct {st_d.critical_io_s * 1e3:.4f} ms: {speedup:.2f}x; "
+            f"{st.blocks:,} blocks; host {host_s:.3f} s -> "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append("recsys: an ESPN-for-RecSys fetch gave other rows "
+                            "than a direct one, or a hit rate below its "
+                            "setting")
+    return out
+
+
+def recsys_phase(dev, failures) -> dict:
+    """The four RecSys configs served and trained at published widths
+    (``recsys_serve``, ``recsys_train``), ESPN-for-RecSys
+    (``espn_embedding_run``) and the smoke configs card vs CPU
+    (``recsys_agreement``); no kernel may launch."""
+    tf32_off(failures, "before [recsys]")
+    free_card()
+    reset_counts()
+    out = {"serve": {a: recsys_serve(dev, failures, a) for a in RECSYS_ARCHS},
+           "train": {a: recsys_train(dev, failures, a) for a in RECSYS_ARCHS}}
+    out["espn_embedding"] = espn_embedding_run(
+        dev, failures, out["serve"]["two-tower-retrieval"]["query_tower_ms"])
+    out["agreement"] = recsys_agreement(dev, failures)
+    launched = {k: v for k, v in read_counts().items() if v}
+    log(f"  kernel launches in [recsys]: {launched or 'none'}")
+    if launched:
+        failures.append(f"recsys: kernels launched {launched}")
+    return out
+
+
+GNN_CELLS = ("full_graph_sm", "minibatch_lg", "molecule")
+GNN_TRAIN_STEPS = 3
+# minibatch_lg's graph: the published node count at average degree 50
+# (11.6M edges, not 114.6M: its argsort alone costs the host seconds, and a
+# fanout-15-10 block's shape is the same once every degree is >= 15)
+MINIBATCH_DEGREE = 50
+GNN_AGREE_NODES, GNN_AGREE_EDGES, GNN_AGREE_PADS = 300, 1500, 512
+
+
+def gnn_batch(shape: str, n_classes: int, gen, dev) -> tuple[dict, dict]:
+    """``shape``'s batch on the card (features N(0, 1), random labels) and
+    its sizes: full_graph_sm's random edges padded by ``pad512``;
+    minibatch_lg's block from ``sample_block`` on ``random_graph`` (host,
+    numpy), ``len(node_ids)`` feature rows; molecule's 128 graphs, edges
+    within each, padded, with ``graph_ids``."""
+    import torch
+
+    from repro_torch.configs.base import GNN_SHAPES, pad512
+    from repro_torch.data import sampler
+    d = GNN_SHAPES[shape].dims
+
+    def randint(hi, n):
+        return torch.randint(0, hi, (n,), generator=gen, device=dev)
+
+    def padded(src, dst, n):
+        pads = pad512(len(src)) - len(src)
+        return (torch.cat([src, torch.zeros(pads, dtype=src.dtype,
+                                            device=dev)]),
+                torch.cat([dst, torch.full((pads,), n, dtype=dst.dtype,
+                                           device=dev)]))
+
+    info = {}
+    if shape == "full_graph_sm":
+        n = d["n_nodes"]
+        src, dst = padded(randint(n, d["n_edges"]), randint(n, d["n_edges"]),
+                          n)
+        batch = {"labels": randint(n_classes, n)}
+    elif shape == "minibatch_lg":
+        t0 = time.perf_counter()
+        g = sampler.random_graph(d["n_nodes"], avg_degree=MINIBATCH_DEGREE,
+                                 seed=0)
+        info["graph_s"] = time.perf_counter() - t0
+        rng = np.random.default_rng(0)
+        bn, f0, f1 = d["batch_nodes"], d["fanout0"], d["fanout1"]
+        t0 = time.perf_counter()
+        blk = sampler.sample_block(g, rng.choice(d["n_nodes"], bn,
+                                                 replace=False), [f0, f1],
+                                   rng, pad_edges_to=pad512(bn * (f0 + f0 * f1)))
+        info["sample_s"] = time.perf_counter() - t0
+        info["graph_edges"] = int(g.indptr[-1])
+        n = len(blk["node_ids"])
+        src = torch.from_numpy(blk["edge_src"]).to(dev)
+        dst = torch.from_numpy(blk["edge_dst"]).to(dev)
+        batch = {"label_nodes": torch.from_numpy(blk["seed_local"]).to(dev),
+                 "labels": randint(n_classes, bn)}
+    else:
+        g_, nn, ne = d["batch"], d["n_nodes"], d["n_edges"]
+        n = g_ * nn
+        base = torch.arange(g_, device=dev).repeat_interleave(ne) * nn
+        src, dst = padded(base + randint(nn, g_ * ne),
+                          base + randint(nn, g_ * ne), n)
+        batch = {"graph_ids": torch.arange(g_, device=dev)
+                 .repeat_interleave(nn), "labels": randint(n_classes, g_)}
+    batch.update(node_feats=torch.randn((n, d["d_feat"]), generator=gen,
+                                        device=dev),
+                 edge_src=src, edge_dst=dst)
+    info.update(nodes=n, edges=len(src), pads=int((dst == n).sum()),
+                d_feat=d["d_feat"])
+    return batch, info
+
+
+def gnn_train(dev, failures, shape: str) -> dict:
+    """gatedgcn at published width (16 layers, d_hidden 70, 47 classes,
+    bf16 over fp32 masters drawn on the card) on ``shape``:
+    ``GNN_TRAIN_STEPS`` AdamW steps (ms a step, peak memory, finite loss
+    and grad norm), then the same forward, loss and first step again from
+    the same draw, bit for bit."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import gnn
+    from repro_torch.train.optimizer import AdamW, named_params
+    from repro_torch.train.trainer import make_train_step
+    cfg = get_config("gatedgcn")
+    opt = AdamW()
+    step = make_train_step(lambda p, b: gnn.loss_fn(cfg, p, b), opt)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    batch, info = gnn_batch(shape, cfg.n_classes, gen, dev)
+
+    def run(steps):
+        g = torch.Generator(device=dev)
+        g.manual_seed(1)
+        params = gnn.init_params(cfg, g, info["d_feat"], dev)
+        with torch.no_grad():
+            logits = gnn.forward(cfg, params, batch["node_feats"],
+                                 batch["edge_src"], batch["edge_dst"])
+            loss = gnn.loss_fn(cfg, params, batch)[0]
+        for t in named_params(params).values():
+            t.requires_grad_(True)
+        state = opt.init(params)
+        hist, first = [], None
+        for i in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, batch)
+            torch.cuda.synchronize()
+            hist.append({"ms": (time.perf_counter() - t0) * 1e3,
+                         "loss": float(m["loss"]),
+                         "gnorm": float(m["gnorm"])})
+            if i == 0:
+                first = {k: t.detach().clone()
+                         for k, t in named_params(params).items()}
+        return logits, loss, hist, first
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    logits, loss, hist, first = run(GNN_TRAIN_STEPS)
+    peak = torch.cuda.max_memory_allocated(dev)
+    logits2, loss2, again, first2 = run(1)
+    same = (torch.equal(logits, logits2) and torch.equal(loss, loss2)
+            and all(torch.equal(t, first2[k]) for k, t in first.items()))
+    finite = bool(torch.isfinite(logits).all()) and all(
+        np.isfinite([h["loss"], h["gnorm"]]).all() for h in hist)
+    del logits, logits2, first, first2, batch
+    free_card()
+    ms = [h["ms"] for h in hist]
+    res = {**info, "step_ms": ms, "losses": [h["loss"] for h in hist],
+           "gnorms": [h["gnorm"] for h in hist], "peak_bytes": peak,
+           "same_bits": same}
+    log(f"  gatedgcn {shape}: {info['nodes']:,} nodes x {info['d_feat']} "
+        f"features, {info['edges']:,} edges ({info['pads']:,} pads)"
+        + (f"; graph of {info['graph_edges']:,} edges built in "
+           f"{info['graph_s']:.2f} s, block sampled in {info['sample_s']:.2f}"
+           f" s (host)" if "graph_s" in info else "")
+        + f"; {GNN_TRAIN_STEPS} AdamW steps: ms {[round(x, 1) for x in ms]},"
+        f" peak {peak / 2**30:.2f} GiB; loss "
+        f"{[round(x, 5) for x in res['losses']]}, gnorm "
+        f"{[round(x, 5) for x in res['gnorms']]}; forward, loss and the "
+        f"first step again: {'the same bits' if same else 'BITS DIFFER'} -> "
+        f"{'ok' if finite and same else 'FAIL'}")
+    if not finite or not same:
+        failures.append(f"gnn {shape}: a loss, logit or grad norm is not "
+                        f"finite, or a run is not the same twice")
+    return res
+
+
+def gnn_agreement(dev, failures) -> dict:
+    """gatedgcn's smoke config in fp32 (300 nodes, 1,500 edges, 24
+    features): logits and one AdamW step's loss and grad norm, card vs CPU,
+    within ``RECSYS_TOL``; and on the card the batch with 512 pad edges
+    appended against it: logits, loss and every gradient within
+    ``RECSYS_TOL`` (and whether bit for bit), all finite."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import gnn
+    from repro_torch.train.optimizer import AdamW, named_params
+    from repro_torch.train.trainer import make_train_step
+    cfg = gnn.smoke_config(get_config("gatedgcn")).scaled(dtype=torch.float32)
+    cpu = torch.device("cpu")
+    gen = torch.Generator()
+    gen.manual_seed(3)
+    params = gnn.init_params(cfg, gen, 24, cpu)
+    n, e = GNN_AGREE_NODES, GNN_AGREE_EDGES
+    batch = {"node_feats": torch.randn((n, 24), generator=gen),
+             "edge_src": torch.randint(0, n, (e,), generator=gen),
+             "edge_dst": torch.randint(0, n, (e,), generator=gen),
+             "labels": torch.randint(0, cfg.n_classes, (n,), generator=gen)}
+    pads = GNN_AGREE_PADS
+    padded = dict(batch,
+                  edge_src=torch.cat([batch["edge_src"],
+                                      torch.zeros(pads, dtype=torch.int64)]),
+                  edge_dst=torch.cat([batch["edge_dst"],
+                                      torch.full((pads,), n)]))
+    opt = AdamW(lr=1e-3, warmup_steps=2)
+    step = make_train_step(lambda p, b: gnn.loss_fn(cfg, p, b), opt)
+
+    def run(where, b):
+        p, b = tree_to(params, where), tree_to(b, where)
+        with torch.no_grad():
+            logits = gnn.forward(cfg, p, b["node_feats"], b["edge_src"],
+                                 b["edge_dst"]).cpu()
+        named = named_params(p)
+        for t in named.values():
+            t.requires_grad_(True)
+        loss, _ = gnn.loss_fn(cfg, p, b)
+        grads = torch.autograd.grad(loss, list(named.values()))
+        _, _, m = step(p, opt.init(p), b)
+        return (logits, float(loss.detach()), {k: g.cpu() for k, g in
+                                      zip(named, grads)}, float(m["gnorm"]))
+
+    (l0, s0, g0, n0), (l1, s1, g1, n1) = run(cpu, batch), run(dev, batch)
+    lp, sp, gp, _ = run(dev, padded)
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+    err = {"logits": rel(l1, l0), "loss": abs(s1 - s0) / max(1.0, abs(s0)),
+           "gnorm": abs(n1 - n0) / max(1.0, abs(n0)),
+           "grads": max(rel(g1[k], g0[k]) for k in g0)}
+    pad_err = {"logits": rel(lp, l1), "loss": abs(sp - s1) / max(1.0, abs(s1)),
+               "grads": max(rel(gp[k], g1[k]) for k in g1)}
+    pad_bits = torch.equal(lp, l1) and sp == s1 and all(
+        torch.equal(gp[k], g1[k]) for k in g1)
+    finite = all(bool(torch.isfinite(t).all()) for t in
+                 [lp, *gp.values()]) and np.isfinite(sp)
+    ok = (max(err.values()) <= RECSYS_TOL
+          and max(pad_err.values()) <= RECSYS_TOL and finite)
+    log(f"  gatedgcn smoke config, fp32, card vs CPU: "
+        f"{json.dumps({k: float(f'{v:.3g}') for k, v in err.items()})}; "
+        f"{pads} pad edges on the card vs none: "
+        f"{json.dumps({k: float(f'{v:.3g}') for k, v in pad_err.items()})}"
+        f" ({'bit for bit' if pad_bits else 'not bit for bit'}), all "
+        f"{'finite' if finite else 'NOT finite'} (tol {RECSYS_TOL}) -> "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("gnn: the smoke config disagrees card vs CPU, or "
+                        "pads change the card's result")
+    return {"card_vs_cpu": err, "padded_vs_unpadded": pad_err,
+            "padded_bits_equal": pad_bits}
+
+
+def gnn_phase(dev, failures) -> dict:
+    """gatedgcn trained on each of ``GNN_CELLS`` (``gnn_train``) and its
+    smoke config card vs CPU and padded vs unpadded (``gnn_agreement``);
+    no kernel may launch."""
+    tf32_off(failures, "before [gnn]")
+    free_card()
+    reset_counts()
+    out = {shape: gnn_train(dev, failures, shape) for shape in GNN_CELLS}
+    out["agreement"] = gnn_agreement(dev, failures)
+    launched = {k: v for k, v in read_counts().items() if v}
+    log(f"  kernel launches in [gnn]: {launched or 'none'}")
+    if launched:
+        failures.append(f"gnn: kernels launched {launched}")
+    return out
+
+
 def kernel_rows(rows) -> list[dict]:
     """The ``{"kernels": [...]}`` line's rows. Each kernel's launches are
     those of the paths that run it (the retrieval modes, the LM decodes),
@@ -3920,7 +4588,10 @@ def main(argv=None) -> int:
               ("decode path", lambda: rows.update(
                   decode=decode_path(dev, failures))),
               ("decode agreement", lambda: decode_agreement(dev, failures)),
-              ("moe", lambda: rows.update(moe=moe_phase(dev, failures)))]
+              ("moe", lambda: rows.update(moe=moe_phase(dev, failures))),
+              ("recsys", lambda: rows.update(
+                  recsys=recsys_phase(dev, failures))),
+              ("gnn", lambda: rows.update(gnn=gnn_phase(dev, failures)))]
     for name, fn in phases:
         log(f"[{name}]")
         t0 = time.perf_counter()

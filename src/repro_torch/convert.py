@@ -4,8 +4,8 @@ Every function takes plain numpy arrays — the fields the reference's
 ``IVFIndex``, ``EmbeddingLayout``, ``BitTable`` and ``FDETable`` hold, under
 the names its ``.npz`` artifacts use — so a mapping from ``np.load`` of a
 saved ``index.npz`` / ``layout.npz`` / ``bits.npz`` / ``fde.npz`` works as
-well as a dict built in memory; and the transformer's and the ColBERTer
-encoder's nested parameter dicts. The way back gives the reference's nested
+well as a dict built in memory; and the nested parameter dicts of the
+transformer, the ColBERTer encoder, the RecSys models and GatedGCN. The way back gives the reference's nested
 dicts of a model's parameters and of an optimizer state, so that both
 packages start from, and can compare, the same weights.
 """
@@ -15,10 +15,11 @@ import numpy as np
 import torch
 
 from repro_torch.core.fde import FDEConfig, FDETable
-from repro_torch.configs.base import ColberterConfig, TransformerConfig
+from repro_torch.configs.base import (ColberterConfig, GNNConfig,
+                                      RecsysConfig, TransformerConfig)
 from repro_torch.core.ivf import IVFIndex
 from repro_torch.device import resolve_device
-from repro_torch.models import colberter
+from repro_torch.models import colberter, gnn, recsys
 from repro_torch.models.transformer import TransformerLM, param_table
 from repro_torch.storage.layout import BitTable, EmbeddingLayout
 from repro_torch.train.checkpoint import flatten, to_host, unflatten
@@ -118,22 +119,62 @@ def colberter_params_from_numpy(params, cfg: ColberterConfig,
                  params, cfg.name)
 
 
+def recsys_params_from_numpy(params, cfg: RecsysConfig, device) -> dict:
+    """The RecSys model's nested parameter dict (``tables/table_{i}`` with
+    their stored pad rows, ``linear``, ``bias``, ``bot``, ``top``,
+    ``attn_{l}``, ``out``, ``q_tower``, ``i_tower``: whichever
+    ``recsys.param_shapes(cfg)`` names) from the reference's, on ``device``
+    in ``cfg.param_dtype``. A missing, extra or misshapen array raises."""
+    return _tensors(recsys.param_shapes(cfg), params, device, cfg.name)
+
+
+def gnn_params_from_numpy(params, cfg: GNNConfig, d_in: int,
+                          device) -> dict:
+    """GatedGCN's nested parameter dict (``embed_h/{w,b}``,
+    ``embed_e_src``, ``embed_e_dst``, ``layers/{A, ..., e_bias}`` stacked
+    over the layers, ``out/{w,b}``) from the reference's, on ``device`` in
+    ``cfg.param_dtype``. A missing, extra or misshapen array raises."""
+    return _tensors(gnn.param_shapes(cfg, d_in), params, device, cfg.name)
+
+
+def _tensors(shapes: dict, params, device, what: str) -> dict:
+    """``params`` (nested numpy) as a nested dict of tensors of the names,
+    shapes and dtypes of ``shapes`` (nested ``meta`` tensors)."""
+    dev = resolve_device(device)
+    want = flatten(shapes)
+    arrays = _checked({k: tuple(t.shape) for k, t in want.items()}, params,
+                      what)
+    return unflatten({k: torch.tensor(a, dtype=want[k].dtype, device=dev)
+                      for k, a in arrays.items()})
+
+
 def _fill(model, table: dict, params, what: str):
     """Copy the nested dict ``params`` into ``model``'s parameters, whose
     names and shapes ``table`` lists ("/"-joined)."""
-    flat = flatten(params)
-    if set(flat) != set(table):
-        raise ValueError(f"parameter names differ from {what}'s: missing "
-                         f"{sorted(set(table) - set(flat))}, extra "
-                         f"{sorted(set(flat) - set(table))}")
+    arrays = _checked({k: tuple(s) for k, (s, _) in table.items()}, params,
+                      what)
     with torch.no_grad():
-        for name, (shape, _) in table.items():
-            a = np.asarray(flat[name])
-            if a.shape != tuple(shape):
-                raise ValueError(f"{name}: shape {a.shape}, expected {shape}")
+        for name, a in arrays.items():
             model.get_parameter(name.replace("/", ".")).copy_(
                 torch.tensor(a))
     return model
+
+
+def _checked(shapes: dict[str, tuple], params, what: str) -> dict:
+    """``params`` flattened to numpy arrays, which must carry exactly the
+    names of ``shapes`` ("/"-joined), each of its shape."""
+    flat = flatten(params)
+    if set(flat) != set(shapes):
+        raise ValueError(f"parameter names differ from {what}'s: missing "
+                         f"{sorted(set(shapes) - set(flat))}, extra "
+                         f"{sorted(set(flat) - set(shapes))}")
+    out = {}
+    for name, shape in shapes.items():
+        a = np.asarray(flat[name])
+        if a.shape != shape:
+            raise ValueError(f"{name}: shape {a.shape}, expected {shape}")
+        out[name] = a
+    return out
 
 
 def params_to_numpy(params) -> dict:

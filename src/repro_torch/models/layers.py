@@ -1,5 +1,5 @@
 """Shared layers of the models: initializers, RMSNorm and LayerNorm, the
-SwiGLU and GELU MLPs, the token cross-entropy.
+SwiGLU and GELU MLPs, the plain ReLU MLP stack, the token cross-entropy.
 
 Parameters are fp32 masters; compute casts them to the activation dtype
 (bf16 by default), with the rounding points of the reference's layers.
@@ -24,6 +24,15 @@ def embed_init(generator: torch.Generator, shape, dtype=torch.float32,
                scale=0.02) -> torch.Tensor:
     return (torch.randn(shape, generator=generator,
                         device=generator.device) * scale).to(dtype)
+
+
+def split_rngs(generator: torch.Generator, names) -> dict:
+    """One generator per name, on ``generator``'s device, each seeded by a
+    draw from ``generator``."""
+    seeds = torch.randint(0, 2**62, (len(names),), generator=generator,
+                          device=generator.device).tolist()
+    return {n: torch.Generator(device=generator.device).manual_seed(s)
+            for n, s in zip(names, seeds)}
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
@@ -59,6 +68,46 @@ def swiglu_mlp(x, w_gate, w_up, w_down):
     """LLaMA-style gated MLP. x: (..., D); weights already in compute dtype."""
     h = F.silu(x @ w_gate) * (x @ w_up)
     return h @ w_down
+
+
+def mlp_stack(x, weights, act=F.relu, act_last=False):
+    """Plain MLP from [(w, b), ...]: weights cast to x's dtype, ``act``
+    between layers (and after the last with ``act_last``)."""
+    for i, (w, b) in enumerate(weights):
+        x = x @ w.to(x.dtype) + b.to(x.dtype)
+        if act_last or i < len(weights) - 1:
+            x = act(x)
+    return x
+
+
+def mlp_params(generator: torch.Generator, dims, dtype=torch.float32
+               ) -> dict:
+    """An MLP dims[0] -> dims[1] -> ...: {'w0', 'b0', ...}, LeCun-normal
+    weights and zero biases on ``generator``'s device."""
+    out = {}
+    for i in range(len(dims) - 1):
+        out[f"w{i}"] = dense_init(generator, (dims[i], dims[i + 1]),
+                                  dtype=dtype)
+        out[f"b{i}"] = torch.zeros((dims[i + 1],), dtype=dtype,
+                                   device=generator.device)
+    return out
+
+
+def mlp_shapes(dims, dtype=torch.float32) -> dict:
+    """``mlp_params``' tensors as empty ``meta`` tensors."""
+    out = {}
+    for i in range(len(dims) - 1):
+        out[f"w{i}"] = torch.empty((dims[i], dims[i + 1]), dtype=dtype,
+                                   device="meta")
+        out[f"b{i}"] = torch.empty((dims[i + 1],), dtype=dtype,
+                                   device="meta")
+    return out
+
+
+def mlp_apply(params: dict, x, act=F.relu, act_last=False):
+    n = len(params) // 2
+    return mlp_stack(x, [(params[f"w{i}"], params[f"b{i}"])
+                         for i in range(n)], act=act, act_last=act_last)
 
 
 def cross_entropy_logits(logits, targets, z_loss: float = 0.0):

@@ -3,13 +3,17 @@ parameters under the reference's names (``embed``, ``layers/wq``, ...).
 
 The state is ``{"m": {name: fp32}, "v": {name: fp32}, "step": int32}``
 (``SGDM``: no ``v``), on the parameters' device. ``update`` writes the new
-parameters into the given tensors in place and returns them with the new
-state and the global grad norm before clipping, as the reference returns
-its new tree. Three details of the reference are kept, so that the two
-packages step alike: the schedule is read at the step already incremented
-(the first AdamW update runs at ``lr * min(1, 2 / warmup_steps)``), the
-decay is decoupled (``p - lr * (delta + wd * p)`` in fp32), and the norm is
-clipped in fp32. ``torch.optim.AdamW`` differs in both of the first two.
+parameters and moments into the given tensors in place (as a donated
+buffer would be: a second copy of the moments does not fit on the card
+beside dlrm-mlperf's 12.3 GB of tables capped at 4M rows) and returns them
+with the new state and the global grad norm before clipping, as the
+reference returns its new tree; the gradient is clipped one leaf at a
+time, with the reference's arithmetic. Three details of the reference are
+kept, so that the two packages step alike: the schedule is read at the
+step already incremented (the first AdamW update runs at ``lr * min(1, 2 /
+warmup_steps)``), the decay is decoupled (``p - lr * (delta + wd * p)`` in
+fp32), and the norm is clipped in fp32. ``torch.optim.AdamW`` differs in
+both of the first two.
 """
 from __future__ import annotations
 
@@ -41,8 +45,14 @@ def global_norm(tree: dict[str, torch.Tensor]) -> torch.Tensor:
 
 def clip_by_global_norm(tree: dict[str, torch.Tensor], max_norm: float):
     g = global_norm(tree)
-    scale = torch.clamp(max_norm / g.clamp_min(1e-9), max=1.0)
-    return {k: (l.float() * scale).to(l.dtype) for k, l in tree.items()}, g
+    return {k: _clipped(l, g, max_norm).to(l.dtype)
+            for k, l in tree.items()}, g
+
+
+def _clipped(leaf: torch.Tensor, gnorm: torch.Tensor, max_norm: float):
+    """One leaf of ``clip_by_global_norm``'s result, in fp32."""
+    scale = torch.clamp(max_norm / gnorm.clamp_min(1e-9), max=1.0)
+    return (leaf.float() * scale).to(leaf.dtype).float()
 
 
 def _zeros(params) -> dict[str, torch.Tensor]:
@@ -76,24 +86,20 @@ class AdamW:
     @torch.no_grad()
     def update(self, grads: dict, state: dict, params):
         named = named_params(params)
-        if self.grad_clip:
-            grads, gnorm = clip_by_global_norm(grads, self.grad_clip)
-        else:
-            gnorm = global_norm(grads)
+        gnorm = global_norm(grads)
         step = state["step"] + 1
         lr = self.schedule(step)
         b1c = 1.0 - self.b1 ** step.float()
         b2c = 1.0 - self.b2 ** step.float()
-        new_m, new_v = {}, {}
         for k, p in named.items():
-            gf = grads[k].float()
-            m = self.b1 * state["m"][k] + (1 - self.b1) * gf
-            v = self.b2 * state["v"][k] + (1 - self.b2) * gf * gf
+            gf = (_clipped(grads[k], gnorm, self.grad_clip)
+                  if self.grad_clip else grads[k].float())
+            m = state["m"][k].mul_(self.b1).add_((1 - self.b1) * gf)
+            v = state["v"][k].mul_(self.b2).add_((1 - self.b2) * gf * gf)
             delta = (m / b1c) / (torch.sqrt(v / b2c) + self.eps)
             pf = p.float()
             p.copy_((pf - lr * (delta + self.weight_decay * pf)).to(p.dtype))
-            new_m[k], new_v[k] = m, v
-        return params, {"m": new_m, "v": new_v, "step": step}, gnorm
+        return params, {"m": state["m"], "v": state["v"], "step": step}, gnorm
 
 
 @dataclass(frozen=True)
@@ -108,11 +114,9 @@ class SGDM:
     @torch.no_grad()
     def update(self, grads: dict, state: dict, params):
         gnorm = global_norm(grads)
-        if self.grad_clip:
-            grads, gnorm = clip_by_global_norm(grads, self.grad_clip)
-        new_m = {}
         for k, p in named_params(params).items():
-            m = self.momentum * state["m"][k] + grads[k].float()
+            gf = (_clipped(grads[k], gnorm, self.grad_clip)
+                  if self.grad_clip else grads[k].float())
+            m = state["m"][k].mul_(self.momentum).add_(gf)
             p.copy_((p.float() - self.lr * m).to(p.dtype))
-            new_m[k] = m
-        return params, {"m": new_m, "step": state["step"] + 1}, gnorm
+        return params, {"m": state["m"], "step": state["step"] + 1}, gnorm

@@ -736,3 +736,224 @@ def _leaf(tree, name):
     for part in name.split("/"):
         tree = tree[part]
     return tree
+
+
+# -- RecSys, embeddings and GatedGCN (plain PyTorch: no kernel) ----------------
+
+RECSYS_ARCHS = ["fm", "dlrm-mlperf", "autoint", "two-tower-retrieval"]
+
+
+def _recsys_case(arch, b=64, seed=0):
+    """``arch``'s smoke config in fp32, its weights (drawn on the CPU) and
+    a numpy batch with labels."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import recsys
+    cfg = recsys.smoke_config(get_config(arch)).scaled(dtype=torch.float32)
+    params = recsys.init_params(cfg, torch.Generator().manual_seed(seed),
+                                "cpu")
+    r = np.random.default_rng(seed + 1)
+    if cfg.variant == "two-tower":
+        nq = cfg.n_query_fields
+        batch = {"query_ids": r.integers(0, cfg.table_sizes[:nq], (b, nq)),
+                 "item_ids": r.integers(0, cfg.table_sizes[nq:],
+                                        (b, cfg.n_item_fields))}
+    else:
+        batch = {"sparse_ids": r.integers(0, cfg.table_sizes,
+                                          (b, cfg.n_sparse)),
+                 "labels": r.integers(0, 2, b).astype(np.float32)}
+        if cfg.n_dense:
+            batch["dense"] = r.standard_normal((b, cfg.n_dense)).astype(
+                np.float32)
+    return cfg, params, batch
+
+
+def _on(tree, dev):
+    """A nested dict of tensors (or numpy arrays) copied to ``dev``, each
+    leaf requiring grad if it is floating."""
+    if isinstance(tree, dict):
+        return {k: _on(v, dev) for k, v in tree.items()}
+    t = torch.as_tensor(tree).detach().to(dev, copy=True)
+    return t.requires_grad_(True) if t.is_floating_point() else t
+
+
+def _loss_and_grads(loss_fn, params, batch, dev):
+    from repro_torch.train.optimizer import named_params
+    p = _on(params, dev)
+    named = named_params(p)
+    loss, _ = loss_fn(p, {k: _on(v, dev).detach() for k, v in batch.items()})
+    grads = torch.autograd.grad(loss, list(named.values()))
+    return loss.detach().cpu(), {k: g.cpu() for k, g in zip(named, grads)}
+
+
+def _assert_rel(got, want, tol, what=""):
+    assert got.shape == want.shape and bool(torch.isfinite(got).all()), what
+    scale = max(1.0, float(want.abs().max()))
+    assert float((got - want).abs().max()) <= tol * scale, what
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", RECSYS_ARCHS)
+def test_recsys_on_the_card_equals_the_cpu(card, arch):
+    """fp32 smoke config: the forward within 1e-5 x max(1, |cpu|), the
+    loss and every gradient within 1e-5; on the card the same bits twice."""
+    from repro_torch.models import recsys
+    cfg, params, batch = _recsys_case(arch)
+    serve = {k: v for k, v in batch.items() if k != "labels"}
+    fwd = {}
+    for dev in (torch.device("cpu"), card):
+        with torch.no_grad():
+            fwd[dev.type] = [recsys.forward(cfg, _on(params, dev),
+                                            _on(serve, dev)).cpu()
+                             for _ in range(2)]
+    assert torch.equal(*fwd[card.type])
+    _assert_rel(fwd[card.type][0], fwd["cpu"][0], 1e-5)
+
+    def loss_fn(p, b):
+        return recsys.loss_fn(cfg, p, b)
+
+    cpu_loss, cpu_g = _loss_and_grads(loss_fn, params, batch, "cpu")
+    runs = [_loss_and_grads(loss_fn, params, batch, card) for _ in range(2)]
+    assert torch.equal(runs[0][0], runs[1][0])
+    _assert_rel(runs[0][0], cpu_loss, 1e-5)
+    for name, g in runs[0][1].items():
+        assert torch.equal(g, runs[1][1][name]), name
+        _assert_rel(g, cpu_g[name], 1e-5, name)
+
+
+@pytest.mark.cuda
+def test_retrieval_topk_on_the_card_equals_the_cpu(card):
+    """1 query against 4,096 candidates, top 100: the ids equal the CPU's
+    up to neighbours whose CPU scores lie within 1e-6."""
+    from repro_torch.models import recsys
+    cfg, params, batch = _recsys_case("two-tower-retrieval", b=1)
+    r = np.random.default_rng(9)
+    batch = {"query_ids": batch["query_ids"],
+             "candidate_ids": r.integers(0, cfg.table_sizes[4:], (4096, 4))}
+    out = {}
+    for dev in (torch.device("cpu"), card):
+        with torch.no_grad():
+            v, i = recsys.retrieval_topk(cfg, _on(params, dev),
+                                         _on(batch, dev), k=100)
+        out[dev.type] = (v.cpu(), i.cpu())
+    (cv, ci), (gv, gi) = out["cpu"], out[card.type]
+    _assert_rel(gv, cv, 1e-5)
+    for pos in (ci != gi).nonzero()[:, 1].tolist():
+        assert abs(float(cv[0, pos]) - float(gv[0, pos])) <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("combiner", ["sum", "mean"])
+def test_embedding_bag_on_the_card(card, combiner):
+    """Ragged bags (empty ones and repeated ids included) over a 70,000-row
+    table: the card within 1e-6 x max(1, |cpu|) of the CPU, the plain
+    oracle's values; the output and the table's gradient the same bits
+    twice."""
+    from repro_torch.models import embedding as emb
+    r = np.random.default_rng(2)
+    table = torch.from_numpy(r.standard_normal((70_000, 64)).astype(
+        np.float32))
+    counts = r.integers(0, 40, 1024)
+    counts[::97] = 0
+    offsets = torch.from_numpy(np.concatenate([[0], np.cumsum(counts)]))
+    ids = torch.from_numpy(r.integers(0, 300, int(offsets[-1])))
+    w = torch.from_numpy(r.standard_normal((1024, 64)).astype(np.float32))
+    got = []
+    for dev in (torch.device("cpu"), card, card):
+        t = table.to(dev, copy=True).requires_grad_(True)
+        out = emb.embedding_bag(t, ids.to(dev), offsets.to(dev),
+                                combiner=combiner,
+                                compute_dtype=torch.float32)
+        (g,) = torch.autograd.grad((out * w.to(dev)).sum(), [t])
+        got.append((out.detach().cpu(), g.cpu()))
+    (out_cpu, g_cpu), a, b = got
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    _assert_rel(a[0], out_cpu, 1e-6)
+    _assert_rel(a[1], g_cpu, 1e-6)
+    want = emb.embedding_bag_ref(table.numpy(), ids.numpy(), offsets.numpy(),
+                                 combiner=combiner)
+    _assert_rel(a[0], torch.from_numpy(want), 1e-5)
+
+
+def _gnn_case(pads=0, seed=0, n=300, e=1500):
+    from repro_torch.configs import get_config
+    from repro_torch.models import gnn
+    cfg = gnn.smoke_config(get_config("gatedgcn")).scaled(dtype=torch.float32)
+    params = gnn.init_params(cfg, torch.Generator().manual_seed(seed), 24,
+                             "cpu")
+    r = np.random.default_rng(seed + 1)
+    batch = {"node_feats": r.standard_normal((n, 24)).astype(np.float32),
+             "edge_src": np.concatenate([r.integers(0, n, e),
+                                         np.zeros(pads, int)]),
+             "edge_dst": np.concatenate([r.integers(0, n, e),
+                                         np.full(pads, n)]),
+             "labels": r.integers(0, cfg.n_classes, n)}
+    return cfg, params, batch
+
+
+@pytest.mark.cuda
+def test_gnn_on_the_card_equals_the_cpu(card):
+    """fp32 smoke config, 300 nodes, 1,500 edges: the logits, the loss and
+    every gradient within 1e-5 x max(1, |cpu|) of the CPU's."""
+    from repro_torch.models import gnn
+    cfg, params, batch = _gnn_case()
+
+    def loss_fn(p, b):
+        return gnn.loss_fn(cfg, p, b)
+
+    logits = {}
+    for dev in (torch.device("cpu"), card):
+        with torch.no_grad():
+            b = _on(batch, dev)
+            logits[dev.type] = gnn.forward(
+                cfg, _on(params, dev), b["node_feats"], b["edge_src"],
+                b["edge_dst"]).cpu()
+    _assert_rel(logits[card.type], logits["cpu"], 1e-5)
+    cpu_loss, cpu_g = _loss_and_grads(loss_fn, params, batch, "cpu")
+    loss, grads = _loss_and_grads(loss_fn, params, batch, card)
+    _assert_rel(loss, cpu_loss, 1e-5)
+    for name, g in grads.items():
+        _assert_rel(g, cpu_g[name], 1e-5, name)
+
+
+@pytest.mark.cuda
+def test_gnn_padded_edges_on_the_card(card):
+    """512 pad edges (dst = n_nodes) on the card: no device-side assert;
+    the loss and every gradient finite and within 1e-5 of the unpadded
+    batch's on the card."""
+    from repro_torch.models import gnn
+    cfg, params, padded = _gnn_case(pads=512)
+    _, _, plain = _gnn_case()
+
+    def loss_fn(p, b):
+        return gnn.loss_fn(cfg, p, b)
+
+    lp, gp = _loss_and_grads(loss_fn, params, padded, card)
+    lu, gu = _loss_and_grads(loss_fn, params, plain, card)
+    torch.cuda.synchronize()
+    _assert_rel(lp, lu, 1e-5)
+    for name, g in gp.items():
+        _assert_rel(g, gu[name], 1e-5, name)
+
+
+@pytest.mark.cuda
+def test_gnn_step_gives_the_same_bits_twice_on_the_card(card):
+    """One AdamW step of the padded batch, twice from the same weights: the
+    loss, grad norm and every updated weight bit for bit."""
+    from repro_torch.models import gnn
+    from repro_torch.train.optimizer import AdamW, named_params
+    from repro_torch.train.trainer import make_train_step
+    cfg, params, batch = _gnn_case(pads=100)
+    opt = AdamW(lr=1e-3, warmup_steps=2)
+    step = make_train_step(lambda p, b: gnn.loss_fn(cfg, p, b), opt)
+    runs = []
+    for _ in range(2):
+        p = _on(params, card)
+        p, _, m = step(p, opt.init(p), {k: _on(v, card).detach()
+                                         for k, v in batch.items()})
+        runs.append((m, {k: t.detach().cpu()
+                         for k, t in named_params(p).items()}))
+    (m0, w0), (m1, w1) = runs
+    assert float(m0["loss"]) == float(m1["loss"])
+    assert float(m0["gnorm"]) == float(m1["gnorm"])
+    for name, w in w0.items():
+        assert torch.equal(w, w1[name]), name

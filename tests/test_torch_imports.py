@@ -120,3 +120,30 @@ def test_sources_name_no_jax_or_reference_import():
                  for m in pattern.finditer(text)]
     assert not hits, hits
     assert len(files) > 20
+
+
+#: the RecSys and GNN side: the embedding tables, the four RecSys models,
+#: GatedGCN and its segment ops, the fanout sampler, ESPN-for-RecSys, and
+#: their five configs
+MULTIARCH_MODULES = (
+    "repro_torch.models.embedding", "repro_torch.models.recsys",
+    "repro_torch.models.gnn", "repro_torch.models.segment_ops",
+    "repro_torch.data.sampler", "repro_torch.storage.espn_embedding",
+    "repro_torch.configs.fm", "repro_torch.configs.dlrm_mlperf",
+    "repro_torch.configs.autoint", "repro_torch.configs.two_tower_retrieval",
+    "repro_torch.configs.gatedgcn")
+
+
+def test_multiarch_modules_are_walked_and_import_alone():
+    """As above, for the RecSys and GNN modules: walked, and each imports
+    on its own with jax and repro refused."""
+    modules = {m.name for m in pkgutil.walk_packages([PORT], "repro_torch.")}
+    assert set(MULTIARCH_MODULES) <= modules
+    script = _BLOCKED_IMPORT.split("import repro_torch")[0] + "".join(
+        f"import {name}\n" for name in MULTIARCH_MODULES) + (
+        "assert not [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro')]\n")
+    out = subprocess.run([sys.executable, "-c", script],
+                         capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": SRC})
+    assert out.returncode == 0, out.stderr

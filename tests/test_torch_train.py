@@ -33,6 +33,7 @@ from repro.data.synthetic import make_lm_batch as ref_make_lm_batch
 from repro.train import compress as ref_compress
 from repro.train.checkpoint import CheckpointManager as RefCheckpointManager
 from repro.train.optimizer import SGDM as RefSGDM
+from repro.train.optimizer import clip_by_global_norm as ref_clip
 from repro.train.optimizer import AdamW as RefAdamW
 from repro.train.trainer import Trainer as RefTrainer
 from repro.train.trainer import TrainerConfig as RefTrainerConfig
@@ -42,7 +43,7 @@ from repro_torch.data.synthetic import make_lm_batch
 from repro_torch.train.checkpoint import CheckpointManager, flatten
 from repro_torch.train.compress import (EFCompressor, compressed_psum,
                                         dequantize_int8, quantize_int8)
-from repro_torch.train.optimizer import SGDM, AdamW
+from repro_torch.train.optimizer import SGDM, AdamW, clip_by_global_norm
 from repro_torch.train.trainer import Trainer, TrainerConfig, make_train_step
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -319,6 +320,46 @@ def test_optimizer_steps_match_reference(name):
         assert int(state["step"]) == int(ref_s["step"]) == i + 1
 
 
+@pytest.mark.parametrize("name", list(OPTIMIZERS))
+def test_update_writes_the_moments_in_place(name):
+    """The new state's moments are the old state's tensors, updated (no
+    second copy of them lives through an update: a 12 GB table set's
+    moments would not fit twice), and the caller's gradients are left as
+    they were (the clip scales a copy, one leaf at a time)."""
+    _, opt = OPTIMIZERS[name]
+    params = to_port(numpy_tree(0))
+    state = opt.init(params)
+    moments = {k: dict(v) for k, v in state.items() if k != "step"}
+    grads = to_port(jax.tree.map(lambda a: a * np.float32(30.0),
+                                 numpy_tree(5)))
+    before = {k: t.clone() for k, t in grads.items()}
+    _, new, _ = opt.update(grads, state, params)
+    for k, leaves in moments.items():
+        for leaf, t in leaves.items():
+            assert new[k][leaf] is t, (k, leaf)
+        assert any(t.any() for t in leaves.values())
+    for k, t in grads.items():
+        assert torch.equal(t, before[k]), k
+
+
+@pytest.mark.parametrize("max_norm", [0.5, 2.0, 1e3])
+def test_clip_by_global_norm_matches_reference(max_norm):
+    """The same numpy tree (norm ~38) clipped by both packages, at limits
+    below its norm and above it: the norm and every leaf within 1e-6 x
+    max(1, |ref|), dtypes kept."""
+    tree = jax.tree.map(lambda a: a * np.float32(3.0), numpy_tree(7))
+    want, ref_norm = ref_clip(to_jnp(tree), max_norm)
+    got, gnorm = clip_by_global_norm(to_port(tree), max_norm)
+    assert abs(float(gnorm) - float(ref_norm)) <= 1e-6 * max(
+        1.0, float(ref_norm))
+    want = flatten(jax.tree.map(np.asarray, want))
+    assert set(got) == set(want)
+    for leaf, a in want.items():
+        assert got[leaf].dtype == torch.float32, leaf
+        assert np.abs(got[leaf].numpy() - a).max() <= 1e-6 * max(
+            1.0, np.abs(a).max()), leaf
+
+
 def test_adamw_first_update_runs_at_the_incremented_step():
     """The schedule is read at step + 1: with warm-up 100 the first update
     moves a weight by lr x 2/100 (Adam's first step is +-lr_t), not 1/100,
@@ -538,9 +579,13 @@ def test_sigterm_saves_an_emergency_checkpoint(tmp_path):
 # -- the launcher and the example ------------------------------------------
 
 def run(args, timeout=300):
+    """``args`` in a fresh interpreter, with two intra-op threads: the
+    process shares the cores with the other test workers, and at one
+    spinning thread a core a short training run beside a full parallel
+    test run can outlast its timeout many times over."""
     out = subprocess.run([sys.executable, *args], capture_output=True,
                          text=True, timeout=timeout, cwd=REPO,
-                         env={**os.environ,
+                         env={**os.environ, "OMP_NUM_THREADS": "2",
                               "PYTHONPATH": os.path.join(REPO, "src")})
     assert out.returncode == 0, out.stderr[-2000:]
     return out.stdout.splitlines()
