@@ -19,7 +19,7 @@ Phases, each of which must pass:
    where there is one (both ways), the least time the card could take and
    the share of it reached;
 4. main path: ``Pipeline.build`` at the ColBERTer widths on a 1M-doc corpus,
-   2 batches of 64 queries through ``espn`` and one through ``gds``, then,
+   1 batch of 64 queries through ``espn`` and one through ``gds``, then,
    through ``Pipeline.from_artifacts`` on the same corpus, index and layout,
    one batch each through ``mmap``, ``swap``, ``dram``, ``bitvec``, ``fde``
    and ``cascade`` (their bit and FDE tables built once, with size and
@@ -149,7 +149,22 @@ Phases, each of which must pass:
    molecule batch (128 graphs, ``graph_ids`` readout): ms a step, peak
    memory, finite losses and gradients, the same bits twice; the smoke
    config in fp32 card vs CPU, and with 512 pad edges vs none on the card.
-   Neither phase may launch any of the six kernels.
+   Neither phase may launch any of the six kernels;
+19. dryrun: the port's multi-pod dry run (``launch/dryrun.py``) on the
+   card's host, in a subprocess (its fake 512-rank process group is the
+   process's): colberter/serve_q32 on the 16x16 and 2x16x16 meshes,
+   qwen2-72b/decode_32k and llama4-scout-17b-a16e/decode_32k on the 16x16
+   mesh, each "ok", one line a cell; then, on a real 1x1 ``make_dev_mesh``
+   (a one-rank NCCL group), colberter/serve_q32, fm/serve_p99 and
+   gatedgcn/full_graph_sm (a training step) counted by the dry run and run
+   on the card on tensors of the cell's shapes drawn from a seed: the
+   card step's ``FlopCounterMode`` count equals the dry run's FLOPs
+   exactly, its ``max_memory_allocated`` above its start (the arguments
+   already on the card) is 0.90-1.10 x the dry run's bytes above the
+   arguments (temporaries + outputs - donated), and its median time of 20
+   (CUDA events) stands
+   beside the dry run's H100 roofline bound and their ratio. No kernel may
+   launch (the reference's dry run reaches no Pallas kernel either).
 
 It then prints the card line, the ``{"kernels": [...]}`` line and, last,
 the ``{"ok": ...}`` line. Any failed phase exits non-zero without them.
@@ -208,8 +223,9 @@ AGREE_TOL = 1e-5    # card path vs CPU path: aggregate scores (~25 in size)
 N_DOCS = 1_000_000  # main-path corpus
 POOL_K = 32         # cspn: benchmarks/bench_constant_space.py's setting,
                     # (128 + 32 * 32) fp16 values = one 4 KiB block a doc
-BATCHES, BATCH_SIZE = 2, 64   # espn batches on the main path (4 until the
-                              # encoder and disk_ivf phases came: a depth cut)
+BATCHES, BATCH_SIZE = 1, 64   # espn batches on the main path (4 until the
+                              # encoder and disk_ivf phases came, 2 until
+                              # [dryrun] came: depth cuts)
 N_QUERIES = 256               # the corpus's queries (the serve phase's 128 +)
 # ESPNConfig's defaults, used by the main path and the agreement phase
 NPROBE, K_CANDIDATES, PREFETCH_STEP = 128, 1000, 0.10
@@ -4495,6 +4511,242 @@ def gnn_phase(dev, failures) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 19 [dryrun]: the multi-pod dry run, and its counts held to a step on
+# the card
+# ---------------------------------------------------------------------------
+
+# (arch, shape, meshes) run on the fake meshes: one list a subprocess, the
+# three run side by side, beside the card's cells
+DRYRUN_FAKE_CELLS = ((("colberter", "serve_q32", ("single", "multi")),),
+                     (("qwen2-72b", "decode_32k", ("single",)),),
+                     (("llama4-scout-17b-a16e", "decode_32k", ("single",)),))
+# cells that fit one card whole: counted on a 1x1 mesh and run on the card
+DRYRUN_CARD_CELLS = (("colberter", "serve_q32"), ("fm", "serve_p99"),
+                     ("gatedgcn", "full_graph_sm"))
+# the card's peak above start (the arguments already on the card) within
+# this band of the dry run's step bytes (temporaries + outputs - donated)
+DRYRUN_MEM_BAND = (0.90, 1.10)
+DRYRUN_REPS = 20
+
+_DRYRUN_SCRIPT = r"""
+import json, sys
+from repro_torch.launch.dryrun import run_cell
+from repro_torch.launch.mesh import make_production_mesh
+names = {"single": "single-pod-16x16", "multi": "multi-pod-2x16x16"}
+meshes = {}
+out = {}
+for arch, shape, which in json.loads(sys.argv[1]):
+    for m in which:
+        if m not in meshes:
+            meshes[m] = make_production_mesh(multi_pod=m == "multi")
+        manifest = {}
+        rec = run_cell(arch, shape, meshes[m], names[m], manifest,
+                       verbose=False)
+        rec.pop("trace", None)
+        out.update(manifest)
+print(json.dumps(out))
+"""
+
+
+def dryrun_fake_start() -> list:
+    """``DRYRUN_FAKE_CELLS`` through ``run_cell``, one subprocess a list
+    (each process joins a fake 512-rank group of its own), started."""
+    env = {**os.environ, "PYTHONPATH": SRC}
+    return [subprocess.Popen([sys.executable, "-c", _DRYRUN_SCRIPT,
+                              json.dumps(cells)], cwd=ROOT, env=env,
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                             text=True)
+            for cells in DRYRUN_FAKE_CELLS]
+
+
+def dryrun_fake_finish(procs, t0, failures) -> dict:
+    """Wait for ``dryrun_fake_start``'s processes; each record must be
+    ok."""
+    recs = {}
+    for p in procs:
+        try:
+            stdout, stderr = p.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            stdout, stderr = p.communicate()
+        if p.returncode != 0:
+            failures.append(f"dryrun: fake-mesh subprocess exited "
+                            f"{p.returncode}: {stderr[-1500:]}")
+            continue
+        recs.update(json.loads(stdout.strip().splitlines()[-1]))
+    secs = time.perf_counter() - t0
+    want = sum(len(m) for cells in DRYRUN_FAKE_CELLS for _, _, m in cells)
+    if len(recs) != want:
+        failures.append(f"dryrun: {len(recs)} fake-mesh records, not {want}")
+    for key, rec in recs.items():
+        if rec["status"] != "ok":
+            failures.append(f"dryrun: {key} {rec.get('error')}")
+            log(f"  {key}: FAIL {rec.get('error')}")
+            continue
+        roof = rec["roofline"]
+        log(f"  {key}: ok, {rec['compile_s']} s, peak/dev "
+            f"{rec['memory_analysis']['peak_gb']} GB, terms compute "
+            f"{roof['compute_ms']} / memory {roof['memory_ms']} / "
+            f"collective {roof['collective_ms']} ms ({roof['bottleneck']}), "
+            f"flops/dev {roof['flops_per_dev']:.6g}, collectives "
+            f"{roof['counts']}")
+    log(f"  fake-mesh cells: {secs:.1f} s in {len(procs)} subprocesses")
+    return {"seconds": secs, "records": recs}
+
+
+def dryrun_cell_args(cell, gen, dev):
+    """Tensors of ``cell.args``' shapes and dtypes on the card, drawn from
+    ``gen``: floats N(0, 1) x 0.05, and each id in its range (tokens below
+    the vocab, doc lengths in 1..max, each field's ids below its table's
+    rows, edges among the nodes with ``pad512``'s tail at ``dst = n``,
+    labels below the classes, an optimizer step of 0)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    cfg = get_config(cell.arch)
+
+    def ints(name, shape, dtype):
+        def draw(lo, hi, shp=shape):
+            return torch.randint(lo, hi, shp, generator=gen, device=dev,
+                                 dtype=dtype)
+        if name == "query_tokens":
+            return draw(0, cfg.vocab_size)
+        if name == "doc_lens":
+            return draw(1, cfg.max_doc_len + 1)
+        if name == "sparse_ids":
+            return torch.stack([draw(0, r, shape[:1]) for r in
+                                cfg.table_sizes], dim=1)
+        if name in ("edge_src", "edge_dst"):
+            from repro_torch.configs.base import GNN_SHAPES
+            d = GNN_SHAPES[cell.shape].dims
+            n, e = d["n_nodes"], d["n_edges"]
+            t = draw(0, n)
+            if name == "edge_dst":
+                t[e:] = n
+            return t
+        if name == "labels":
+            return draw(0, cfg.n_classes if cfg.family == "gnn" else 2)
+        if name == "step":
+            return torch.zeros(shape, dtype=dtype, device=dev)
+        raise ValueError(f"dryrun: no range for the ids {name!r}")
+
+    def walk(t, name=""):
+        if isinstance(t, dict):
+            return {k: walk(v, k) for k, v in t.items()}
+        if isinstance(t, tuple):
+            return tuple(walk(v, name) for v in t)
+        if t.dtype.is_floating_point:
+            return (torch.randn(t.shape, generator=gen, device=dev) * 0.05
+                    ).to(t.dtype)
+        return ints(name, tuple(t.shape), t.dtype)
+    return walk(cell.args)
+
+
+def dryrun_card_cell(dev, failures, mesh, arch, shape, card) -> dict:
+    """One of ``DRYRUN_CARD_CELLS``: the dry run on ``mesh`` (1x1), then
+    the cell's step on the card: FLOPs equal, the peak above the arguments
+    within ``DRYRUN_MEM_BAND`` of the dry run's, the median step time
+    beside the roofline bound."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.launch.dryrun import record_cell
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.roofline.analysis import (extract_raw, memory_gb,
+                                               roofline_from_raw)
+    cell = build_cell(arch, shape, mesh)
+    try:
+        record = record_cell(cell)
+    except Exception as e:  # noqa: BLE001 — recorded as the phase's failure
+        failures.append(f"dryrun: {arch}/{shape} on 1x1: "
+                        f"{type(e).__name__}: {e}")
+        return {"error": f"{type(e).__name__}: {e}"}
+    roof = roofline_from_raw(extract_raw(record), arch=arch, shape=shape,
+                             mesh_name="dev-1x1", n_dev=mesh.size(),
+                             model_flops=cell.model_flops,
+                             mem_gb=memory_gb(record)).row()
+    dry_flops = roof["flops_per_dev"]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    args = dryrun_cell_args(cell, gen, dev)
+    cell.step_fn(*args)                              # warm-up
+    torch.cuda.synchronize()
+    with FlopCounterMode(display=False) as fc:
+        cell.step_fn(*args)
+    card_flops = fc.get_total_flops()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    cell.step_fn(*args)
+    torch.cuda.synchronize()
+    card_peak = torch.cuda.max_memory_allocated() - start
+    times = []
+    for _ in range(DRYRUN_REPS):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        cell.step_fn(*args)
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    step_ms = float(np.median(times))
+    bound_ms = max(roof["compute_ms"], roof["memory_ms"])
+    # what the step allocates above its arguments, on both sides
+    dry_step = (record.temp_bytes + record.output_bytes
+                - record.alias_bytes)
+    lo, hi = DRYRUN_MEM_BAND
+    out = {"dry_flops": dry_flops, "card_flops": card_flops,
+           "dry_argument_bytes": record.argument_bytes,
+           "dry_peak_bytes": record.peak_bytes,
+           "dry_step_bytes": dry_step, "card_peak_above_start": card_peak,
+           "card_over_dry": card_peak / dry_step,
+           "dry_bytes": roof["bytes_per_dev"], "step_ms": step_ms,
+           "bound_ms": bound_ms, "bound_by": roof["bottleneck"],
+           "share": bound_ms / step_ms, "card": card}
+    log(f"  {arch}/{shape} 1x1: FLOPs dry {dry_flops:.6g} card "
+        f"{card_flops:.6g}; above the arguments "
+        f"({record.argument_bytes} B): dry {dry_step} B (temp + out - "
+        f"alias), card peak above start {card_peak} B, card/dry "
+        f"{card_peak / dry_step:.4f}; dry peak {record.peak_bytes} B; "
+        f"step {step_ms:.4f} ms (median of {DRYRUN_REPS}), bound "
+        f"{bound_ms:.4f} ms ({roof['bottleneck']}), share "
+        f"{bound_ms / step_ms:.4f}; {card}")
+    if card_flops != dry_flops:
+        failures.append(f"dryrun: {arch}/{shape} card FLOPs {card_flops} "
+                        f"!= dry run's {dry_flops}")
+    if not lo * dry_step <= card_peak <= hi * dry_step:
+        failures.append(f"dryrun: {arch}/{shape} card peak above start "
+                        f"{card_peak} outside {DRYRUN_MEM_BAND} x the dry "
+                        f"run's temp + out - alias {dry_step}")
+    del args
+    free_card()
+    return out
+
+
+def dryrun_phase(dev, failures, card) -> dict:
+    """The fake-mesh cells in subprocesses (``dryrun_fake_start``), and
+    meanwhile each of ``DRYRUN_CARD_CELLS`` on a 1x1 mesh and on the card
+    (``dryrun_card_cell``); no kernel may launch."""
+    tf32_off(failures, "before [dryrun]")
+    free_card()
+    reset_counts()
+    t0 = time.perf_counter()
+    procs = dryrun_fake_start()
+    from repro_torch.launch.mesh import make_dev_mesh
+    mesh = make_dev_mesh()
+    log(f"  dev mesh {tuple(mesh.shape)} {mesh.mesh_dim_names} on "
+        f"{mesh.device_type}")
+    out = {"card": {f"{a}/{s}": dryrun_card_cell(dev, failures, mesh, a, s,
+                                                 card)
+                    for a, s in DRYRUN_CARD_CELLS}}
+    out["fake"] = dryrun_fake_finish(procs, t0, failures)
+    launched = {k: v for k, v in read_counts().items() if v}
+    log(f"  kernel launches in [dryrun]: {launched or 'none'}")
+    if launched:
+        failures.append(f"dryrun: kernels launched {launched}")
+    tf32_off(failures, "after [dryrun]")
+    return out
+
+
 def kernel_rows(rows) -> list[dict]:
     """The ``{"kernels": [...]}`` line's rows. Each kernel's launches are
     those of the paths that run it (the retrieval modes, the LM decodes),
@@ -4591,7 +4843,9 @@ def main(argv=None) -> int:
               ("moe", lambda: rows.update(moe=moe_phase(dev, failures))),
               ("recsys", lambda: rows.update(
                   recsys=recsys_phase(dev, failures))),
-              ("gnn", lambda: rows.update(gnn=gnn_phase(dev, failures)))]
+              ("gnn", lambda: rows.update(gnn=gnn_phase(dev, failures))),
+              ("dryrun", lambda: rows.update(
+                  dryrun=dryrun_phase(dev, failures, card)))]
     for name, fn in phases:
         log(f"[{name}]")
         t0 = time.perf_counter()

@@ -4,10 +4,13 @@ registry.
 
 The reference's ``TransformerConfig`` and ``ColberterConfig`` with torch
 dtypes and without the knobs that only change how XLA lowers the model
-(sharding axes, layer scan, remat, the one-hot cache write, unrolled chunk
-loops, a sharded encode, a reduced-precision score block): the port runs one
-device and computes the reference's default numerics (fp32 attention scores,
-every kv chunk visited). ``GNNConfig`` and ``RecsysConfig`` are the
+(layer scan, remat, the one-hot cache write, unrolled chunk loops, a
+reduced-precision score block): the port computes the reference's default
+numerics (fp32 attention scores, every kv chunk visited). The sharding
+knobs stay: ``batch_axes`` and ``tp_axis`` (the LM's activation
+constraints) and ``shard_encode`` (ColBERTer's encode over the whole mesh)
+redistribute DTensors in the dry run (``launch/steps.py``) and leave plain
+tensors alone. ``GNNConfig`` and ``RecsysConfig`` are the
 reference's field for field: GatedGCN's ``remat`` recomputes each layer in
 the backward (``torch.utils.checkpoint``); its ``scan_layers`` is kept for
 the reference's sake only (the port's layer loop is the same either way).
@@ -51,6 +54,9 @@ class TransformerConfig:
     param_dtype: Any = torch.float32
     attn_chunk: int = 1024           # kv-chunk for blockwise online-softmax attn
     max_seq_len: int = 524_288
+    # activation-sharding constraint axes (set by the launcher; None = off)
+    batch_axes: Any = None           # e.g. ("data",) or ("pod", "data")
+    tp_axis: Any = None              # e.g. "model"
 
     @property
     def head_dim(self) -> int:
@@ -82,6 +88,7 @@ class ColberterConfig:
     norm_eps: float = 1e-12
     attn_chunk: int = 512
     qkv_bias: bool = True
+    shard_encode: bool = False       # dry run: encode over the whole mesh
 
     def scaled(self, **kw) -> "ColberterConfig":
         return dataclasses.replace(self, **kw)
@@ -235,3 +242,96 @@ def list_archs() -> list[str]:
 
 def shapes_for(config) -> dict[str, ShapeSpec]:
     return FAMILY_SHAPES[config.family]
+
+
+# ---------------------------------------------------------------------------
+# input_specs — meta-tensor stand-ins for every (arch x shape) cell
+# ---------------------------------------------------------------------------
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(config, shape: ShapeSpec) -> dict[str, torch.Tensor]:
+    """The model inputs of one (arch, shape) cell as empty ``meta`` tensors
+    of the reference's shapes and dtypes (never allocates).
+
+    These are the *data* inputs only; parameter / optimizer-state shapes come
+    from the model module's ``param_shapes``.
+    """
+    i32, f32 = torch.int32, torch.float32
+    fam = config.family
+    if fam in ("lm-dense", "lm-moe"):
+        b, s = shape.dims["global_batch"], shape.dims["seq_len"]
+        if shape.kind == "train":
+            return {"tokens": _meta((b, s), i32),
+                    "targets": _meta((b, s), i32)}
+        if shape.kind == "prefill":
+            return {"tokens": _meta((b, s), i32)}
+        if shape.kind == "decode":
+            return {"tokens": _meta((b, 1), i32),
+                    "positions": _meta((b,), i32)}
+    if fam == "gnn":
+        d = shape.dims
+        if shape.name == "minibatch_lg":
+            # 2-hop sampled block (padded worst case): seeds + fanout0 +
+            # fanout0*fanout1
+            n_sub = d["batch_nodes"] * (1 + d["fanout0"]
+                                        + d["fanout0"] * d["fanout1"])
+            e_sub = pad512(d["batch_nodes"] * (d["fanout0"]
+                                               + d["fanout0"] * d["fanout1"]))
+            return {"node_feats": _meta((n_sub, d["d_feat"]), f32),
+                    "edge_src": _meta((e_sub,), i32),
+                    "edge_dst": _meta((e_sub,), i32),
+                    "labels": _meta((d["batch_nodes"],), i32),
+                    "label_nodes": _meta((d["batch_nodes"],), i32)}
+        if shape.name == "molecule":
+            n = d["n_nodes"] * d["batch"]
+            e = pad512(d["n_edges"] * d["batch"])
+            return {"node_feats": _meta((n, d["d_feat"]), f32),
+                    "edge_src": _meta((e,), i32),
+                    "edge_dst": _meta((e,), i32),
+                    "graph_ids": _meta((n,), i32),
+                    "labels": _meta((d["batch"],), i32)}
+        e = pad512(d["n_edges"])
+        return {"node_feats": _meta((d["n_nodes"], d["d_feat"]), f32),
+                "edge_src": _meta((e,), i32),
+                "edge_dst": _meta((e,), i32),
+                "labels": _meta((d["n_nodes"],), i32)}
+    if fam == "recsys":
+        b = shape.dims["batch"]
+        if shape.name == "retrieval_cand":
+            nc = pad512(shape.dims["n_candidates"])
+            if config.variant == "two-tower":
+                return {"query_ids": _meta((b, config.n_query_fields), i32),
+                        "candidate_ids": _meta((nc, config.n_item_fields),
+                                               i32)}
+            # CTR models score 1M assembled rows (user fields broadcast into
+            # each candidate's feature vector by the host pipeline)
+            specs = {"sparse_ids": _meta((nc, config.n_sparse), i32)}
+            if config.n_dense:
+                specs["dense"] = _meta((nc, config.n_dense), f32)
+            return specs
+        if config.variant == "two-tower":
+            specs = {"query_ids": _meta((b, config.n_query_fields), i32),
+                     "item_ids": _meta((b, config.n_item_fields), i32)}
+            if shape.kind == "train":
+                specs["labels"] = _meta((b,), i32)
+            return specs
+        specs = {"sparse_ids": _meta((b, config.n_sparse), i32)}
+        if config.n_dense:
+            specs["dense"] = _meta((b, config.n_dense), f32)
+        if shape.kind == "train":
+            specs["labels"] = _meta((b,), f32)
+        return specs
+    if fam == "retrieval":
+        b = shape.dims["batch"]
+        k = shape.dims["k_docs"]
+        return {
+            "query_tokens": _meta((b, config.max_query_len), i32),
+            "doc_bow": _meta((b, k, config.max_doc_len, config.d_bow),
+                             torch.bfloat16),
+            "doc_lens": _meta((b, k), i32),
+            "cls_scores": _meta((b, k), f32),
+        }
+    raise ValueError(f"no input specs for family {fam} shape {shape.name}")

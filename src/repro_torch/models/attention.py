@@ -13,6 +13,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models.layers import whole_heads
+
 NEG_INF = -1e30
 INT32_MAX = 2**31 - 1
 
@@ -68,11 +70,13 @@ def blockwise_attention(q, k, v, *, causal: bool, chunk: int,
         v = F.pad(v, (0, 0, 0, 0, 0, pad))
         kv_positions = F.pad(kv_positions, (0, pad), value=INT32_MAX)
 
-    qg = q.reshape(b, sq, kv, group, dh).float()
+    qg = whole_heads(q, 2, kv).reshape(b, sq, kv, group, dh).float()
     qp = q_positions[:, :, None, None, None]
-    m = torch.full((b, sq, kv, group), NEG_INF, device=dev)
-    l = torch.zeros((b, sq, kv, group), device=dev)
-    o = torch.zeros((b, sq, kv, group, dh), device=dev)
+    # the running state is made like qg, so that a DTensor q gives it q's
+    # layout (a plain tensor gives the same zeros)
+    o = torch.zeros_like(qg)
+    m = torch.full_like(o[..., 0], NEG_INF)
+    l = torch.zeros_like(o[..., 0])
     for i in range(n_chunks):
         sl = slice(i * chunk, (i + 1) * chunk)
         kb, vb, pb = k[:, sl], v[:, sl], kv_positions[:, sl]

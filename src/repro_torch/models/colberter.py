@@ -25,8 +25,8 @@ from repro_torch.configs.base import ColberterConfig
 from repro_torch.core.maxsim import maxsim_scores
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import INT32_MAX, blockwise_attention
-from repro_torch.models.layers import (dense_init, embed_init, gelu_mlp,
-                                       layer_norm)
+from repro_torch.models.layers import (dense_init, embed_init, embed_rows,
+                                       gelu_mlp, layer_norm)
 
 
 def param_table(cfg: ColberterConfig) -> dict[str, tuple[tuple, str]]:
@@ -154,7 +154,8 @@ def _encode(cfg: ColberterConfig, params: Colberter, tokens, mask=None):
     mask = (tokens >= 0 if mask is None
             else torch.as_tensor(mask, device=dev).bool())
     tok = tokens.clamp_min(0).long()
-    x = (params.embed[tok] + params.pos_embed[None, :S, :]).to(dt)
+    x = (embed_rows(params.embed, tok)
+         + params.pos_embed[None, :S, :]).to(dt)
     x = layer_norm(x, params.embed_norm.scale, params.embed_norm.bias,
                    cfg.norm_eps)
     H = cfg.n_heads

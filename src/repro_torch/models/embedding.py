@@ -17,9 +17,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.models.layers import is_dtensor, sharded_rows
 from repro_torch.models.segment_ops import Segments
 
-# tables with fewer rows than this are not padded
+# tables with fewer rows than this are neither padded nor sharded
 SHARD_MIN_ROWS = 65_536
 # stored row counts of the larger tables round up to a multiple of this
 PAD_MULTIPLE = 512
@@ -33,6 +34,14 @@ def table_shapes(table_sizes, embed_dim, dtype=torch.float32) -> dict:
     """The tables as empty ``meta`` tensors (stored rows, ``embed_dim``)."""
     return {f"table_{i}": torch.empty((padded_rows(r), embed_dim),
                                       dtype=dtype, device="meta")
+            for i, r in enumerate(table_sizes)}
+
+
+def table_logical_axes(table_sizes) -> dict:
+    """Each table's logical axes: rows over the whole mesh ("rows") from
+    ``SHARD_MIN_ROWS`` rows on, replicated below."""
+    return {f"table_{i}": (("rows", None) if r >= SHARD_MIN_ROWS
+                           else (None, None))
             for i, r in enumerate(table_sizes)}
 
 
@@ -52,7 +61,10 @@ def init_tables(generator: torch.Generator, table_sizes, embed_dim,
 
 def take(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """``table[ids]`` whose backward sums the gradient rows of equal ids in
-    their order (the same bits on every run)."""
+    their order (the same bits on every run). A DTensor table sharded by
+    rows is read where it lies (``layers.sharded_rows``)."""
+    if is_dtensor(table) and any(p.is_shard(0) for p in table.placements):
+        return sharded_rows(table, ids)
     return Segments(ids, table.shape[0]).gather(table)
 
 

@@ -20,7 +20,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
 from repro_torch.core.maxsim import topk_stable
-from repro_torch.models.layers import swiglu_mlp
+from repro_torch.models.layers import constrain, swiglu_mlp
 
 
 def capacity(tokens_per_group: int, cfg: MoEConfig) -> int:
@@ -61,10 +61,13 @@ def dispatch(experts, n_experts: int, cap: int):
     return dest, keep
 
 
-def moe_ffn(x, params, cfg: MoEConfig, compute_dtype=torch.bfloat16):
+def moe_ffn(x, params, cfg: MoEConfig, compute_dtype=torch.bfloat16, *,
+            batch_axes=None, ep_axis=None):
     """x: (G, T, D) or (T, D) (one group). params: router (D, E), w_gate /
     w_up (E, D, F), w_down (E, F, D), optional shared expert w_gate_s /
-    w_up_s (D, Fs) and w_down_s (Fs, D). Returns (y like x, aux loss)."""
+    w_up_s (D, Fs) and w_down_s (Fs, D). Returns (y like x, aux loss).
+    batch_axes / ep_axis: the expert buffer's sharding constraint (set by
+    the launcher; it only redistributes DTensors)."""
     squeeze = x.dim() == 2
     if squeeze:
         x = x[None]
@@ -80,13 +83,17 @@ def moe_ffn(x, params, cfg: MoEConfig, compute_dtype=torch.bfloat16):
     idx = dest[..., None].expand(-1, -1, d)
     buf = torch.zeros(g, e * c + 1, d, dtype=compute_dtype, device=x.device)
     buf = buf.scatter(1, idx, x_rep)[:, :-1].reshape(g, e, c, d)
+    spec = ((batch_axes, ep_axis, None, None)
+            if batch_axes is not None or ep_axis is not None else None)
+    buf = constrain(buf, spec)
 
     # expert compute: a batched SwiGLU over the expert dim
     w_gate, w_up, w_down = (params[n].to(compute_dtype)
                             for n in ("w_gate", "w_up", "w_down"))
     gate = torch.einsum("gecd,edf->gecf", buf, w_gate)
     up = torch.einsum("gecd,edf->gecf", buf, w_up)
-    out = torch.einsum("gecf,efd->gecd", F.silu(gate) * up, w_down)
+    out = constrain(torch.einsum("gecf,efd->gecd", F.silu(gate) * up,
+                                 w_down), spec)
 
     # combine: gather back, weight, sum over k
     flat_out = torch.cat([out.reshape(g, e * c, d),

@@ -59,6 +59,19 @@ def param_shapes(cfg: RecsysConfig) -> dict:
     return p
 
 
+def param_logical_axes(cfg: RecsysConfig) -> dict:
+    """The reference's tree of logical axes: the tables' rows over the mesh
+    (``embedding.table_logical_axes``), every other parameter replicated."""
+    def none(tree):
+        return {k: none(v) if isinstance(v, dict) else (None,) * v.dim()
+                for k, v in tree.items()}
+    axes = none(param_shapes(cfg))
+    axes["tables"] = emb.table_logical_axes(cfg.table_sizes)
+    if cfg.variant == "fm":
+        axes["linear"] = emb.table_logical_axes(cfg.table_sizes)
+    return axes
+
+
 def init_params(cfg: RecsysConfig, generator: torch.Generator,
                 device="cuda") -> dict:
     """The reference's init kinds, drawn on ``generator``'s device and

@@ -12,12 +12,19 @@ edges): no sum reaches them, in the forward or in the backward, and where
 the index is made ``padded`` a gather gives zeros for them, without indexing
 out of range. An index that holds no pad (an embedding lookup's ids, a
 GNN's sources) gathers with one ``index_select``.
+
+An index without values (a ``FakeTensorMode`` tensor: the dry run's) takes
+the static bound of each data-dependent size: every position counts, and
+there are min(E, n) distinct indices.
 """
 from __future__ import annotations
 
 from functools import cached_property
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
+
+from repro_torch.models.layers import embed_rows, is_dtensor
 
 
 class Segments:
@@ -34,6 +41,9 @@ class Segments:
         indices; the count of each)."""
         order = torch.sort(self.idx, stable=True).indices
         s = self.idx[order]
+        if is_fake(s):                           # no values: the bounds
+            m = min(s.shape[0], self.n)
+            return order, s[:m], torch.ones_like(s[:m])
         n_valid = int((s < self.n).sum())        # the pads sort last
         order, s = order[:n_valid], s[:n_valid]
         uniq, counts = torch.unique_consecutive(s, return_counts=True)
@@ -70,6 +80,8 @@ class _Gather(torch.autograd.Function):
     def forward(ctx, h, seg: Segments):
         ctx.seg, ctx.dtype = seg, h.dtype
         if not seg.padded:
+            if h.dim() == 2 and is_dtensor(h):      # the dry run's layouts
+                return embed_rows(h, seg.idx)
             return h.index_select(0, seg.idx)
         out = h.index_select(0, seg.idx.clamp(max=seg.n - 1))
         pad = (seg.idx >= seg.n).view((-1,) + (1,) * (h.dim() - 1))

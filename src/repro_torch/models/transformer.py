@@ -30,8 +30,19 @@ from repro_torch.kernels.flash_decode.ops import flash_decode
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.attention import (INT32_MAX, apply_rope,
                                           blockwise_attention)
-from repro_torch.models.layers import (cross_entropy_logits, dense_init,
-                                       embed_init, rms_norm, swiglu_mlp)
+from repro_torch.models.layers import (constrain, cross_entropy_logits,
+                                       dense_init, embed_init, embed_rows,
+                                       rms_norm,
+                                       swiglu_mlp, whole_heads, write_slot)
+
+
+def _wsc(cfg: TransformerConfig, x, *spec):
+    """Activation sharding constraint at the reference's sites: off unless
+    the launcher set ``batch_axes``, and a no-op on plain tensors (see
+    ``layers.constrain``); "TP" stands for ``cfg.tp_axis``."""
+    if cfg.batch_axes is None:
+        return x
+    return constrain(x, tuple(cfg.tp_axis if a == "TP" else a for a in spec))
 
 
 def padded_vocab(v: int) -> int:
@@ -40,43 +51,51 @@ def padded_vocab(v: int) -> int:
     return -(-v // 512) * 512
 
 
-def param_table(cfg: TransformerConfig) -> dict[str, tuple[tuple, str]]:
-    """name -> (shape, init kind), under the reference's names."""
+def _table(cfg: TransformerConfig) -> dict[str, tuple[tuple, tuple, str]]:
+    """name -> (shape, logical axes, init kind), under the reference's
+    names. The logical axes ("fsdp", "tp") resolve to mesh axes through
+    ``launch/mesh.mesh_axes``."""
     L, D, H, KV, Dh, F = (cfg.n_layers, cfg.d_model, cfg.n_heads,
                           cfg.n_kv_heads, cfg.head_dim, cfg.d_ff)
-    t = {"embed": ((padded_vocab(cfg.vocab_size), D), "embed"),
-         "final_norm": ((D,), "ones")}
+    V = padded_vocab(cfg.vocab_size)
+    t = {"embed": ((V, D), ("tp", "fsdp"), "embed"),
+         "final_norm": ((D,), (None,), "ones")}
     if not cfg.tie_embeddings:
-        t["lm_head"] = ((D, padded_vocab(cfg.vocab_size)), "dense")
+        t["lm_head"] = ((D, V), ("fsdp", "tp"), "dense")
     lyr = {
-        "attn_norm": ((L, D), "ones"),
-        "wq": ((L, D, H * Dh), "dense"),
-        "wk": ((L, D, KV * Dh), "dense"),
-        "wv": ((L, D, KV * Dh), "dense"),
-        "wo": ((L, H * Dh, D), "dense"),
-        "mlp_norm": ((L, D), "ones"),
+        "attn_norm": ((L, D), (None, None), "ones"),
+        "wq": ((L, D, H * Dh), (None, "fsdp", "tp"), "dense"),
+        "wk": ((L, D, KV * Dh), (None, "fsdp", "tp"), "dense"),
+        "wv": ((L, D, KV * Dh), (None, "fsdp", "tp"), "dense"),
+        "wo": ((L, H * Dh, D), (None, "tp", "fsdp"), "dense"),
+        "mlp_norm": ((L, D), (None, None), "ones"),
     }
     if cfg.qkv_bias:
-        lyr["bq"] = ((L, H * Dh), "zeros")
-        lyr["bk"] = ((L, KV * Dh), "zeros")
-        lyr["bv"] = ((L, KV * Dh), "zeros")
+        lyr["bq"] = ((L, H * Dh), (None, "tp"), "zeros")
+        lyr["bk"] = ((L, KV * Dh), (None, "tp"), "zeros")
+        lyr["bv"] = ((L, KV * Dh), (None, "tp"), "zeros")
     if cfg.moe is None:
-        lyr["w_gate"] = ((L, D, F), "dense")
-        lyr["w_up"] = ((L, D, F), "dense")
-        lyr["w_down"] = ((L, F, D), "dense")
+        lyr["w_gate"] = ((L, D, F), (None, "fsdp", "tp"), "dense")
+        lyr["w_up"] = ((L, D, F), (None, "fsdp", "tp"), "dense")
+        lyr["w_down"] = ((L, F, D), (None, "tp", "fsdp"), "dense")
     else:
         E, Fe = cfg.moe.n_experts, cfg.moe.d_ff_expert
-        lyr["router"] = ((L, D, E), "dense")
-        lyr["w_gate"] = ((L, E, D, Fe), "dense")
-        lyr["w_up"] = ((L, E, D, Fe), "dense")
-        lyr["w_down"] = ((L, E, Fe, D), "dense")
+        lyr["router"] = ((L, D, E), (None, "fsdp", None), "dense")
+        lyr["w_gate"] = ((L, E, D, Fe), (None, "tp", "fsdp", None), "dense")
+        lyr["w_up"] = ((L, E, D, Fe), (None, "tp", "fsdp", None), "dense")
+        lyr["w_down"] = ((L, E, Fe, D), (None, "tp", None, "fsdp"), "dense")
         if cfg.moe.n_shared_experts:
             Fs = Fe * cfg.moe.n_shared_experts
-            lyr["w_gate_s"] = ((L, D, Fs), "dense")
-            lyr["w_up_s"] = ((L, D, Fs), "dense")
-            lyr["w_down_s"] = ((L, Fs, D), "dense")
+            lyr["w_gate_s"] = ((L, D, Fs), (None, "fsdp", "tp"), "dense")
+            lyr["w_up_s"] = ((L, D, Fs), (None, "fsdp", "tp"), "dense")
+            lyr["w_down_s"] = ((L, Fs, D), (None, "tp", "fsdp"), "dense")
     t.update({f"layers/{k}": v for k, v in lyr.items()})
     return t
+
+
+def param_table(cfg: TransformerConfig) -> dict[str, tuple[tuple, str]]:
+    """name -> (shape, init kind), under the reference's names."""
+    return {k: (shape, kind) for k, (shape, _, kind) in _table(cfg).items()}
 
 
 def _nest(flat: dict) -> dict:
@@ -98,6 +117,11 @@ def param_shapes(cfg: TransformerConfig) -> dict:
     return _nest({name: torch.empty(shape, dtype=cfg.param_dtype,
                                     device="meta")
                   for name, (shape, _) in param_table(cfg).items()})
+
+
+def param_logical_axes(cfg: TransformerConfig) -> dict:
+    """The reference's nested tree of each parameter's logical axes."""
+    return _nest({k: axes for k, (_, axes, _) in _table(cfg).items()})
 
 
 def _cache_layout(cfg: TransformerConfig, batch: int,
@@ -140,9 +164,8 @@ class TransformerLM(nn.Module):
         """Layer ``i``'s parameters (views of the stacked tensors)."""
         return {k: p[i] for k, p in self.layers.items()}
 
-    def forward(self, tokens, positions=None, *, collect_kv: bool = False):
-        return forward(self.cfg, self, tokens, positions,
-                       collect_kv=collect_kv)
+    def forward(self, tokens, positions=None):
+        return forward(self.cfg, self, tokens, positions)
 
 
 def init_params(cfg: TransformerConfig, generator: torch.Generator,
@@ -172,45 +195,52 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
 # ---------------------------------------------------------------------------
 
 def _layer(cfg: TransformerConfig, x, lp, positions, *, cache=None,
-           lengths=None):
-    """One transformer block. x: (B, S, D).
+           lengths=None, kv_out=None):
+    """One transformer block. x: (B, S, D). Returns (y, aux), aux the MoE
+    layer's aux loss (0 for a dense layer).
 
-    Prefill: cache is None -> blockwise causal self-attention; returns
-    (y, aux, (k, v)). Decode: cache = (k_cache, v_cache, write_pos), this
-    layer's (B, S_max, KV, Dh) cache views; the new k/v are written at
-    ``write_pos`` in place and the attention runs over the first
-    ``lengths`` slots; returns (y, aux, None). aux is the MoE layer's aux
-    loss (0 for a dense layer).
+    Prefill: cache is None -> blockwise causal self-attention; with
+    ``kv_out`` (this layer's (B, S, KV, Dh) k and v cache views) k and v
+    are written into it. Decode: cache = (k_cache, v_cache, write_pos),
+    this layer's (B, S_max, KV, Dh) cache views; the new k/v are written
+    at ``write_pos`` in place and the attention runs over the first
+    ``lengths`` slots.
     """
     dt = cfg.dtype
     B, S, _ = x.shape
     H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    x = _wsc(cfg, x, cfg.batch_axes, None, None)
     h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-    q = h @ lp["wq"].to(dt)
-    k = h @ lp["wk"].to(dt)
-    v = h @ lp["wv"].to(dt)
+    q = _wsc(cfg, h @ lp["wq"].to(dt), cfg.batch_axes, None, "TP")
+    k = _wsc(cfg, h @ lp["wk"].to(dt), cfg.batch_axes, None, "TP")
+    v = _wsc(cfg, h @ lp["wv"].to(dt), cfg.batch_axes, None, "TP")
     if cfg.qkv_bias:
         q = q + lp["bq"].to(dt)
         k = k + lp["bk"].to(dt)
         v = v + lp["bv"].to(dt)
-    q = apply_rope(q.reshape(B, S, H, Dh), positions, cfg.rope_theta)
-    k = apply_rope(k.reshape(B, S, KV, Dh), positions, cfg.rope_theta)
-    v = v.reshape(B, S, KV, Dh)
+    q = whole_heads(q, -1, H).reshape(B, S, H, Dh)
+    k = whole_heads(k, -1, KV).reshape(B, S, KV, Dh)
+    v = whole_heads(v, -1, KV).reshape(B, S, KV, Dh)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
 
     if cache is None:
         attn = blockwise_attention(q, k, v, causal=True, chunk=cfg.attn_chunk,
                                    q_positions=positions,
                                    kv_positions=positions)
-        kv_out = (k, v)
+        if kv_out is not None:
+            for dst, new in zip(kv_out, (k, v)):
+                # the cache-bound copy in the cache's layout (S over TP)
+                dst.copy_(_wsc(cfg, new, cfg.batch_axes, "TP", None, None))
     else:
         k_cache, v_cache, write_pos = cache
-        k_cache[:, write_pos] = k[:, 0]
-        v_cache[:, write_pos] = v[:, 0]
-        attn = flash_decode(q.reshape(B, KV, H // KV, Dh), k_cache, v_cache,
-                            lengths)
-        kv_out = None
+        write_slot(k_cache, 1, write_pos, k[:, 0])
+        write_slot(v_cache, 1, write_pos, v[:, 0])
+        attn = flash_decode(whole_heads(q, 2, KV).reshape(B, KV, H // KV, Dh),
+                            k_cache, v_cache, lengths)
 
-    x = x + attn.reshape(B, S, H * Dh) @ lp["wo"].to(dt)
+    attn = _wsc(cfg, attn.reshape(B, S, H * Dh), cfg.batch_axes, None, "TP")
+    x = _wsc(cfg, x + attn @ lp["wo"].to(dt), cfg.batch_axes, None, None)
     h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
     if cfg.moe is None:
         y = swiglu_mlp(h, lp["w_gate"].to(dt), lp["w_up"].to(dt),
@@ -218,35 +248,45 @@ def _layer(cfg: TransformerConfig, x, lp, positions, *, cache=None,
         aux = torch.zeros((), device=x.device)
     else:
         # groups = the batch rows: capacity and drops are per request
-        y, aux = moe_lib.moe_ffn(h, lp, cfg.moe, dt)
-    return x + y, aux, kv_out
+        y, aux = moe_lib.moe_ffn(
+            h, lp, cfg.moe, dt, batch_axes=cfg.batch_axes,
+            ep_axis=cfg.tp_axis if cfg.batch_axes is not None else None)
+    return x + y, aux
 
 
 def forward(cfg: TransformerConfig, params: TransformerLM, tokens,
-            positions=None, *, collect_kv: bool = False):
+            positions=None, *, kv_cache=None):
     """Token ids (B, S) -> (final hidden states (B, S, D), the aux loss
-    summed over the layers (0 for a dense model), stacked (L, B, S, KV, Dh)
-    k and v or None)."""
+    summed over the layers (0 for a dense model)). With ``kv_cache`` (a
+    cache dict) each layer's k and v are written into its slots 0..S-1."""
     B, S = tokens.shape
     if positions is None:
-        positions = torch.arange(S, dtype=torch.int32,
-                                 device=tokens.device).expand(B, S)
-    x = params.embed[tokens].to(cfg.dtype)
-    ks, vs, auxes = [], [], []
+        # made from the tokens, so that a DTensor batch gives its layout
+        positions = (torch.zeros_like(tokens, dtype=torch.int32)
+                     + torch.arange(S, dtype=torch.int32,
+                                    device=tokens.device))
+    x = _wsc(cfg, embed_rows(params.embed, tokens).to(cfg.dtype),
+             cfg.batch_axes, None, None)
+    auxes = []
     for i in range(cfg.n_layers):
-        x, aux, (k, v) = _layer(cfg, x, params.layer(i), positions)
+        kv_out = None
+        if kv_cache is not None:
+            kv_out = tuple(d if S == d.shape[1] else d[:, :S] for d in
+                           (kv_cache["k"][i], kv_cache["v"][i]))
+        x, aux = _layer(cfg, x, params.layer(i), positions, kv_out=kv_out)
         auxes.append(aux)
-        if collect_kv:
-            ks.append(k)
-            vs.append(v)
+    # the last layer's residual sum reduced once here, where DTensor would
+    # otherwise carry it as partial sums into the head's product
+    x = _wsc(cfg, x, cfg.batch_axes, None, None)
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
-    return x, torch.stack(auxes).sum(), (
-        (torch.stack(ks), torch.stack(vs)) if collect_kv else None)
+    return x, torch.stack(auxes).sum()
 
 
 def logits_from_hidden(cfg: TransformerConfig, params: TransformerLM, x):
     head = params.embed.T if cfg.tie_embeddings else params.lm_head
-    return x @ head.to(cfg.dtype)
+    logits = x @ head.to(cfg.dtype)
+    spec = (cfg.batch_axes,) + (None,) * (logits.dim() - 2) + ("TP",)
+    return _wsc(cfg, logits, *spec)
 
 
 def loss_fn(cfg: TransformerConfig, params: TransformerLM, batch,
@@ -254,7 +294,7 @@ def loss_fn(cfg: TransformerConfig, params: TransformerLM, batch,
     """Mean next-token CE over the targets >= 0 (fp32 logsumexp), plus
     ``aux_weight`` x the MoE layers' summed aux loss (0 for a dense model).
     batch: tokens and targets, (B, S) int. Returns (loss, {"ce", "aux"})."""
-    x, aux, _ = forward(cfg, params, batch["tokens"])
+    x, aux = forward(cfg, params, batch["tokens"])
     logits = logits_from_hidden(cfg, params, x)
     targets = batch["targets"]
     mask = targets >= 0
@@ -286,10 +326,7 @@ def prefill(cfg: TransformerConfig, params: TransformerLM, tokens, cache):
     if S > cache["k"].shape[2]:
         raise ValueError(f"prefill: {S} tokens do not fit a cache of "
                          f"{cache['k'].shape[2]} slots")
-    x, _, (k_new, v_new) = forward(cfg, params, tokens, collect_kv=True)
-    cache["k"][:, :, :S] = k_new
-    cache["v"][:, :, :S] = v_new
-    del k_new, v_new
+    x, _ = forward(cfg, params, tokens, kv_cache=cache)
     cache["slot_pos"][:, :S] = torch.arange(S, dtype=torch.int32,
                                             device=tokens.device)
     cache["length"] = S
@@ -307,8 +344,8 @@ def decode_step(cfg: TransformerConfig, params: TransformerLM, tokens,
         raise ValueError(f"decode_step: the cache's {write_pos} slots are "
                          "full")
     B = tokens.shape[0]
-    x = params.embed[tokens].to(cfg.dtype)
-    cache["slot_pos"][:, write_pos] = positions
+    x = embed_rows(params.embed, tokens).to(cfg.dtype)
+    write_slot(cache["slot_pos"], 1, write_pos, positions)
     # The cache fills its slots in order (prefill writes 0..S-1, each step
     # writes at ``length``, shared by the batch), so the reference's
     # per-slot mask (slot_pos < INT32_MAX) is exactly the prefix of
@@ -316,7 +353,7 @@ def decode_step(cfg: TransformerConfig, params: TransformerLM, tokens,
     lengths = torch.full((B,), write_pos + 1, dtype=torch.int32,
                          device=x.device)
     for i in range(cfg.n_layers):
-        x, _, _ = _layer(cfg, x, params.layer(i), positions[:, None],
+        x, _ = _layer(cfg, x, params.layer(i), positions[:, None],
                          cache=(cache["k"][i], cache["v"][i], write_pos),
                          lengths=lengths)
     x = rms_norm(x, params.final_norm, cfg.norm_eps)

@@ -60,6 +60,15 @@ def _zeros(params) -> dict[str, torch.Tensor]:
             for k, p in named_params(params).items()}
 
 
+def _zero_shapes(param_shapes) -> dict[str, torch.Tensor]:
+    return {k: torch.empty(p.shape, dtype=torch.float32, device="meta")
+            for k, p in named_params(param_shapes).items()}
+
+
+def _step_shape() -> torch.Tensor:
+    return torch.empty((), dtype=torch.int32, device="meta")
+
+
 def _step0(params) -> torch.Tensor:
     dev = next(iter(named_params(params).values())).device
     return torch.zeros((), dtype=torch.int32, device=dev)
@@ -78,6 +87,11 @@ class AdamW:
     def init(self, params) -> dict:
         return {"m": _zeros(params), "v": _zeros(params),
                 "step": _step0(params)}
+
+    def init_shapes(self, param_shapes) -> dict:
+        """``init``'s state as empty ``meta`` tensors."""
+        return {"m": _zero_shapes(param_shapes),
+                "v": _zero_shapes(param_shapes), "step": _step_shape()}
 
     def schedule(self, step: torch.Tensor) -> torch.Tensor:
         warm = torch.clamp((step + 1) / max(1, self.warmup_steps), max=1.0)
@@ -110,6 +124,10 @@ class SGDM:
 
     def init(self, params) -> dict:
         return {"m": _zeros(params), "step": _step0(params)}
+
+    def init_shapes(self, param_shapes) -> dict:
+        """``init``'s state as empty ``meta`` tensors."""
+        return {"m": _zero_shapes(param_shapes), "step": _step_shape()}
 
     @torch.no_grad()
     def update(self, grads: dict, state: dict, params):

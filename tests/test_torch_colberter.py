@@ -47,10 +47,9 @@ TOL = {"fp32": 2e-5, "bf16": 3e-2}
 DTYPES = {"fp32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}
 # ColberterConfig fields the port drops: they only change how XLA lowers
-# the model (remat, layer scan, unrolled chunks, a sharded encode, a
-# reduced-precision score block)
-DROPPED = {"remat", "scan_layers", "attn_unroll", "shard_encode",
-           "score_dtype"}
+# the model (remat, layer scan, unrolled chunks, a reduced-precision score
+# block)
+DROPPED = {"remat", "scan_layers", "attn_unroll", "score_dtype"}
 
 
 def flat_shapes(tree, prefix=""):

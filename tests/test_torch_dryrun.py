@@ -1,0 +1,431 @@
+"""The port's multi-architecture dry run (``repro_torch.launch.{steps,
+dryrun,mesh}``, ``repro_torch.configs.base.input_specs``) against the JAX
+package's, on the CPU. Nothing here needs a card.
+
+- ``input_specs``: the same names, shapes and dtypes for every cell of
+  ``all_cells()``.
+- The cells: every cell built on the reference's one-device
+  ``make_dev_mesh()`` and on the port's (a one-rank gloo group, in a
+  subprocess) has the reference's kind, model FLOPs (exactly), argument
+  names, shapes and dtypes, and sharding specs (the port's placements
+  mapped back to spec tuples).
+- The dry run itself, each in a subprocess of its own (a process holds one
+  default process group; the dry run's is a fake one of 512 ranks):
+  colberter/serve_q32 on both meshes and with ``--set shard_encode=true``;
+  per-device FLOPs are counted on the local shards (a product sharded 32
+  ways on its rows counts 1/32 of the global product); smollm-135m's
+  decode_32k counted directly equals its L=1 and L=2 probes extrapolated;
+  and on a one-device mesh, the dry run's FLOPs equal ``FlopCounterMode``'s
+  count of the same step on plain tensors (the card's check, rehearsed).
+"""
+import json
+import os
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import pytest
+
+from repro.configs.base import get_config as ref_get_config
+from repro.configs.base import input_specs as ref_input_specs
+from repro.configs.base import shapes_for as ref_shapes_for
+from repro.launch import mesh as ref_mesh
+from repro.launch import steps as ref_steps
+from repro_torch.configs.base import get_config, input_specs, shapes_for
+from repro_torch.launch.steps import all_cells
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SRC = os.path.join(REPO, "src")
+CELLS = all_cells()
+IDS = [f"{a}/{s}" for a, s in CELLS]
+
+
+def _run(args, timeout=600):
+    env = dict(os.environ, PYTHONPATH=SRC)
+    return subprocess.run([sys.executable, *args], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+
+
+def _script(code: str, *args, timeout=600) -> dict:
+    r = _run(["-c", code, *args], timeout=timeout)
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-3000:]
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+def _dtype(d) -> str:
+    return str(d).split(".")[-1] if "torch" in str(d) else jnp.dtype(d).name
+
+
+def test_all_cells_are_the_reference_cells():
+    assert CELLS == ref_steps.all_cells() and len(CELLS) == 42
+
+
+@pytest.mark.parametrize("cell", CELLS, ids=IDS)
+def test_input_specs_equal_reference(cell):
+    arch, shape = cell
+    cfg, ref_cfg = get_config(arch), ref_get_config(arch)
+    got = input_specs(cfg, shapes_for(cfg)[shape])
+    want = ref_input_specs(ref_cfg, ref_shapes_for(ref_cfg)[shape])
+    assert list(got) == list(want)
+    for k, t in got.items():
+        assert t.device.type == "meta"
+        assert tuple(t.shape) == tuple(want[k].shape), k
+        assert _dtype(t.dtype) == _dtype(want[k].dtype), k
+
+
+# -- the cells on the one-device meshes ---------------------------------------
+
+_PORT_CELLS = r"""
+import json
+from repro_torch.launch.mesh import make_dev_mesh
+from repro_torch.models.layers import Sharding
+from repro_torch.launch.steps import all_cells, build_cell
+
+def flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix.rstrip("/"): tree}
+    out = {}
+    for k, v in items:
+        out.update(flat(v, f"{prefix}{k}/"))
+    return out
+
+def dims(sh):
+    assert isinstance(sh, Sharding)
+    return [p.dim if p.is_shard() else None for p in sh.placements]
+
+mesh = make_dev_mesh()
+out = {"names": list(mesh.mesh_dim_names), "shape": list(mesh.shape),
+       "cells": {}}
+for arch, shape in all_cells():
+    c = build_cell(arch, shape, mesh)
+    out["cells"][f"{arch}/{shape}"] = {
+        "kind": c.kind, "model_flops": c.model_flops,
+        "args": {k: [list(t.shape), str(t.dtype), t.device.type]
+                 for k, t in flat(c.args).items()},
+        "in": {k: dims(s) for k, s in flat(c.in_shardings).items()},
+        "out": {k: dims(s) for k, s in flat(c.out_shardings).items()}}
+print(json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def port_cells():
+    return _script(_PORT_CELLS)
+
+
+def _ref_flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix.rstrip("/"): tree}
+    out = {}
+    for k, v in items:
+        out.update(_ref_flat(v, f"{prefix}{k}/"))
+    return out
+
+
+def _spec(entries, ndim=None) -> list:
+    """A spec as one tuple of mesh axes per tensor dim, trailing
+    replicated dims dropped where ``ndim`` is None."""
+    out = [() if a is None else (a,) if isinstance(a, str) else tuple(a)
+           for a in entries]
+    if ndim is not None:
+        return out + [()] * (ndim - len(out))
+    while out and out[-1] == ():
+        out.pop()
+    return out
+
+
+def _port_spec(dims, names, ndim=None) -> list:
+    n = ndim if ndim is not None else max(
+        [d + 1 for d in dims if d is not None], default=0)
+    return _spec([tuple(a for a, d in zip(names, dims) if d == i)
+                  for i in range(n)], ndim)
+
+
+@pytest.fixture(scope="module")
+def ref_dev_mesh():
+    return ref_mesh.make_dev_mesh()
+
+
+@pytest.mark.parametrize("cell", CELLS, ids=IDS)
+def test_cell_equals_reference(cell, port_cells, ref_dev_mesh):
+    arch, shape = cell
+    names = port_cells["names"]
+    assert names == list(ref_dev_mesh.axis_names) == ["data", "model"]
+    assert port_cells["shape"] == [1, 1]
+    got = port_cells["cells"][f"{arch}/{shape}"]
+    ref = ref_steps.build_cell(arch, shape, ref_dev_mesh)
+    assert got["kind"] == ref.kind
+    assert got["model_flops"] == ref.model_flops
+    ref_args = _ref_flat(ref.args)
+    assert set(got["args"]) == set(ref_args)
+    for k, (shp, dt, dev) in got["args"].items():
+        assert dev == "meta"
+        assert tuple(shp) == tuple(ref_args[k].shape), k
+        assert _dtype(dt) == _dtype(ref_args[k].dtype), k
+    ref_in = _ref_flat(ref.in_shardings)
+    assert set(got["in"]) == set(ref_in) == set(ref_args)
+    for k, dims in got["in"].items():
+        ndim = len(ref_args[k].shape)
+        assert (_port_spec(dims, names, ndim)
+                == _spec(ref_in[k].spec, ndim)), k
+    ref_out = _ref_flat(ref.out_shardings)
+    assert set(got["out"]) == set(ref_out)
+    for k, dims in got["out"].items():
+        assert _port_spec(dims, names) == _spec(ref_out[k].spec), k
+
+
+# -- the dry run ----------------------------------------------------------------
+
+@pytest.mark.parametrize("mesh", ["single", "multi"])
+def test_dryrun_cell_runs(tmp_path, mesh):
+    out = tmp_path / "m.json"
+    r = _run(["-m", "repro_torch.launch.dryrun", "--mesh", mesh, "--arch",
+              "colberter", "--shape", "serve_q32", "--out", str(out)])
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-2000:]
+    m = json.loads(out.read_text())
+    (key,) = m.keys()
+    assert key == ("colberter/serve_q32/" + ("single-pod-16x16"
+                                             if mesh == "single"
+                                             else "multi-pod-2x16x16"))
+    rec = m[key]
+    assert rec["status"] == "ok", rec
+    assert rec["raw_source"] == "direct" and rec["kind"] == "serve"
+    ma = rec["memory_analysis"]
+    assert 0 < ma["peak_gb"] < 16.0
+    assert ma["peak_gb"] == pytest.approx(
+        ma["argument_gb"] + ma["output_gb"] + ma["temp_gb"]
+        - ma["alias_gb"], abs=2e-3)
+    roof = rec["roofline"]
+    assert roof["bottleneck"] in ("compute", "memory", "collective")
+    assert roof["compute_ms"] > 0 and roof["memory_ms"] > 0
+    assert roof["flops_per_dev"] > 0 and roof["bytes_per_dev"] > 0
+
+
+def test_dryrun_override_flags(tmp_path):
+    """``--set shard_encode=true`` encodes the queries over the whole mesh
+    and reshards them for the MaxSim. The reference's own test of this
+    (``tests/test_dryrun.py::test_dryrun_override_flags``) fails on jax
+    0.9.0: ``jax.make_mesh`` gives Explicit axes by default, and
+    ``with_sharding_constraint`` refuses them; the port redistributes
+    DTensors and runs."""
+    out = tmp_path / "m.json"
+    r = _run(["-m", "repro_torch.launch.dryrun", "--mesh", "single",
+              "--arch", "colberter", "--shape", "serve_q32", "--set",
+              "shard_encode=true", "--tag", "t", "--out", str(out)])
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-2000:]
+    m = json.loads(out.read_text())
+    (key,) = m.keys()
+    assert key.endswith("#t")
+    assert m[key]["status"] == "ok", m[key]
+    # the reshard to the MaxSim's layout shows as collectives
+    assert m[key]["roofline"]["wire_bytes_per_dev"] > 0
+
+
+_TOY = r"""
+import json, torch
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import Replicate, Shard
+from torch._subclasses.fake_tensor import FakeTensorMode
+from torch.utils.flop_counter import FlopCounterMode
+from repro_torch.launch.dryrun import fake_args
+from repro_torch.launch.mesh import init_fake_world
+from repro_torch.models.layers import Sharding
+from repro_torch.roofline.analysis import record_step
+init_fake_world()
+mesh = DeviceMesh("cpu", torch.arange(32), mesh_dim_names=("rows",))
+fm = FakeTensorMode(allow_non_fake_inputs=True)
+a = torch.empty(1024, 4096, device="meta")
+b = torch.empty(4096, 4096, device="meta")
+args = fake_args((a, b), (Sharding(mesh, (Shard(0),)),
+                          Sharding(mesh, (Replicate(),))), fm)
+rec, out = record_step(lambda x, y: x @ y, args, fake_mode=fm)
+with FlopCounterMode(display=False) as above:      # above DTensor: global
+    args[0] @ args[1]
+print(json.dumps({"flops": rec.flops, "above": above.get_total_flops(),
+                  "wire": rec.coll.wire_bytes,
+                  "local": list(out.to_local().shape),
+                  "out_bytes": rec.output_bytes}))
+"""
+
+
+def test_per_device_flops_are_local_shard_counts():
+    got = _script(_TOY)
+    assert got["flops"] == 2 * 32 * 4096 * 4096
+    assert got["above"] == 2 * 1024 * 4096 * 4096
+    assert got["local"] == [32, 4096] and got["wire"] == 0
+    assert got["out_bytes"] == 32 * 4096 * 4
+
+
+_PROBES = r"""
+import json
+from repro_torch.launch.dryrun import run_cell
+from repro_torch.launch.mesh import make_production_mesh
+mesh = make_production_mesh(multi_pod=False)
+m = {}
+out = {}
+for probes in (False, True):
+    rec = run_cell("smollm-135m", "decode_32k", mesh, "single-pod-16x16", m,
+                   verbose=False, probes=probes)
+    assert rec["status"] == "ok", rec
+    out[str(probes)] = {"src": rec["raw_source"], **rec["roofline"]}
+print(json.dumps(out))
+"""
+
+
+def test_probe_extrapolation_equals_direct_count():
+    got = _script(_PROBES)
+    direct, probed = got["False"], got["True"]
+    assert direct["src"] == "direct"
+    assert probed["src"] == "probe-extrapolated(L=1,2)"
+    for k in ("flops_per_dev", "bytes_per_dev", "wire_bytes_per_dev"):
+        assert probed[k] == pytest.approx(direct[k], rel=1e-9), k
+    assert direct["flops_per_dev"] > 0 and direct["wire_bytes_per_dev"] > 0
+    assert probed["counts"] == direct["counts"]
+
+
+_DEV_MESH = r"""
+import json
+import torch
+from torch.utils.flop_counter import FlopCounterMode
+from torch._subclasses.fake_tensor import FakeTensorMode
+from repro_torch.launch.dryrun import record_cell
+from repro_torch.launch.mesh import make_dev_mesh
+from repro_torch.launch.steps import build_cell
+mesh = make_dev_mesh()
+out = {}
+for arch, shape in (("colberter", "serve_q32"), ("fm", "serve_p99"),
+                    ("gatedgcn", "full_graph_sm")):
+    cell = build_cell(arch, shape, mesh)
+    rec = record_cell(cell)
+    fm = FakeTensorMode(allow_non_fake_inputs=True)
+    def plain(t):
+        if isinstance(t, dict):
+            return {k: plain(v) for k, v in t.items()}
+        if isinstance(t, tuple):
+            return tuple(plain(v) for v in t)
+        with fm:
+            return torch.empty(t.shape, dtype=t.dtype)
+    args = plain(cell.args)
+    with fm, FlopCounterMode(display=False) as fc:
+        cell.step_fn(*args)
+    out[f"{arch}/{shape}"] = {"dry": rec.flops, "plain": fc.get_total_flops(),
+                              "peak": rec.peak_bytes,
+                              "args": rec.argument_bytes,
+                              "wire": rec.coll.wire_bytes}
+print(json.dumps(out))
+"""
+
+
+def test_dev_mesh_dry_run_counts_what_flop_counter_counts():
+    """The card's check, on the CPU with fake tensors: on a one-device
+    mesh the dry run's per-device FLOPs are ``FlopCounterMode``'s count of
+    the same step on plain tensors, and no byte crosses a wire."""
+    got = _script(_DEV_MESH)
+    assert set(got) == {"colberter/serve_q32", "fm/serve_p99",
+                        "gatedgcn/full_graph_sm"}
+    for cell, r in got.items():
+        assert r["dry"] == r["plain"], cell
+        assert r["wire"] == 0, cell
+        assert r["peak"] >= r["args"] > 0, cell
+    assert got["colberter/serve_q32"]["dry"] > 0
+    assert got["gatedgcn/full_graph_sm"]["dry"] > 0
+
+
+# -- the dry run's terms against the reference's ------------------------------
+
+# The cells whose reference dry run compiles on this jax (its LM cells do
+# not: ``tests/test_dryrun.py::test_dryrun_override_flags``' cause):
+# colberter on both meshes, one RecSys and one GNN cell.
+VS_REF = (("colberter", "serve_q32", "single"),
+          ("colberter", "serve_q32", "multi"),
+          ("fm", "serve_p99", "single"),
+          ("gatedgcn", "full_graph_sm", "single"))
+MESH_NAMES = {"single": "single-pod-16x16", "multi": "multi-pod-2x16x16"}
+
+# collective kinds the port issues beyond those in the reference's record
+EXTRA_KINDS = {
+    # lookups go shard by shard (``layers.sharded_rows``): each table's
+    # partial rows are reduced onto the batch's layout. The reference's XLA
+    # sums them in one combined all-reduce, whose tuple shape
+    # ``parse_collectives``' pattern does not match.
+    "fm/serve_p99": {"all-reduce", "reduce-scatter"},
+    # the segment sums take a replicate-everything rule
+    # (``analysis.REPLICATED_OPS``), so the edge states are gathered; the
+    # reference's two all-reduces a layer are tuple-shaped (combined), which
+    # ``parse_collectives`` does not match either.
+    "gatedgcn/full_graph_sm": {"all-gather", "all-reduce"},
+}
+PEAK_FACTOR = 1.5        # port's peak_gb / the reference's, either way
+ARG_TOL_GB = 2e-3        # argument_gb: equal but for the records' rounding
+
+_DRY_CELLS = r"""
+import json, sys
+{imports}
+cells = json.loads(sys.argv[1])
+names = {names}
+meshes, out = {{}}, {{}}
+for arch, shape, m in cells:
+    if m not in meshes:
+        meshes[m] = make_production_mesh(multi_pod=m == "multi")
+    rec = run_cell(arch, shape, meshes[m], names[m], out, verbose=False,
+                   probes={probes})
+    rec.pop("trace", None)
+print(json.dumps(out))
+"""
+# the reference counts a layer loop's body once: its probes give the whole
+# step's terms. ``repro.launch.dryrun`` sets XLA_FLAGS before jax starts.
+_REF_DRY = _DRY_CELLS.format(
+    imports="from repro.launch.dryrun import run_cell\n"
+            "from repro.launch.mesh import make_production_mesh",
+    names=MESH_NAMES, probes=True)
+_PORT_DRY = _DRY_CELLS.format(
+    imports="from repro_torch.launch.dryrun import run_cell\n"
+            "from repro_torch.launch.mesh import make_production_mesh",
+    names=MESH_NAMES, probes=False)
+
+
+@pytest.fixture(scope="module")
+def dry_vs_ref():
+    cells = json.dumps(VS_REF)
+    env_ref = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
+    r = subprocess.run([sys.executable, "-c", _REF_DRY, cells], cwd=REPO,
+                       env=dict(env_ref, PYTHONPATH=SRC), capture_output=True,
+                       text=True, timeout=900)
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-3000:]
+    ref = json.loads(r.stdout.strip().splitlines()[-1])
+    return {"ref": ref, "port": _script(_PORT_DRY, cells, timeout=900)}
+
+
+@pytest.mark.parametrize("cell", VS_REF, ids=[f"{a}/{s}/{m}"
+                                              for a, s, m in VS_REF])
+def test_dry_run_terms_match_the_reference(cell, dry_vs_ref):
+    """The port's record of a cell against the reference's on the same
+    mesh. FLOPs: the port counts matrix products only, XLA's cost analysis
+    elementwise work as well, which is at most one operation for each byte
+    the reference's step moves; so the port's count lies between the
+    reference's less its bytes and the reference's. The collective kinds
+    are the reference's plus ``EXTRA_KINDS``; argument bytes are equal and
+    peaks within ``PEAK_FACTOR``. Bytes moved are not compared: the port's
+    are unfused op by op, XLA's those of its fusions."""
+    arch, shape, m = cell
+    key = f"{arch}/{shape}/{MESH_NAMES[m]}"
+    ref, port = dry_vs_ref["ref"][key], dry_vs_ref["port"][key]
+    assert ref["status"] == "ok" and port["status"] == "ok", (ref, port)
+    rr, pr = ref["roofline"], port["roofline"]
+    assert (rr["flops_per_dev"] - rr["bytes_per_dev"]
+            <= pr["flops_per_dev"] <= rr["flops_per_dev"])
+    extra = EXTRA_KINDS.get(f"{arch}/{shape}", set())
+    assert set(pr["counts"]) == set(rr["counts"]) | extra
+    rm, pm = ref["memory_analysis"], port["memory_analysis"]
+    assert pm["argument_gb"] == pytest.approx(rm["argument_gb"],
+                                              abs=ARG_TOL_GB)
+    assert (rm["peak_gb"] / PEAK_FACTOR <= pm["peak_gb"]
+            <= rm["peak_gb"] * PEAK_FACTOR)

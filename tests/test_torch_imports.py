@@ -109,7 +109,8 @@ def test_sources_name_no_jax_or_reference_import():
              os.path.join(REPO, "kernel_ab.py"),
              os.path.join(REPO, "examples", "espn_serving_torch.py"),
              os.path.join(REPO, "examples", "quickstart_torch.py"),
-             os.path.join(REPO, "examples", "train_retriever_torch.py")]
+             os.path.join(REPO, "examples", "train_retriever_torch.py"),
+             os.path.join(REPO, "examples", "multiarch_dryrun_torch.py")]
     for root, _, names in os.walk(PORT):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     hits = []
@@ -147,3 +148,36 @@ def test_multiarch_modules_are_walked_and_import_alone():
                          capture_output=True, text=True, timeout=120,
                          env={**os.environ, "PYTHONPATH": SRC})
     assert out.returncode == 0, out.stderr
+
+
+#: the dry run: the meshes, partitioning, the cells, its entry point, the
+#: roofline arithmetic and report, and the configs and models it reads the
+#: logical axes of
+DRYRUN_MODULES = (
+    "repro_torch.launch.mesh", "repro_torch.launch.partitioning",
+    "repro_torch.launch.steps", "repro_torch.launch.dryrun",
+    "repro_torch.roofline", "repro_torch.roofline.analysis",
+    "repro_torch.roofline.report", "repro_torch.configs.base",
+    "repro_torch.models.transformer", "repro_torch.models.recsys",
+    "repro_torch.models.embedding", "repro_torch.train.optimizer")
+
+
+def test_dryrun_modules_are_walked_and_import_alone():
+    """As above, for the dry run's modules; the example names the dry run's
+    entry point and no jax or reference import."""
+    modules = {m.name for m in pkgutil.walk_packages([PORT], "repro_torch.")}
+    assert set(DRYRUN_MODULES) <= modules
+    script = _BLOCKED_IMPORT.split("import repro_torch")[0] + "".join(
+        f"import {name}\n" for name in DRYRUN_MODULES) + (
+        "assert not [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro')]\n")
+    out = subprocess.run([sys.executable, "-c", script],
+                         capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": SRC})
+    assert out.returncode == 0, out.stderr
+    with open(os.path.join(REPO, "examples",
+                           "multiarch_dryrun_torch.py")) as f:
+        text = f.read()
+    assert "repro_torch.launch.dryrun" in text
+    assert not re.search(r"^\s*(import|from)\s+(jax|repro)\b(?!_torch)",
+                         text, re.M)
