@@ -99,8 +99,13 @@ Phases, each of which must pass:
    fresh Trainer resumed from step 10 replaying steps 10-19; grad_accum=2
    equal to its halves' averaged update; 5 compressed steps finite; one
    fp32 step at 2 layers on the card = the CPU's; SmolLM-135M at full
-   width and depth, 3 steps of 8 x 512 tokens through its loss; no kernel
-   launched (the losses are plain PyTorch with autograd);
+   width and depth, 3 steps of 8 x 4,096 tokens (train_4k's sequence)
+   through its loss, each layer recomputed in the backward (``remat``, the
+   default); one SmolLM step of 8 x 512 tokens with ``remat`` on and off
+   from the same weights and batch, in bf16 and in fp32: the loss and every
+   gradient within 3e-2 / 1e-6 of the tensor's largest magnitude (and
+   whether bit for bit); no kernel launched (the losses are plain PyTorch
+   with autograd);
 13. agreement: on a small corpus, at the main path's retrieval settings,
    the card path ranks, scores and bills as the CPU path does in every
    mode (``fde`` in both branches, ``cspn`` on a pooled fixed layout), and
@@ -120,7 +125,9 @@ Phases, each of which must pass:
    ``flash_decode`` kernel (30 launches a step, 960 in all, or the run
    fails); prefill and step wall, the step's split, tokens/s, peak memory;
 15. decode agreement: the same model in fp32 at 2 layers, its logits and
-   greedy tokens on the card against the CPU path;
+   greedy tokens on the card against the CPU path; at full width and depth,
+   4 decode steps with ``onehot_cache_update`` off and on: logits and
+   caches bit for bit, flash_decode once a layer a step either way;
 16. moe: the other LM configs through the same ``decode_path`` (bf16 over
    fp32 masters drawn on the card): granite-moe-1b-a400m (24 layers, 32
    experts top-8) and qwen2-0.5b (24 layers, G 7) at full width and depth,
@@ -128,7 +135,8 @@ Phases, each of which must pass:
    each, or the run fails; granite's prefill aux loss and drops per layer),
    llama4-scout-17b-a16e at full width and 2 of its 48 layers (16 experts
    top-1 + a shared expert), 8 x 1,024 tokens and 8 steps; granite trained
-   3 steps of 8 x 512 tokens (finite ce and aux, no kernel launched); and
+   3 steps of 8 x 512 tokens (finite ce and aux, no kernel launched; each
+   layer recomputed in the backward); and
    granite in fp32 at 2 layers card vs CPU, its expert choices equal up to
    near ties (each logged), keep masks equal where routing agrees;
 17. recsys: fm, autoint, dlrm-mlperf and two-tower-retrieval at their
@@ -157,12 +165,16 @@ Phases, each of which must pass:
    mesh, each "ok", one line a cell; then, on a real 1x1 ``make_dev_mesh``
    (a one-rank NCCL group), colberter/serve_q32, fm/serve_p99 and
    gatedgcn/full_graph_sm (a training step) counted by the dry run and run
-   on the card on tensors of the cell's shapes drawn from a seed: the
+   on the card on tensors of the cell's shapes drawn from a seed, and
+   smollm-135m/train_4k at 8 x 4,096 tokens (its 1x1 dry run in a
+   subprocess on a one-rank gloo group, fake tensors; on the card one run
+   counted, one measured and timed): the
    card step's ``FlopCounterMode`` count equals the dry run's FLOPs
    exactly, its ``max_memory_allocated`` above its start (the arguments
    already on the card) is 0.90-1.10 x the dry run's bytes above the
-   arguments (temporaries + outputs - donated), and its median time of 20
-   (CUDA events) stands
+   arguments (temporaries + outputs - the arguments updated in place),
+   and its median time of 20
+   (CUDA events; the LM step's one) stands
    beside the dry run's H100 roofline bound and their ratio. No kernel may
    launch (the reference's dry run reaches no Pallas kernel either).
 
@@ -2790,6 +2802,9 @@ TRAIN_AGREE_PAIRS = 8       # pairs of the fp32 card-vs-CPU step
 TRAIN_LOSS_TOL = 3e-2       # a replay on the card: the bf16 loss tolerance
 TRAIN_TOL = 1e-5            # fp32 card vs CPU: loss, grad norm, weights
 LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = 8, 512, 3
+LM_LONG_SEQ = 4096          # SmolLM's steps: train_4k's sequence length
+REMAT_TOL = {"bfloat16": 3e-2, "float32": 1e-6}   # remat on vs off, of the
+                            # tensor's largest |value|
 
 
 def weights_disagree(w_a, w_b, m_a, m_b, lr_1) -> list[str]:
@@ -2825,8 +2840,9 @@ def train_phase(dev, failures, out):
     compression finite; one fp32 step at 2 layers on the card and on the
     CPU from the same weights (loss and grad norm within ``TRAIN_TOL``,
     the weights as ``weights_disagree`` holds them); then
-    SmolLM-135M at full width and depth,
-    3 steps of 8 x 512 tokens through ``transformer.loss_fn``. No kernel
+    SmolLM-135M at full width and depth, 3 steps of 8 x ``LM_LONG_SEQ``
+    tokens through ``transformer.loss_fn`` (remat on, the default), and
+    ``remat_agreement``. No kernel
     of the port may launch: the losses' MaxSim and attention are plain
     PyTorch with autograd."""
     import shutil
@@ -3027,8 +3043,9 @@ def train_phase(dev, failures, out):
         failures.append("train: the card's step disagrees with the CPU's")
 
     # the LM branch at full width and depth
-    lm = lm_train(dev, failures, get_config(LM))
+    lm = lm_train(dev, failures, get_config(LM), seq=LM_LONG_SEQ)
     res.update({f"lm_{k}": v for k, v in lm.items()},
+               lm_remat=remat_agreement(dev, failures),
                launches=read_counts())
     launched = {k: v for k, v in res["launches"].items() if v}
     log(f"  kernel launches in [train]: {launched or 'none'}")
@@ -3036,9 +3053,9 @@ def train_phase(dev, failures, out):
         failures.append(f"train: kernels launched {launched}")
 
 
-def lm_train(dev, failures, cfg) -> dict:
+def lm_train(dev, failures, cfg, seq=LM_TRAIN_SEQ) -> dict:
     """``cfg`` at full width trained ``LM_TRAIN_STEPS`` ``Trainer`` steps of
-    ``LM_TRAIN_BATCH`` x ``LM_TRAIN_SEQ`` tokens through
+    ``LM_TRAIN_BATCH`` x ``seq`` tokens through
     ``transformer.loss_fn`` with AdamW, from random weights (``lm_model``):
     step ms, tokens/s, peak memory, finite losses (and, from the
     loss's metrics, finite ``ce`` and ``aux``)."""
@@ -3063,7 +3080,7 @@ def lm_train(dev, failures, cfg) -> dict:
                           ckpt_dir=root),
             lambda p, b: transformer.loss_fn(cfg, p, b), AdamW(),
             lambda i: {k: torch.as_tensor(v, device=dev) for k, v in
-                       make_lm_batch(i, LM_TRAIN_BATCH, LM_TRAIN_SEQ,
+                       make_lm_batch(i, LM_TRAIN_BATCH, seq,
                                      cfg.vocab_size).items()}, model)
         hist = tr.run(verbose=False)
         peak = torch.cuda.max_memory_allocated(dev)
@@ -3074,16 +3091,17 @@ def lm_train(dev, failures, cfg) -> dict:
     torch.cuda.empty_cache()
     ms = np.array([m["step_s"] for m in hist]) * 1e3
     metrics = {k: [m[k] for m in hist] for k in ("loss", "ce", "aux")}
-    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    tokens = LM_TRAIN_BATCH * seq
     ok = len(hist) == LM_TRAIN_STEPS and all(
         bool(np.isfinite(v).all()) for v in metrics.values())
-    res = {"n_params": n_params, "step_ms": ms.tolist(),
+    res = {"n_params": n_params, "seq": seq, "remat": cfg.remat,
+           "step_ms": ms.tolist(),
            "tokens_per_s": tokens / float(np.median(ms[1:])) * 1e3,
            "peak_bytes": peak, "losses": metrics["loss"],
            "ce": metrics["ce"], "aux": metrics["aux"]}
     log(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
         f"{n_params:,} fp32 params; {LM_TRAIN_STEPS} steps of "
-        f"{LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} tokens: step ms "
+        f"{LM_TRAIN_BATCH} x {seq} tokens, remat {cfg.remat}: step ms "
         f"{[round(float(x), 1) for x in ms]}, {res['tokens_per_s']:,.0f} "
         f"tokens/s after the first; peak device memory {peak / 2**30:.2f} "
         f"GiB; loss {[round(x, 4) for x in metrics['loss']]}, ce "
@@ -3092,6 +3110,54 @@ def lm_train(dev, failures, cfg) -> dict:
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
         failures.append(f"train: a {cfg.name} loss is not finite")
+    return res
+
+
+def remat_agreement(dev, failures) -> dict:
+    """SmolLM-135M at full width and depth, one loss and its gradient over
+    ``LM_TRAIN_BATCH`` x ``LM_TRAIN_SEQ`` tokens with ``remat`` on and off,
+    from the same weights (drawn on the card) and batch, in bf16 compute and
+    in fp32: the loss and every gradient within ``REMAT_TOL`` of the
+    tensor's largest |value|; logs whether bit for bit."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import make_lm_batch
+    from repro_torch.models import transformer
+    cfg = get_config(LM)
+    model = lm_model(cfg, dev, np.random.default_rng(1))
+    params = list(model.parameters())
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in make_lm_batch(
+        0, LM_TRAIN_BATCH, LM_TRAIN_SEQ, cfg.vocab_size).items()}
+    res = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        got = []
+        for remat in (True, False):
+            loss, _ = transformer.loss_fn(cfg.scaled(dtype=dtype,
+                                                     remat=remat), model,
+                                          batch)
+            got.append([loss.detach()]
+                       + list(torch.autograd.grad(loss, params)))
+        on, off = got
+        errs = [float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                for a, b in zip(on, off)]
+        bits = all(torch.equal(a, b) for a, b in zip(on, off))
+        ok = all(np.isfinite(errs)) and max(errs) <= REMAT_TOL[name]
+        res[name] = {"loss": [float(on[0]), float(off[0])],
+                     "max_rel": max(errs), "loss_rel": errs[0],
+                     "bit_for_bit": bits}
+        log(f"  {LM} {name}, {LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} tokens, remat "
+            f"on vs off: loss {float(on[0]):.6f} / {float(off[0]):.6f}, "
+            f"loss and {len(params)} gradients max |diff| {max(errs):.3g} x "
+            f"max |value| (tol {REMAT_TOL[name]}), bit for bit: {bits} -> "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"train: {LM} {name} remat on and off disagree "
+                            f"({max(errs):.3g})")
+        del got, on, off
+    del model, params
+    free_card()
     return res
 
 
@@ -3843,6 +3909,52 @@ def decode_agreement(dev, failures, arch=LM, tol=1e-4):
                         f"the CPU's")
 
 
+def onehot_decode(dev, failures, steps=4):
+    """``LM`` at full width and depth (bf16 over fp32 masters drawn on the
+    card), ``DECODE_BATCH`` prompts of 64 tokens, then ``steps`` greedy
+    decode steps with ``onehot_cache_update`` off and on from the same
+    weights: every step's logits and the caches bit for bit, and
+    flash_decode launched once a layer a step either way."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    cfg = get_config(LM)
+    model = lm_model(cfg, dev, np.random.default_rng(2))
+    prompt = torch.tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (DECODE_BATCH, 64)), device=dev)
+    saved, runs = read_counts(), []
+    for onehot in (False, True):
+        c = cfg.scaled(onehot_cache_update=onehot)
+        cache = transformer.init_cache(c, DECODE_BATCH, 64 + steps, dev)
+        logits, cache = transformer.prefill(c, model, prompt, cache)
+        reset_counts()
+        seq = []
+        for _ in range(steps):
+            pos = torch.full((DECODE_BATCH,), cache["length"],
+                             dtype=torch.int32, device=dev)
+            logits, cache = transformer.decode_step(
+                c, model, greedy(logits, cfg.vocab_size)[:, None], pos,
+                cache)
+            seq.append(logits)
+        runs.append((seq, cache, read_counts()["flash_decode"]))
+    restore_counts(saved)
+    (off, c_off, n_off), (on, c_on, n_on) = runs
+    same = (all(torch.equal(a, b) for a, b in zip(off, on))
+            and all(torch.equal(c_off[k], c_on[k])
+                    for k in ("k", "v", "slot_pos")))
+    want = cfg.n_layers * steps
+    ok = same and n_off == n_on == want
+    log(f"  {LM} onehot_cache_update off vs on, {DECODE_BATCH} x 64 + "
+        f"{steps} steps: logits and caches {'equal' if same else 'DIFFER'} "
+        f"bit for bit; flash_decode launches {n_off} / {n_on} (want {want}) "
+        f"-> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("decode: onehot_cache_update changes the decode")
+    del model, runs
+    free_card()
+
+
 # phase 16 [moe]: arch -> (layers run, None for all; prompt tokens; decode
 # steps), each served at DECODE_BATCH, its weights drawn on the card (fast
 # at any size)
@@ -4525,9 +4637,14 @@ DRYRUN_FAKE_CELLS = ((("colberter", "serve_q32", ("single", "multi")),),
 DRYRUN_CARD_CELLS = (("colberter", "serve_q32"), ("fm", "serve_p99"),
                      ("gatedgcn", "full_graph_sm"))
 # the card's peak above start (the arguments already on the card) within
-# this band of the dry run's step bytes (temporaries + outputs - donated)
+# this band of the dry run's step bytes (temporaries + outputs - the
+# arguments updated in place)
 DRYRUN_MEM_BAND = (0.90, 1.10)
 DRYRUN_REPS = 20
+# SmolLM's [train] step (8 x 4,096 tokens of train_4k) on a 1x1 mesh: its
+# dry run (~40 s of host time) in a subprocess, on the card counted once and
+# measured once
+DRYRUN_LM_CELL = (LM, "train_4k", LM_TRAIN_BATCH)
 
 _DRYRUN_SCRIPT = r"""
 import json, sys
@@ -4547,6 +4664,63 @@ for arch, shape, which in json.loads(sys.argv[1]):
         out.update(manifest)
 print(json.dumps(out))
 """
+
+
+_DRYRUN_LM_SCRIPT = r"""
+import json
+import chip_smoke
+from repro_torch.launch.dryrun import record_cell
+from repro_torch.launch.mesh import make_dev_mesh
+mesh = make_dev_mesh()
+cell = chip_smoke.dryrun_lm_cell(mesh)
+print(json.dumps(chip_smoke.dry_summary(cell, record_cell(cell), mesh)))
+"""
+
+
+def dryrun_lm_cell(mesh):
+    """``DRYRUN_LM_CELL``'s cell: the dry run's train_4k step of its arch
+    at its global batch, every argument whole on the one-device ``mesh``
+    (the same layout as sharded over its dims of one device, in the terms
+    that torch 2.11's DTensor can flatten a tensor's dims in)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import LM_SHAPES
+    from repro_torch.launch.partitioning import like_tree, replicated
+    from repro_torch.launch.steps import lm_cell
+    arch, shape, batch = DRYRUN_LM_CELL
+    spec = LM_SHAPES[shape]
+    cell = lm_cell(get_config(arch), dataclasses.replace(
+        spec, dims=dict(spec.dims, global_batch=batch)), mesh)
+    cell.in_shardings = like_tree(cell.in_shardings, replicated(mesh))
+    return cell
+
+
+def dry_summary(cell, record, mesh) -> dict:
+    """What the card's step is held to, from a cell's dry-run record."""
+    from repro_torch.roofline.analysis import (extract_raw, memory_gb,
+                                               roofline_from_raw)
+    roof = roofline_from_raw(extract_raw(record), arch=cell.arch,
+                             shape=cell.shape, mesh_name="dev-1x1",
+                             n_dev=mesh.size(), model_flops=cell.model_flops,
+                             mem_gb=memory_gb(record)).row()
+    return {"flops": roof["flops_per_dev"], "bytes": roof["bytes_per_dev"],
+            "argument_bytes": record.argument_bytes,
+            "peak_bytes": record.peak_bytes,
+            # what the step allocates above its arguments
+            "step_bytes": (record.temp_bytes + record.output_bytes
+                           - record.alias_bytes),
+            "bound_ms": max(roof["compute_ms"], roof["memory_ms"]),
+            "bound_by": roof["bottleneck"]}
+
+
+def dryrun_lm_start():
+    """``_DRYRUN_LM_SCRIPT`` started: the LM cell's dry run on a one-rank
+    gloo group (no card: the dry run's tensors are fake ones)."""
+    env = {**os.environ, "PYTHONPATH": SRC, "CUDA_VISIBLE_DEVICES": ""}
+    return subprocess.Popen([sys.executable, "-c", _DRYRUN_LM_SCRIPT],
+                            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
 
 
 def dryrun_fake_start() -> list:
@@ -4597,7 +4771,9 @@ def dryrun_fake_finish(procs, t0, failures) -> dict:
 
 def dryrun_cell_args(cell, gen, dev):
     """Tensors of ``cell.args``' shapes and dtypes on the card, drawn from
-    ``gen``: floats N(0, 1) x 0.05, and each id in its range (tokens below
+    ``gen``: floats N(0, 1) x 0.05 (an optimizer's second moment ``v``
+    their magnitudes, so that the in-place updates of the repeated steps
+    stay finite), and each id in its range (tokens below
     the vocab, doc lengths in 1..max, each field's ids below its table's
     rows, edges among the nodes with ``pad512``'s tail at ``dst = n``,
     labels below the classes, an optimizer step of 0)."""
@@ -4625,51 +4801,52 @@ def dryrun_cell_args(cell, gen, dev):
             if name == "edge_dst":
                 t[e:] = n
             return t
+        if name in ("tokens", "targets"):
+            return draw(0, cfg.vocab_size)
         if name == "labels":
             return draw(0, cfg.n_classes if cfg.family == "gnn" else 2)
         if name == "step":
             return torch.zeros(shape, dtype=dtype, device=dev)
         raise ValueError(f"dryrun: no range for the ids {name!r}")
 
-    def walk(t, name=""):
+    def walk(t, name="", second_moment=False):
         if isinstance(t, dict):
-            return {k: walk(v, k) for k, v in t.items()}
+            return {k: walk(v, k, second_moment or k == "v")
+                    for k, v in t.items()}
         if isinstance(t, tuple):
             return tuple(walk(v, name) for v in t)
         if t.dtype.is_floating_point:
-            return (torch.randn(t.shape, generator=gen, device=dev) * 0.05
-                    ).to(t.dtype)
+            x = torch.randn(t.shape, generator=gen, device=dev) * 0.05
+            return (x.abs() if second_moment else x).to(t.dtype)
         return ints(name, tuple(t.shape), t.dtype)
     return walk(cell.args)
 
 
-def dryrun_card_cell(dev, failures, mesh, arch, shape, card) -> dict:
-    """One of ``DRYRUN_CARD_CELLS``: the dry run on ``mesh`` (1x1), then
-    the cell's step on the card: FLOPs equal, the peak above the arguments
-    within ``DRYRUN_MEM_BAND`` of the dry run's, the median step time
-    beside the roofline bound."""
+def dryrun_card_cell(dev, failures, cell, dry, card,
+                     reps=DRYRUN_REPS) -> dict:
+    """One cell's step on the card held to its 1x1 dry run ``dry``
+    (``dry_summary``): FLOPs equal, the peak above the arguments within
+    ``DRYRUN_MEM_BAND`` of the dry run's, the step time beside the roofline
+    bound. After a warm-up, one run is counted, one measured and ``reps``
+    timed (median); with ``reps`` 0 the counted run is the warm-up and the
+    measured run is timed."""
     import torch
     from torch.utils.flop_counter import FlopCounterMode
 
-    from repro_torch.launch.dryrun import record_cell
-    from repro_torch.launch.steps import build_cell
-    from repro_torch.roofline.analysis import (extract_raw, memory_gb,
-                                               roofline_from_raw)
-    cell = build_cell(arch, shape, mesh)
-    try:
-        record = record_cell(cell)
-    except Exception as e:  # noqa: BLE001 — recorded as the phase's failure
-        failures.append(f"dryrun: {arch}/{shape} on 1x1: "
-                        f"{type(e).__name__}: {e}")
-        return {"error": f"{type(e).__name__}: {e}"}
-    roof = roofline_from_raw(extract_raw(record), arch=arch, shape=shape,
-                             mesh_name="dev-1x1", n_dev=mesh.size(),
-                             model_flops=cell.model_flops,
-                             mem_gb=memory_gb(record)).row()
-    dry_flops = roof["flops_per_dev"]
+    what = f"{cell.arch}/{cell.shape}"
     gen = torch.Generator(device=dev).manual_seed(0)
     args = dryrun_cell_args(cell, gen, dev)
-    cell.step_fn(*args)                              # warm-up
+
+    def timed():
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        out = cell.step_fn(*args)
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b), out
+
+    if reps:
+        cell.step_fn(*args)                          # warm-up
     torch.cuda.synchronize()
     with FlopCounterMode(display=False) as fc:
         cell.step_fn(*args)
@@ -4677,67 +4854,91 @@ def dryrun_card_cell(dev, failures, mesh, arch, shape, card) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     start = torch.cuda.memory_allocated()
-    cell.step_fn(*args)
-    torch.cuda.synchronize()
+    ms, out = timed()
     card_peak = torch.cuda.max_memory_allocated() - start
-    times = []
-    for _ in range(DRYRUN_REPS):
-        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        a.record()
-        cell.step_fn(*args)
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
+    loss = (out[2].get("loss") if isinstance(out, tuple) and len(out) == 3
+            and isinstance(out[2], dict) else None)
+    loss = None if loss is None else float(loss)
+    del out
+    times = [timed()[0] for _ in range(reps)] or [ms]
     step_ms = float(np.median(times))
-    bound_ms = max(roof["compute_ms"], roof["memory_ms"])
-    # what the step allocates above its arguments, on both sides
-    dry_step = (record.temp_bytes + record.output_bytes
-                - record.alias_bytes)
+    dry_step, dry_flops = dry["step_bytes"], dry["flops"]
     lo, hi = DRYRUN_MEM_BAND
-    out = {"dry_flops": dry_flops, "card_flops": card_flops,
-           "dry_argument_bytes": record.argument_bytes,
-           "dry_peak_bytes": record.peak_bytes,
-           "dry_step_bytes": dry_step, "card_peak_above_start": card_peak,
-           "card_over_dry": card_peak / dry_step,
-           "dry_bytes": roof["bytes_per_dev"], "step_ms": step_ms,
-           "bound_ms": bound_ms, "bound_by": roof["bottleneck"],
-           "share": bound_ms / step_ms, "card": card}
-    log(f"  {arch}/{shape} 1x1: FLOPs dry {dry_flops:.6g} card "
-        f"{card_flops:.6g}; above the arguments "
-        f"({record.argument_bytes} B): dry {dry_step} B (temp + out - "
-        f"alias), card peak above start {card_peak} B, card/dry "
-        f"{card_peak / dry_step:.4f}; dry peak {record.peak_bytes} B; "
-        f"step {step_ms:.4f} ms (median of {DRYRUN_REPS}), bound "
-        f"{bound_ms:.4f} ms ({roof['bottleneck']}), share "
-        f"{bound_ms / step_ms:.4f}; {card}")
+    res = {"dry_flops": dry_flops, "card_flops": card_flops,
+           "dry_argument_bytes": dry["argument_bytes"],
+           "dry_peak_bytes": dry["peak_bytes"], "dry_step_bytes": dry_step,
+           "card_peak_above_start": card_peak,
+           "card_over_dry": card_peak / dry_step, "dry_bytes": dry["bytes"],
+           "step_ms": step_ms, "bound_ms": dry["bound_ms"],
+           "bound_by": dry["bound_by"], "share": dry["bound_ms"] / step_ms,
+           "loss": loss, "card": card}
+    log(f"  {what} 1x1: FLOPs dry {dry_flops:.6g} card {card_flops:.6g}; "
+        f"above the arguments ({dry['argument_bytes']} B): dry {dry_step} B "
+        f"(temp + out - alias), card peak above start {card_peak} B, "
+        f"card/dry {card_peak / dry_step:.4f}; dry peak {dry['peak_bytes']} "
+        f"B; step {step_ms:.4f} ms (median of {len(times)}), bound "
+        f"{dry['bound_ms']:.4f} ms ({dry['bound_by']}), share "
+        f"{dry['bound_ms'] / step_ms:.4f}"
+        + ("" if loss is None else f"; loss {loss:.4f}") + f"; {card}")
     if card_flops != dry_flops:
-        failures.append(f"dryrun: {arch}/{shape} card FLOPs {card_flops} "
-                        f"!= dry run's {dry_flops}")
+        failures.append(f"dryrun: {what} card FLOPs {card_flops} != dry "
+                        f"run's {dry_flops}")
     if not lo * dry_step <= card_peak <= hi * dry_step:
-        failures.append(f"dryrun: {arch}/{shape} card peak above start "
-                        f"{card_peak} outside {DRYRUN_MEM_BAND} x the dry "
-                        f"run's temp + out - alias {dry_step}")
+        failures.append(f"dryrun: {what} card peak above start {card_peak} "
+                        f"outside {DRYRUN_MEM_BAND} x the dry run's temp + "
+                        f"out - alias {dry_step}")
+    if loss is not None and not np.isfinite(loss):
+        failures.append(f"dryrun: {what} loss {loss}")
     del args
     free_card()
-    return out
+    return res
 
 
 def dryrun_phase(dev, failures, card) -> dict:
-    """The fake-mesh cells in subprocesses (``dryrun_fake_start``), and
-    meanwhile each of ``DRYRUN_CARD_CELLS`` on a 1x1 mesh and on the card
-    (``dryrun_card_cell``); no kernel may launch."""
+    """The fake-mesh cells and the LM cell's 1x1 dry run in subprocesses
+    (``dryrun_fake_start``, ``dryrun_lm_start``), and meanwhile each of
+    ``DRYRUN_CARD_CELLS`` counted on a 1x1 mesh here, then every card cell
+    on the card (``dryrun_card_cell``); no kernel may launch."""
+    from repro_torch.launch.dryrun import record_cell
+    from repro_torch.launch.mesh import make_dev_mesh
+    from repro_torch.launch.steps import build_cell
     tf32_off(failures, "before [dryrun]")
     free_card()
     reset_counts()
     t0 = time.perf_counter()
     procs = dryrun_fake_start()
-    from repro_torch.launch.mesh import make_dev_mesh
+    lm_proc = dryrun_lm_start()
     mesh = make_dev_mesh()
     log(f"  dev mesh {tuple(mesh.shape)} {mesh.mesh_dim_names} on "
         f"{mesh.device_type}")
-    out = {"card": {f"{a}/{s}": dryrun_card_cell(dev, failures, mesh, a, s,
-                                                 card)
-                    for a, s in DRYRUN_CARD_CELLS}}
+    out = {"card": {}}
+    for arch, shape in DRYRUN_CARD_CELLS:
+        cell = build_cell(arch, shape, mesh)
+        try:
+            dry = dry_summary(cell, record_cell(cell), mesh)
+        except Exception as e:  # noqa: BLE001 — the phase's failure
+            failures.append(f"dryrun: {arch}/{shape} on 1x1: "
+                            f"{type(e).__name__}: {e}")
+            out["card"][f"{arch}/{shape}"] = {"error": str(e)}
+            continue
+        out["card"][f"{arch}/{shape}"] = dryrun_card_cell(dev, failures,
+                                                          cell, dry, card)
+    try:
+        stdout, stderr = lm_proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        lm_proc.kill()
+        stdout, stderr = lm_proc.communicate()
+    arch, shape, batch = DRYRUN_LM_CELL
+    key = f"{arch}/{shape} at {batch} x {LM_LONG_SEQ}"
+    if lm_proc.returncode != 0:
+        failures.append(f"dryrun: {key}'s 1x1 dry run exited "
+                        f"{lm_proc.returncode}: {stderr[-1500:]}")
+    else:
+        log(f"  {key}: 1x1 dry run {time.perf_counter() - t0:.1f} s into "
+            "the phase")
+        out["card"][key] = dryrun_card_cell(
+            dev, failures, dryrun_lm_cell(mesh),
+            json.loads(stdout.strip().splitlines()[-1]), card, reps=0)
     out["fake"] = dryrun_fake_finish(procs, t0, failures)
     launched = {k: v for k, v in read_counts().items() if v}
     log(f"  kernel launches in [dryrun]: {launched or 'none'}")
@@ -4839,7 +5040,8 @@ def main(argv=None) -> int:
               ("agreement", lambda: agreement(dev, failures)),
               ("decode path", lambda: rows.update(
                   decode=decode_path(dev, failures))),
-              ("decode agreement", lambda: decode_agreement(dev, failures)),
+              ("decode agreement", lambda: (decode_agreement(dev, failures),
+                                            onehot_decode(dev, failures))),
               ("moe", lambda: rows.update(moe=moe_phase(dev, failures))),
               ("recsys", lambda: rows.update(
                   recsys=recsys_phase(dev, failures))),

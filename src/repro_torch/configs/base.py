@@ -2,18 +2,21 @@
 RecSys models), the assigned input shapes of each family, and a small
 registry.
 
-The reference's ``TransformerConfig`` and ``ColberterConfig`` with torch
-dtypes and without the knobs that only change how XLA lowers the model
-(layer scan, remat, the one-hot cache write, unrolled chunk loops, a
-reduced-precision score block): the port computes the reference's default
-numerics (fp32 attention scores, every kv chunk visited). The sharding
-knobs stay: ``batch_axes`` and ``tp_axis`` (the LM's activation
-constraints) and ``shard_encode`` (ColBERTer's encode over the whole mesh)
-redistribute DTensors in the dry run (``launch/steps.py``) and leave plain
-tensors alone. ``GNNConfig`` and ``RecsysConfig`` are the
-reference's field for field: GatedGCN's ``remat`` recomputes each layer in
-the backward (``torch.utils.checkpoint``); its ``scan_layers`` is kept for
-the reference's sake only (the port's layer loop is the same either way).
+Every config is the reference's field for field, in the reference's order
+and with its defaults, torch dtypes in place of jnp ones. The knobs act as
+the reference's do: ``remat`` recomputes each layer in the backward
+(``torch.utils.checkpoint``), ``causal_skip`` visits only the kv chunks at
+or below each query chunk's diagonal, ``score_dtype`` rounds the attention
+score and probability blocks (ColBERTer: the MaxSim score block),
+``seq_shard_acts`` saves the LM's remat residual sequence-sharded over TP,
+``onehot_cache_update`` writes the decode cache by a one-hot select. The
+sharding knobs ``batch_axes`` and ``tp_axis`` (the LM's activation
+constraints), ``seq_shard_acts`` and ``shard_encode`` (ColBERTer's encode
+over the whole mesh) redistribute DTensors in the dry run
+(``launch/steps.py``) and leave plain tensors alone. ``scan_layers`` and
+``attn_unroll`` choose how XLA lowers the reference's loops and have no
+effect on the port: its layer and kv-chunk loops are Python loops, the
+unrolled form.
 """
 from __future__ import annotations
 
@@ -53,10 +56,17 @@ class TransformerConfig:
     dtype: Any = torch.bfloat16      # activation/compute dtype
     param_dtype: Any = torch.float32
     attn_chunk: int = 1024           # kv-chunk for blockwise online-softmax attn
+    remat: bool = True               # recompute each layer in the backward
     max_seq_len: int = 524_288
     # activation-sharding constraint axes (set by the launcher; None = off)
     batch_axes: Any = None           # e.g. ("data",) or ("pod", "data")
     tp_axis: Any = None              # e.g. "model"
+    scan_layers: bool = True         # no effect on the port: one layer loop
+    attn_unroll: bool = False        # no effect on the port: one chunk loop
+    causal_skip: bool = False        # skip fully-masked kv chunks (q-chunked)
+    score_dtype: Any = torch.float32  # attention score/probability dtype
+    seq_shard_acts: bool = False     # sequence-shard the saved residual carry
+    onehot_cache_update: bool = False  # decode cache written by a one-hot select
 
     @property
     def head_dim(self) -> int:
@@ -88,6 +98,10 @@ class ColberterConfig:
     norm_eps: float = 1e-12
     attn_chunk: int = 512
     qkv_bias: bool = True
+    remat: bool = False              # recompute each layer in the backward
+    scan_layers: bool = True         # no effect on the port: one layer loop
+    attn_unroll: bool = False        # no effect on the port: one chunk loop
+    score_dtype: Any = torch.float32  # MaxSim score-block dtype
     shard_encode: bool = False       # dry run: encode over the whole mesh
 
     def scaled(self, **kw) -> "ColberterConfig":

@@ -9,6 +9,8 @@ and append them to a JSON manifest. It needs no card.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --mesh single --arch smollm-135m
     PYTHONPATH=src python -m repro_torch.launch.dryrun --mesh both     # all cells
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --mesh single \
+        --arch smollm-135m --shape train_4k --set remat=false --tag noremat
 
 The production meshes live on a fake process group of 512 ranks, which
 this process joins as rank 0 (``launch/mesh.py``); run a dry run in a
@@ -61,8 +63,7 @@ def record_cell(cell):
     register_replicated_ops()
     fake_mode = FakeTensorMode(allow_non_fake_inputs=True)
     args = fake_args(cell.args, cell.in_shardings, fake_mode)
-    record, _ = record_step(cell.step_fn, args, fake_mode=fake_mode,
-                            donate_argnums=cell.donate_argnums)
+    record, _ = record_step(cell.step_fn, args, fake_mode=fake_mode)
     return record
 
 
@@ -157,7 +158,11 @@ def main(argv: list[str] | None = None):
                     help="merge into existing manifest instead of overwrite")
     ap.add_argument("--set", action="append", default=[], dest="overrides",
                     help="config override key=value (perf iterations), e.g. "
-                         "--set shard_encode=true --set donate=true")
+                         "--set remat=false --set causal_skip=true "
+                         "--set score_dtype=bf16 --set seq_shard_acts=true "
+                         "--set onehot_cache_update=true "
+                         "--set shard_encode=true; a key "
+                         "an arch's config lacks is ignored for that arch")
     ap.add_argument("--tag", default="", help="manifest key suffix")
     args = ap.parse_args(argv)
     overrides = parse_overrides(args.overrides)

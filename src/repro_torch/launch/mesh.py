@@ -12,6 +12,12 @@ reference's takes 256 of its 512 host devices; this process is rank 0.
 ``make_dev_mesh`` is a real 1 x N mesh over the ranks that exist: a
 one-rank group on a local file store where none is set up (NCCL on the
 card, gloo on the CPU; no network), or the caller's group of N ranks.
+
+Each mesh is made with every run of two or more of its dims flattened into
+one group as well, so DTensor redistributes a tensor over several mesh
+dims in one collective, as GSPMD does, whatever else ran in the process
+first (a flattened group, once made, is used by every later redistribution
+over those dims).
 """
 from __future__ import annotations
 
@@ -40,6 +46,15 @@ def init_fake_world(world_size: int = FAKE_WORLD) -> None:
                             world_size=world_size)
 
 
+def _with_flattened_runs(mesh: DeviceMesh) -> DeviceMesh:
+    """``mesh``, each run of two or more consecutive dims flattened."""
+    names = mesh.mesh_dim_names
+    for lo in range(len(names) - 1):
+        for hi in range(lo + 2, len(names) + 1):
+            mesh[names[lo:hi]]._flatten()
+    return mesh
+
+
 def make_production_mesh(*, multi_pod: bool = False) -> DeviceMesh:
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
@@ -47,8 +62,8 @@ def make_production_mesh(*, multi_pod: bool = False) -> DeviceMesh:
     n = 1
     for s in shape:
         n *= s
-    return DeviceMesh("cpu", torch.arange(n).reshape(shape),
-                      mesh_dim_names=axes)
+    return _with_flattened_runs(DeviceMesh(
+        "cpu", torch.arange(n).reshape(shape), mesh_dim_names=axes))
 
 
 def make_dev_mesh() -> DeviceMesh:
@@ -66,8 +81,9 @@ def make_dev_mesh() -> DeviceMesh:
         raise RuntimeError("this process holds the fake group; a device "
                            "mesh needs a process of its own")
     n = dist.get_world_size()
-    return DeviceMesh("cuda" if cuda else "cpu", torch.arange(n).reshape(1, n),
-                      mesh_dim_names=("data", "model"))
+    return _with_flattened_runs(DeviceMesh(
+        "cuda" if cuda else "cpu", torch.arange(n).reshape(1, n),
+        mesh_dim_names=("data", "model")))
 
 
 def mesh_axes(mesh) -> dict:

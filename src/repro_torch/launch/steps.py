@@ -51,7 +51,6 @@ class Cell:
     out_shardings: Any
     note: str = ""
     model_flops: float = 0.0        # 6*N*D (dense) / 6*N_active*D (MoE) etc.
-    donate_argnums: tuple = ()      # in-place updates (perf flag: donate=true)
 
 
 class ParamTree:
@@ -393,7 +392,8 @@ def retrieval_cell(cfg: ColberterConfig, shape: ShapeSpec, mesh) -> Cell:
         t = batch["doc_bow"].shape[2]
         d_mask = (torch.arange(t, device=q_bow.device)[None, None, :]
                   < batch["doc_lens"][..., None])
-        bow = maxsim_scores(q_bow, q_mask, batch["doc_bow"], d_mask)
+        bow = maxsim_scores(q_bow, q_mask, batch["doc_bow"], d_mask,
+                            score_dtype=cfg.score_dtype)
         agg = bow + batch["cls_scores"]
         return topk_stable(agg, 32)
 
@@ -412,7 +412,6 @@ def retrieval_cell(cfg: ColberterConfig, shape: ShapeSpec, mesh) -> Cell:
 def build_cell(arch: str, shape_name: str, mesh,
                overrides: dict | None = None) -> Cell:
     overrides = dict(overrides or {})
-    donate = overrides.pop("donate", False)
     grad_accum = overrides.pop("grad_accum", 1)
     cfg = get_config(arch)
     if overrides:
@@ -429,9 +428,6 @@ def build_cell(arch: str, shape_name: str, mesh,
         cell = retrieval_cell(cfg, shape, mesh)
     else:
         raise ValueError(cfg.family)
-    if donate:                        # in-place buffer updates (production)
-        cell.donate_argnums = {"train": (0, 1), "decode": (3,),
-                               "prefill": (2,)}.get(cell.kind, ())
     return cell
 
 

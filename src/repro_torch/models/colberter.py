@@ -12,14 +12,19 @@ weights across is a copy (``convert.colberter_params_from_numpy``). The
 layers run as a Python loop; attention is the blockwise online-softmax
 attention of ``models/attention.py``, with the padding mask passed as fake
 key positions. ``encode`` is the serving form (under ``no_grad``);
-``contrastive_loss`` runs the same body with autograd recording, and its
-all-pairs MaxSim is the plain ``core/maxsim.maxsim_scores`` (the CUDA
-``maxsim`` kernel has no backward and stays on the serving path).
+``contrastive_loss`` runs the same body with autograd recording (each layer
+under ``torch.utils.checkpoint`` with ``cfg.remat``, off by default, as in
+the reference), and its all-pairs MaxSim is the plain
+``core/maxsim.maxsim_scores`` (the CUDA ``maxsim`` kernel has no backward
+and stays on the serving path).
 """
 from __future__ import annotations
 
+from functools import partial
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ColberterConfig
 from repro_torch.core.maxsim import maxsim_scores
@@ -158,27 +163,39 @@ def _encode(cfg: ColberterConfig, params: Colberter, tokens, mask=None):
          + params.pos_embed[None, :S, :]).to(dt)
     x = layer_norm(x, params.embed_norm.scale, params.embed_norm.bias,
                    cfg.norm_eps)
-    H = cfg.n_heads
-    Dh = cfg.d_model // H
     # the mask as fake key positions: valid keys at 0 (<= every query's
     # position), pads at INT32_MAX, which the non-causal mask drops
     kv_pos = torch.where(mask, 0, INT32_MAX).to(torch.int32)
     q_pos = torch.zeros((B, S), dtype=torch.int32, device=dev)
+    remat = cfg.remat and torch.is_grad_enabled()
     for i in range(cfg.n_layers):
-        lp = params.layer(i)
-        q = (x @ lp["wq"].to(dt) + lp["bq"].to(dt)).reshape(B, S, H, Dh)
-        k = (x @ lp["wk"].to(dt) + lp["bk"].to(dt)).reshape(B, S, H, Dh)
-        v = (x @ lp["wv"].to(dt) + lp["bv"].to(dt)).reshape(B, S, H, Dh)
-        a = blockwise_attention(q, k, v, causal=False, chunk=cfg.attn_chunk,
-                                q_positions=q_pos, kv_positions=kv_pos)
-        o = a.reshape(B, S, cfg.d_model) @ lp["wo"].to(dt) + lp["bo"].to(dt)
-        x = layer_norm(x + o, lp["ln1/scale"], lp["ln1/bias"], cfg.norm_eps)
-        f = gelu_mlp(x, lp["w1"].to(dt), lp["b1"].to(dt), lp["w2"].to(dt),
-                     lp["b2"].to(dt))
-        x = layer_norm(x + f, lp["ln2/scale"], lp["ln2/bias"], cfg.norm_eps)
+        block = partial(_layer, cfg, params, i)
+        x = (checkpoint(block, x, q_pos, kv_pos, use_reentrant=False,
+                        preserve_rng_state=False)
+             if remat else block(x, q_pos, kv_pos))
     cls = _l2_normed(x[:, 0, :] @ params.cls_head.to(dt))
     bow = _l2_normed(x @ params.bow_head.to(dt)) * mask[..., None]
     return cls, bow.to(dt), mask
+
+
+def _layer(cfg: ColberterConfig, params: Colberter, i: int, x, q_pos,
+           kv_pos):
+    """Encoder layer ``i`` (post-LN), its parameters read inside."""
+    dt = cfg.dtype
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    Dh = cfg.d_model // H
+    lp = params.layer(i)
+    q = (x @ lp["wq"].to(dt) + lp["bq"].to(dt)).reshape(B, S, H, Dh)
+    k = (x @ lp["wk"].to(dt) + lp["bk"].to(dt)).reshape(B, S, H, Dh)
+    v = (x @ lp["wv"].to(dt) + lp["bv"].to(dt)).reshape(B, S, H, Dh)
+    a = blockwise_attention(q, k, v, causal=False, chunk=cfg.attn_chunk,
+                            q_positions=q_pos, kv_positions=kv_pos)
+    o = a.reshape(B, S, cfg.d_model) @ lp["wo"].to(dt) + lp["bo"].to(dt)
+    x = layer_norm(x + o, lp["ln1/scale"], lp["ln1/bias"], cfg.norm_eps)
+    f = gelu_mlp(x, lp["w1"].to(dt), lp["b1"].to(dt), lp["w2"].to(dt),
+                 lp["b2"].to(dt))
+    return layer_norm(x + f, lp["ln2/scale"], lp["ln2/bias"], cfg.norm_eps)
 
 
 def contrastive_loss(cfg: ColberterConfig, params: Colberter, batch):

@@ -82,8 +82,9 @@ def placements_of(spec: tuple, mesh) -> tuple:
 def constrain(x, spec):
     """The reference's ``with_sharding_constraint``: a DTensor is
     redistributed to ``spec`` (see ``placements_of``) on its own mesh; a
-    plain tensor, or a spec of None, passes through untouched."""
-    if spec is None or not is_dtensor(x):
+    plain tensor, a spec of None, or a DTensor on a mesh of one device
+    (where every layout is the same) passes through untouched."""
+    if spec is None or not is_dtensor(x) or x.device_mesh.size() == 1:
         return x
     from torch.distributed.tensor import Replicate
     mesh = x.device_mesh
@@ -294,12 +295,12 @@ def mlp_apply(params: dict, x, act=F.relu, act_last=False):
 
 
 def _logsumexp(x):
-    """``torch.logsumexp`` over the last dim. A DTensor (sharded over the
-    vocab) takes it from the max and the sum of the shards, which reduce
-    across them as partial values, where DTensor's own logsumexp would
-    gather the whole dim."""
-    if not is_dtensor(x):
-        return torch.logsumexp(x, dim=-1)
+    """logsumexp over the last dim as the reference's ``jax.nn.logsumexp``
+    takes it: the max held constant, log of the sum of exp(x - max), plus
+    the max (its gradient exp(x - max) / sum). A DTensor (sharded over the
+    vocab) reduces the max and the sum across its shards as partial values,
+    where DTensor's own logsumexp would gather the whole dim; plain tensors
+    run the same operations, so the dry run counts what a device runs."""
     m = _reduced(x.amax(dim=-1, keepdim=True).detach())
     return _reduced((x - m).exp().sum(dim=-1)).log() + m[..., 0]
 
@@ -307,7 +308,10 @@ def _logsumexp(x):
 def _reduced(x):
     """A DTensor's partial values reduced in full (all-reduced), its other
     placements kept: DTensor would otherwise reduce-scatter them onto some
-    dim, a layout the gradient coming back then has to undo."""
+    dim, a layout the gradient coming back then has to undo. A plain tensor
+    passes through."""
+    if not is_dtensor(x):
+        return x
     from torch.distributed.tensor import Replicate
     placements = [Replicate() if p.is_partial() else p for p in x.placements]
     return x.redistribute(x.device_mesh, placements)
@@ -322,11 +326,11 @@ def is_dtensor(x) -> bool:
 
 
 class _Gold(torch.autograd.Function):
-    """``x.gather(-1, idx)`` of a DTensor ``x``, one index per row, whose
-    backward puts the gradient at the index by comparison with the vocab's
-    positions (the values of gather's zeros-and-scatter backward, made
-    elementwise, so that a vocab-sharded DTensor is not gathered whole to
-    make its zeros)."""
+    """``x.gather(-1, idx)``, one index per row, whose backward puts the
+    gradient at the index by comparison with the vocab's positions (the
+    values of gather's zeros-and-scatter backward, made elementwise, so
+    that a vocab-sharded DTensor is not gathered whole to make its zeros;
+    a plain tensor takes the same operations)."""
 
     @staticmethod
     def forward(ctx, x, idx):
@@ -347,7 +351,7 @@ def cross_entropy_logits(logits, targets, z_loss: float = 0.0):
     lf = logits.float()
     lse = _logsumexp(lf)
     idx = targets[..., None].long()
-    gold = _Gold.apply(lf, idx) if is_dtensor(lf) else lf.gather(-1, idx)
+    gold = _Gold.apply(lf, idx)
     # subtracted before the trailing dim goes: a DTensor gathered from
     # vocab shards reduces its (..., 1) masked partial sums here
     loss = (lse[..., None] - gold)[..., 0]

@@ -16,6 +16,13 @@ GNN's sources) gathers with one ``index_select``.
 An index without values (a ``FakeTensorMode`` tensor: the dry run's) takes
 the static bound of each data-dependent size: every position counts, and
 there are min(E, n) distinct indices.
+
+On a mesh (the dry run's DTensors), a sum whose rows lie sharded as the
+index is taken where they lie, as GSPMD lowers the reference's
+``segment_sum``: each shard sorts its part of the index and sums its own
+rows in their order, and one all-reduce of the (n, ...) partial sums makes
+them whole. No edge-sized tensor crosses the wire. A gather's backward
+sums its gradient rows the same way.
 """
 from __future__ import annotations
 
@@ -49,10 +56,30 @@ class Segments:
         uniq, counts = torch.unique_consecutive(s, return_counts=True)
         return order, uniq, counts
 
+    @cached_property
+    def _local(self) -> "Segments":
+        """This shard's part of a DTensor index, as an index of its own."""
+        return Segments(self.idx.to_local(), self.n, padded=self.padded)
+
+    def _sharded_like_idx(self, x) -> bool:
+        """Whether ``x`` is a DTensor laid out as the index: its rows split
+        over the mesh dims that split the index, whole over the others."""
+        if not (is_dtensor(x) and is_dtensor(self.idx)):
+            return False
+        rows = tuple(self.idx.placements)
+        return (x.device_mesh == self.idx.device_mesh
+                and tuple(x.placements) == rows
+                and any(p.is_shard(0) for p in rows)
+                and all(p.is_shard(0) or p.is_replicate() for p in rows))
+
     def sum(self, x: torch.Tensor) -> torch.Tensor:
         """x (E, ...) -> (n, ...) in x's dtype: row i is the sum of the rows
         of x whose index is i, taken in their order (0 where there are
-        none). Differentiable in x."""
+        none). Differentiable in x. A DTensor ``x`` sharded by rows as the
+        index is summed shard by shard (see the module's docstring) and
+        comes back whole on every rank."""
+        if self._sharded_like_idx(x):
+            return self._mesh_sum(x)
         order, uniq, counts = self._sorted
         out = x.new_zeros((self.n,) + tuple(x.shape[1:]))
         if order.numel() == 0:
@@ -60,6 +87,25 @@ class Segments:
         sums = torch.segment_reduce(x.index_select(0, order), "sum",
                                     lengths=counts, axis=0, unsafe=True)
         return out.index_copy_(0, uniq, sums)
+
+    def _mesh_sum(self, x):
+        """``sum`` of a DTensor sharded as the index: local sums, then one
+        all-reduce over the mesh dims that split the rows (flattened into
+        one group, as GSPMD reduces over both axes at once)."""
+        from torch.distributed.tensor import DTensor, Partial, Replicate
+        from torch.utils._python_dispatch import _disable_current_modes
+        mesh = x.device_mesh
+        rows = tuple(mesh.mesh_dim_names[i]
+                     for i, p in enumerate(x.placements) if p.is_shard(0))
+        with _disable_current_modes():   # mesh bookkeeping, not the step's
+            group = mesh[rows]
+            if len(rows) > 1:
+                group = group._flatten()
+        part = self._local.sum(x.to_local())
+        whole = DTensor.from_local(part, group, [Partial()], run_check=False
+                                   ).redistribute(group, [Replicate()])
+        return DTensor.from_local(whole.to_local(), mesh,
+                                  [Replicate()] * mesh.ndim, run_check=False)
 
     def counts(self) -> torch.Tensor:
         """(n,) int64: how many positions index each row."""

@@ -8,7 +8,11 @@ transformer_params_from_numpy``). The layers run as a Python loop.
 
 Training: ``loss_fn`` is the reference's next-token loss (targets < 0
 masked), differentiable in the parameters: ``forward`` runs the same
-blockwise attention with autograd recording.
+blockwise attention with autograd recording. With ``cfg.remat`` (the LMs'
+default) each layer runs under ``torch.utils.checkpoint``, as the
+reference's ``jax.checkpoint(body)``: the backward keeps each layer's input
+and recomputes the layer, and within it each kv chunk's score block
+(``blockwise_attention``).
 
 Serving: ``init_cache``, ``prefill`` and ``decode_step`` take the
 reference's arguments and cache dict (``k``, ``v``, ``slot_pos``,
@@ -20,9 +24,11 @@ on CPU tensors the same call takes its plain version.
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import TransformerConfig
 from repro_torch.device import resolve_device
@@ -203,7 +209,8 @@ def _layer(cfg: TransformerConfig, x, lp, positions, *, cache=None,
     ``kv_out`` (this layer's (B, S, KV, Dh) k and v cache views) k and v
     are written into it. Decode: cache = (k_cache, v_cache, write_pos),
     this layer's (B, S_max, KV, Dh) cache views; the new k/v are written
-    at ``write_pos`` in place and the attention runs over the first
+    at ``write_pos`` in place (by a one-hot select over the whole cache
+    with ``cfg.onehot_cache_update``) and the attention runs over the first
     ``lengths`` slots.
     """
     dt = cfg.dtype
@@ -227,15 +234,25 @@ def _layer(cfg: TransformerConfig, x, lp, positions, *, cache=None,
     if cache is None:
         attn = blockwise_attention(q, k, v, causal=True, chunk=cfg.attn_chunk,
                                    q_positions=positions,
-                                   kv_positions=positions)
+                                   kv_positions=positions,
+                                   causal_skip=cfg.causal_skip,
+                                   score_dtype=cfg.score_dtype)
         if kv_out is not None:
             for dst, new in zip(kv_out, (k, v)):
                 # the cache-bound copy in the cache's layout (S over TP)
                 dst.copy_(_wsc(cfg, new, cfg.batch_axes, "TP", None, None))
     else:
         k_cache, v_cache, write_pos = cache
-        write_slot(k_cache, 1, write_pos, k[:, 0])
-        write_slot(v_cache, 1, write_pos, v[:, 0])
+        if cfg.onehot_cache_update:
+            # the reference's SPMD-friendly masked write: elementwise over
+            # the (sequence-sharded) cache, no slot selected
+            hot = _one_hot(k_cache.shape[1], write_pos, k_cache.device)
+            for dst, new in ((k_cache, k), (v_cache, v)):
+                dst.copy_(torch.where(hot[None, :, None, None],
+                                      new.to(dst.dtype), dst))
+        else:
+            write_slot(k_cache, 1, write_pos, k[:, 0])
+            write_slot(v_cache, 1, write_pos, v[:, 0])
         attn = flash_decode(whole_heads(q, 2, KV).reshape(B, KV, H // KV, Dh),
                             k_cache, v_cache, lengths)
 
@@ -254,11 +271,30 @@ def _layer(cfg: TransformerConfig, x, lp, positions, *, cache=None,
     return x + y, aux
 
 
+def _one_hot(n: int, pos: int, device) -> torch.Tensor:
+    """(n,) bool: True at ``pos`` alone."""
+    return torch.arange(n, device=device) == pos
+
+
+def _block(cfg: TransformerConfig, params: TransformerLM, i: int, x,
+           positions, kv_out):
+    """Layer ``i``, its parameters read inside (in the dry run that is
+    where ZeRO-3 gathers them, so a recomputed layer gathers them again)."""
+    return _layer(cfg, x, params.layer(i), positions, kv_out=kv_out)
+
+
 def forward(cfg: TransformerConfig, params: TransformerLM, tokens,
             positions=None, *, kv_cache=None):
     """Token ids (B, S) -> (final hidden states (B, S, D), the aux loss
     summed over the layers (0 for a dense model)). With ``kv_cache`` (a
-    cache dict) each layer's k and v are written into its slots 0..S-1."""
+    cache dict) each layer's k and v are written into its slots 0..S-1.
+
+    With ``cfg.remat`` and grad enabled each layer runs under
+    ``torch.utils.checkpoint``: its input is what the backward keeps (with
+    ``cfg.seq_shard_acts``, sequence-sharded over TP), and the layer is
+    run again there. An MoE layer routes the same tokens to the same
+    experts when it is run again: its top-k is stable and the router has
+    no noise."""
     B, S = tokens.shape
     if positions is None:
         # made from the tokens, so that a DTensor batch gives its layout
@@ -267,13 +303,23 @@ def forward(cfg: TransformerConfig, params: TransformerLM, tokens,
                                     device=tokens.device))
     x = _wsc(cfg, embed_rows(params.embed, tokens).to(cfg.dtype),
              cfg.batch_axes, None, None)
+    remat = cfg.remat and torch.is_grad_enabled()
     auxes = []
     for i in range(cfg.n_layers):
         kv_out = None
         if kv_cache is not None:
             kv_out = tuple(d if S == d.shape[1] else d[:, :S] for d in
                            (kv_cache["k"][i], kv_cache["v"][i]))
-        x, aux = _layer(cfg, x, params.layer(i), positions, kv_out=kv_out)
+        if cfg.seq_shard_acts and S > 1:
+            # the residual the layer starts from, sequence-sharded over TP
+            # (Megatron-SP style); the layer gathers it back
+            x = _wsc(cfg, x, cfg.batch_axes, "TP", None)
+        block = partial(_block, cfg, params, i)
+        if remat:
+            x, aux = checkpoint(block, x, positions, kv_out,
+                                use_reentrant=False, preserve_rng_state=False)
+        else:
+            x, aux = block(x, positions, kv_out)
         auxes.append(aux)
     # the last layer's residual sum reduced once here, where DTensor would
     # otherwise carry it as partial sums into the head's product
@@ -345,7 +391,14 @@ def decode_step(cfg: TransformerConfig, params: TransformerLM, tokens,
                          "full")
     B = tokens.shape[0]
     x = embed_rows(params.embed, tokens).to(cfg.dtype)
-    write_slot(cache["slot_pos"], 1, write_pos, positions)
+    if cfg.onehot_cache_update:
+        slot_pos = cache["slot_pos"]
+        hot = _one_hot(slot_pos.shape[1], write_pos, slot_pos.device)
+        slot_pos.copy_(torch.where(hot[None, :],
+                                   positions[:, None].to(slot_pos.dtype),
+                                   slot_pos))
+    else:
+        write_slot(cache["slot_pos"], 1, write_pos, positions)
     # The cache fills its slots in order (prefill writes 0..S-1, each step
     # writes at ``length``, shared by the batch), so the reference's
     # per-slot mask (slot_pos < INT32_MAX) is exactly the prefix of
@@ -365,7 +418,7 @@ def smoke_config(cfg: TransformerConfig) -> TransformerConfig:
     """Reduced same-family config for CPU smoke tests."""
     kw = dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=max(
         1, cfg.n_kv_heads * 4 // cfg.n_heads), d_head=16, d_ff=128,
-        vocab_size=512, attn_chunk=32, max_seq_len=256)
+        vocab_size=512, attn_chunk=32, remat=False, max_seq_len=256)
     if cfg.moe is not None:
         kw["moe"] = dataclasses.replace(cfg.moe, n_experts=4,
                                         top_k=min(2, cfg.moe.top_k),

@@ -37,8 +37,10 @@ on the local shards, which are the ops one device runs.
   storages live during the step (tracked by storage finalisers, autograd's
   saved tensors included) less the arguments and less the outputs that are
   not arguments (XLA's temp space excludes both); ``alias_bytes`` the
-  donated arguments the step updates in place. The peak is the reference's
-  argument + output + temp - alias.
+  arguments the step updates in place and hands back (the port's
+  optimizers and KV caches write into their arguments, where the
+  reference's XLA aliases only what a step donates). The peak is the
+  reference's argument + output + temp - alias.
 
 Where an op has no DTensor sharding rule, ``REPLICATED_OPS`` gives it one
 that replicates every operand and output (``register_replicated_ops``): the
@@ -71,8 +73,10 @@ LINK_BW = 450e9              # NVLink 4 bytes/s per direction per card
 
 # ops with no DTensor sharding rule (in torch 2.13, or in the card host's
 # 2.11), given one that replicates everything: the segment sums of
-# ``models/segment_ops``, their backward and the scatter of the sums into
-# their rows (2.11), and the MoE's token repeat (2.11)
+# ``models/segment_ops`` over whole rows (a molecule batch's readout, a
+# replicated index's gather backward; rows sharded as their index are summed
+# shard by shard and reach none of these), their backward and the scatter
+# of the sums into their rows (2.11), and the MoE's token repeat (2.11)
 REPLICATED_OPS: tuple[str, ...] = (
     "segment_reduce.default", "_segment_reduce_backward.default",
     "index_copy.default", "index_copy_.default",
@@ -340,8 +344,8 @@ class StepRecord:
                 - self.alias_bytes)
 
 
-def record_step(step_fn, args: tuple, *, fake_mode=None,
-                donate_argnums: tuple = ()) -> tuple[StepRecord, object]:
+def record_step(step_fn, args: tuple, *,
+                fake_mode=None) -> tuple[StepRecord, object]:
     """Run ``step_fn(*args)`` once under a ``StepRecorder``, plain tensors
     taken as replicated DTensors; return (its record, its outputs).
 
@@ -354,9 +358,6 @@ def record_step(step_fn, args: tuple, *, fake_mode=None,
     gc.collect()
     rec = StepRecorder(fake_mode)
     arg_st = rec.storages(local_tensors(args))
-    donated = set()
-    for i in donate_argnums:
-        donated |= set(rec.storages(local_tensors(args[i])))
     gc.disable()             # storages die at their last reference,
     try:                     # at the same op on every run
         with implicit_replication(), rec:
@@ -366,7 +367,7 @@ def record_step(step_fn, args: tuple, *, fake_mode=None,
     out_st = rec.storages(local_tensors(out))
     new_out = sum(n for k, n in out_st.items() if k not in arg_st)
     temp = max(0, rec.peak_bytes - sum(arg_st.values()) - new_out)
-    alias = sum(n for k, n in out_st.items() if k in donated)
+    alias = sum(n for k, n in out_st.items() if k in arg_st)
     return StepRecord(flops=float(rec.flops), bytes=float(rec.bytes),
                       coll=rec.coll, argument_bytes=sum(arg_st.values()),
                       output_bytes=sum(out_st.values()), temp_bytes=temp,

@@ -46,10 +46,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = {"fp32": 2e-5, "bf16": 3e-2}
 DTYPES = {"fp32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}
-# ColberterConfig fields the port drops: they only change how XLA lowers
-# the model (remat, layer scan, unrolled chunks, a reduced-precision score
-# block)
-DROPPED = {"remat", "scan_layers", "attn_unroll", "score_dtype"}
+# ColberterConfig fields the port drops: none (``remat`` and
+# ``score_dtype`` act as the reference's; ``scan_layers`` and
+# ``attn_unroll`` are kept and have no effect on the port's loops)
+DROPPED: set = set()
 
 
 def flat_shapes(tree, prefix=""):
@@ -113,8 +113,9 @@ def test_config_is_the_reference_without_the_lowering_knobs():
     port = {f.name: getattr(get_config("colberter"), f.name)
             for f in dataclasses.fields(ColberterConfig)}
     assert set(ref) - set(port) == DROPPED and set(port) <= set(ref)
+    assert list(port) == [k for k in ref if k not in DROPPED]   # same order
     for k, v in port.items():
-        if k in ("dtype", "param_dtype"):
+        if k in ("dtype", "param_dtype", "score_dtype"):
             assert str(v).split(".")[-1] == jnp.dtype(ref[k]).name
         else:
             assert v == ref[k], k

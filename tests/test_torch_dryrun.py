@@ -357,11 +357,11 @@ EXTRA_KINDS = {
     # sums them in one combined all-reduce, whose tuple shape
     # ``parse_collectives``' pattern does not match.
     "fm/serve_p99": {"all-reduce", "reduce-scatter"},
-    # the segment sums take a replicate-everything rule
-    # (``analysis.REPLICATED_OPS``), so the edge states are gathered; the
-    # reference's two all-reduces a layer are tuple-shaped (combined), which
-    # ``parse_collectives`` does not match either.
-    "gatedgcn/full_graph_sm": {"all-gather", "all-reduce"},
+    # the segment sums are summed shard by shard and made whole by one
+    # all-reduce each, as GSPMD lowers the reference's; the reference's
+    # all-reduces are tuple-shaped (combined), which ``parse_collectives``
+    # does not match.
+    "gatedgcn/full_graph_sm": {"all-reduce"},
 }
 PEAK_FACTOR = 1.5        # port's peak_gb / the reference's, either way
 ARG_TOL_GB = 2e-3        # argument_gb: equal but for the records' rounding
@@ -429,3 +429,150 @@ def test_dry_run_terms_match_the_reference(cell, dry_vs_ref):
                                               abs=ARG_TOL_GB)
     assert (rm["peak_gb"] / PEAK_FACTOR <= pm["peak_gb"]
             <= rm["peak_gb"] * PEAK_FACTOR)
+
+
+# -- the reference's knobs in the dry run --------------------------------------
+
+_KNOBS = r"""
+import json, sys
+from repro_torch.launch import dryrun
+out = sys.argv[1]
+runs = (("train_4k", "", ()), ("train_4k", "remat_true", ("remat=true",)),
+        ("train_4k", "remat_false", ("remat=false",)),
+        ("train_4k", "causal_skip", ("causal_skip=true",)),
+        ("train_4k", "score_bf16", ("score_dtype=bf16",)),
+        ("train_4k", "seq_shard", ("seq_shard_acts=true",)),
+        ("decode_32k", "", ()), ("decode_32k", "onehot",
+                                 ("onehot_cache_update=true",)))
+for shape, tag, sets in runs:
+    args = ["--mesh", "single", "--arch", "smollm-135m", "--shape", shape,
+            "--set", "n_layers=2", "--out", out, "--merge"]
+    for kv in sets:
+        args += ["--set", kv]
+    if tag:
+        args += ["--tag", tag]
+    dryrun.main(args)
+print(json.dumps(json.load(open(out))))
+"""
+
+
+def test_dryrun_lm_knobs_change_the_record(tmp_path):
+    """``--set`` reaches the LM's knobs, as it reaches the reference's
+    model (smollm-135m at 2 layers on 16x16, train_4k and decode_32k):
+    ``remat=true`` is the default's record; ``remat=false`` keeps every
+    layer's working set (peak up) and recomputes nothing (FLOPs down);
+    ``causal_skip`` skips the chunks above the diagonal (FLOPs and bytes
+    down); ``score_dtype=bf16`` halves the score blocks (bytes down);
+    ``seq_shard_acts`` keeps the residuals sequence-sharded (peak down);
+    ``onehot_cache_update`` writes the whole cache (bytes up)."""
+    got = _script(_KNOBS, str(tmp_path / "m.json"), timeout=600)
+
+    def rec(shape, tag=""):
+        r = got[f"smollm-135m/{shape}/single-pod-16x16"
+                + (f"#{tag}" if tag else "")]
+        assert r["status"] == "ok", r
+        return (r["memory_analysis"]["peak_gb"], r["roofline"])
+
+    peak, base = rec("train_4k")
+    same_peak, same = rec("train_4k", "remat_true")
+    assert same_peak == peak
+    for k in ("flops_per_dev", "bytes_per_dev", "wire_bytes_per_dev",
+              "counts"):
+        assert same[k] == base[k], k
+    off_peak, off = rec("train_4k", "remat_false")
+    assert off_peak > peak and off["flops_per_dev"] < base["flops_per_dev"]
+    _, skip = rec("train_4k", "causal_skip")
+    assert skip["flops_per_dev"] < base["flops_per_dev"]
+    assert skip["bytes_per_dev"] < base["bytes_per_dev"]
+    _, bf16 = rec("train_4k", "score_bf16")
+    assert bf16["bytes_per_dev"] < base["bytes_per_dev"]
+    sharded_peak, _ = rec("train_4k", "seq_shard")
+    assert sharded_peak < peak
+    _, dec = rec("decode_32k")
+    _, onehot = rec("decode_32k", "onehot")
+    assert onehot["bytes_per_dev"] > dec["bytes_per_dev"]
+
+
+_EDGE_COLLECTIVES = r"""
+import json
+from repro_torch.launch.dryrun import record_cell
+from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.launch.steps import build_cell
+from repro_torch.roofline import analysis
+seen = []
+dispatch = analysis.StepRecorder.__torch_dispatch__
+def spy(self, func, types, args=(), kwargs=None):
+    if func.namespace in ("_c10d_functional", "_dtensor"):
+        seen.append([func._overloadpacket.__name__,
+                     [list(t.shape) for t in analysis._tensors(args)]])
+    return dispatch(self, func, types, args, kwargs)
+analysis.StepRecorder.__torch_dispatch__ = spy
+cell = build_cell("gatedgcn", "full_graph_sm",
+                  make_production_mesh(multi_pod=False))
+rec = record_cell(cell)
+print(json.dumps({"seen": seen, "counts": rec.coll.counts,
+                  "edges": list(cell.args[2]["edge_src"].shape)}))
+"""
+
+
+def test_gatedgcn_moves_no_edge_sized_tensor():
+    """gatedgcn/full_graph_sm on the 16x16 mesh, its edges split over all
+    256 devices: every segment sum (forward, and the gathers' backward) is
+    made whole by one all-reduce of (nodes, D) partials; no collective has
+    an operand of the edges' length, global (10,752) or local (42)."""
+    got = _script(_EDGE_COLLECTIVES)
+    (n_edges,) = got["edges"]
+    assert set(got["counts"]) == {"all-reduce"}
+    ops = [s for op, shapes in got["seen"] for s in shapes
+           if op not in ("wait_tensor",)]
+    assert ops
+    for shape in ops:
+        assert n_edges not in shape and n_edges // 256 not in shape, shape
+
+
+_DEV_MESH_REMAT = r"""
+import json
+import torch
+from torch.utils.flop_counter import FlopCounterMode
+from torch._subclasses.fake_tensor import FakeTensorMode
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ShapeSpec
+from repro_torch.launch.dryrun import record_cell
+from repro_torch.launch.mesh import make_dev_mesh
+from repro_torch.launch.steps import lm_cell
+mesh = make_dev_mesh()
+shape = ShapeSpec("train_4k", "train", {"seq_len": 2048, "global_batch": 2})
+out = {}
+for remat in (True, False):
+    cfg = get_config("smollm-135m").scaled(n_layers=2, remat=remat)
+    cell = lm_cell(cfg, shape, mesh)
+    rec = record_cell(cell)
+    fm = FakeTensorMode(allow_non_fake_inputs=True)
+    def plain(t):
+        if isinstance(t, dict):
+            return {k: plain(v) for k, v in t.items()}
+        if isinstance(t, tuple):
+            return tuple(plain(v) for v in t)
+        with fm:
+            return torch.empty(t.shape, dtype=t.dtype)
+    with fm, FlopCounterMode(display=False) as fc:
+        cell.step_fn(*plain(cell.args))
+    out[str(remat)] = {"dry": rec.flops, "plain": fc.get_total_flops(),
+                       "peak": rec.peak_bytes, "wire": rec.coll.wire_bytes}
+print(json.dumps(out))
+"""
+
+
+def test_dev_mesh_remat_step_counts_what_flop_counter_counts():
+    """The card's check of an LM training step, rehearsed on the CPU with
+    fake tensors (smollm-135m at 2 layers, 2 x 2,048 tokens, two kv chunks,
+    on a one-device mesh): with and without ``remat`` the dry run's FLOPs
+    are ``FlopCounterMode``'s count of the same step on plain tensors, the
+    recomputed layers included; remat adds FLOPs and lowers the peak."""
+    got = _script(_DEV_MESH_REMAT)
+    for remat, r in got.items():
+        assert r["dry"] == r["plain"] > 0, remat
+        assert r["wire"] == 0, remat
+    assert got["True"]["dry"] > got["False"]["dry"]
+    assert got["True"]["peak"] < got["False"]["peak"]
+

@@ -21,6 +21,10 @@ The sampler: ``CSRGraph``, ``random_graph`` and ``sample_block`` give the
 reference's arrays exactly, for the same graph, seeds and generator.
 """
 import dataclasses
+import json
+import os
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -39,6 +43,7 @@ from repro_torch.models.segment_ops import Segments
 from repro_torch.train.checkpoint import flatten, unflatten
 from repro_torch.train.optimizer import named_params
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DTYPES = {"fp32": (jnp.float32, torch.float32, 2e-5),
           "bf16": (jnp.bfloat16, torch.bfloat16, 3e-2)}
 D_IN = 12
@@ -319,6 +324,90 @@ def test_padded_grads_are_finite_and_equal_the_unpadded_reference(mode):
 
 
 # -- the sampler ---------------------------------------------------------------
+
+_MESH_RANK = r"""
+import json, sys
+import numpy as np, torch, torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+from repro_torch.models.segment_ops import Segments
+from repro_torch.roofline.analysis import record_step
+rank, path = int(sys.argv[1]), sys.argv[2]
+dist.init_process_group("gloo", init_method=f"file://{path}/rdv",
+                        world_size=4, rank=rank)
+mesh = DeviceMesh("cpu", torch.arange(4).reshape(2, 2),
+                  mesh_dim_names=("data", "model"))
+g = np.load(f"{path}/graph.npz")
+n, d = int(g["n"]), g["x"].shape[1]
+rows, whole = [Shard(0), Shard(0)], [Replicate(), Replicate()]
+idx = distribute_tensor(torch.from_numpy(g["idx"]), mesh, rows)
+x = distribute_tensor(torch.from_numpy(g["x"]), mesh, rows).requires_grad_()
+h = distribute_tensor(torch.from_numpy(g["h"]), mesh, whole).requires_grad_()
+seg = Segments(idx, n, padded=True)
+rec, out = record_step(seg.sum, (x,))
+(out * distribute_tensor(torch.from_numpy(g["w"]), mesh, whole)
+ ).sum().backward()
+gathered = seg.gather(h)
+(gathered * distribute_tensor(torch.from_numpy(g["wx"]), mesh, rows)
+ ).sum().backward()
+res = {"placements": [str(p) for p in out.placements],
+       "counts": rec.coll.counts, "wire": rec.coll.wire_bytes}
+for name, t in (("sum", out), ("x_grad", x.grad), ("h_grad", h.grad),
+                ("gathered", gathered)):
+    np.save(f"{path}/{name}{rank}.npy", t.full_tensor().detach().numpy())
+if rank == 0:
+    print(json.dumps(res))
+dist.destroy_process_group()
+"""
+
+
+def test_segment_sum_on_a_mesh_stays_local(tmp_path):
+    """Four gloo ranks on a 2x2 (data, model) mesh, a graph of 20 nodes
+    and 64 edges (8 pads at ``dst = n``) whose index and edge rows are
+    split over both mesh dims: ``Segments.sum`` of the DTensor rows equals
+    the plain sum within fp32 rounding (the shards' partial sums are added
+    in another order), whole on every rank, its backward and a padded
+    gather's backward equal the plain ones; and the sum issues one
+    all-reduce of the (n, D) partials and no other collective: no
+    edge-sized operand crosses the wire."""
+    r = np.random.default_rng(7)
+    n, e, d = 20, 64, 6
+    idx = r.integers(0, n, e)
+    idx[-8:] = n
+    g = {"n": n, "idx": idx, "x": r.standard_normal((e, d)),
+         "h": r.standard_normal((n, d)), "w": r.standard_normal((n, d)),
+         "wx": r.standard_normal((e, d))}
+    g = {k: v.astype(np.float32) if k != "idx" and k != "n" else v
+         for k, v in g.items()}
+    np.savez(tmp_path / "graph.npz", **g)
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _MESH_RANK, str(rank), str(tmp_path)],
+        env={**os.environ, "PYTHONPATH": os.path.join(REPO, "src")},
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for rank in range(4)]
+    outs = [p.communicate(timeout=300) for p in procs]
+    for p, (_, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-3000:]
+    res = json.loads(outs[0][0].strip().splitlines()[-1])
+    assert res["placements"] == ["R", "R"]        # str(Replicate())
+    assert res["counts"] == {"all-reduce": 1}
+    assert res["wire"] == 2 * n * d * 4 * 3 / 4       # (n, D) fp32, g = 4
+
+    seg = Segments(torch.from_numpy(idx), n, padded=True)
+    x = torch.from_numpy(g["x"]).requires_grad_()
+    h = torch.from_numpy(g["h"]).requires_grad_()
+    want = seg.sum(x)
+    (want * torch.from_numpy(g["w"])).sum().backward()
+    gathered = seg.gather(h)
+    (gathered * torch.from_numpy(g["wx"])).sum().backward()
+    for rank in range(4):
+        for name, t, tol in (("sum", want, 1e-6), ("x_grad", x.grad, 0.0),
+                             ("h_grad", h.grad, 1e-6),
+                             ("gathered", gathered, 0.0)):
+            got = np.load(tmp_path / f"{name}{rank}.npy")
+            np.testing.assert_allclose(got, t.detach().numpy(), rtol=0,
+                                       atol=tol, err_msg=f"{name} {rank}")
+
 
 def test_csr_graph_matches_reference():
     r = np.random.default_rng(8)

@@ -229,6 +229,30 @@ def test_lm_config_matches_reference(arch):
 
 
 @pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_config_is_the_reference_field_for_field(arch):
+    """Every field of the reference's ``TransformerConfig``, in its order,
+    with its value (dtypes mapped; the MoE config as a dict), for the
+    registered config and its smoke config: the knobs (``remat``,
+    ``causal_skip``, ``score_dtype``, ...) included."""
+    ref, port = ref_get_config(arch), get_config(arch)
+    for r, p in ((ref, port),
+                 (ref_tf.smoke_config(ref), transformer.smoke_config(port))):
+        names = [f.name for f in dataclasses.fields(r)]
+        assert [f.name for f in dataclasses.fields(p)] == names
+        for name in names:
+            want, got = getattr(r, name), getattr(p, name)
+            if name in ("dtype", "param_dtype", "score_dtype"):
+                assert str(got).split(".")[-1] == jnp.dtype(want).name, name
+            elif name == "moe":
+                assert (got is None) == (want is None)
+                if want is not None:
+                    assert (dataclasses.asdict(got)
+                            == dataclasses.asdict(want))
+            else:
+                assert got == want, name
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
 def test_param_and_cache_shapes_match_reference(arch):
     """At full size (qwen2-72b and llama4-scout too: ``meta`` tensors cost
     no memory): every parameter's shape and dtype, and the cache's."""
