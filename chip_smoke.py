@@ -4704,7 +4704,10 @@ def dry_summary(cell, record, mesh) -> dict:
                              shape=cell.shape, mesh_name="dev-1x1",
                              n_dev=mesh.size(), model_flops=cell.model_flops,
                              mem_gb=memory_gb(record)).row()
-    return {"flops": roof["flops_per_dev"], "bytes": roof["bytes_per_dev"],
+    return {"flops": roof["flops_per_dev"],
+            "product_flops": roof["product_flops_per_dev"],
+            "transcendentals": roof["transcendentals_per_dev"],
+            "bytes": roof["bytes_per_dev"],
             "argument_bytes": record.argument_bytes,
             "peak_bytes": record.peak_bytes,
             # what the step allocates above its arguments
@@ -4763,7 +4766,9 @@ def dryrun_fake_finish(procs, t0, failures) -> dict:
             f"{rec['memory_analysis']['peak_gb']} GB, terms compute "
             f"{roof['compute_ms']} / memory {roof['memory_ms']} / "
             f"collective {roof['collective_ms']} ms ({roof['bottleneck']}), "
-            f"flops/dev {roof['flops_per_dev']:.6g}, collectives "
+            f"flops/dev {roof['flops_per_dev']:.6g} (products "
+            f"{roof['product_flops_per_dev']:.6g}, transcendentals "
+            f"{roof['transcendentals_per_dev']:.6g}), collectives "
             f"{roof['counts']}")
     log(f"  fake-mesh cells: {secs:.1f} s in {len(procs)} subprocesses")
     return {"seconds": secs, "records": recs}
@@ -4825,7 +4830,8 @@ def dryrun_cell_args(cell, gen, dev):
 def dryrun_card_cell(dev, failures, cell, dry, card,
                      reps=DRYRUN_REPS) -> dict:
     """One cell's step on the card held to its 1x1 dry run ``dry``
-    (``dry_summary``): FLOPs equal, the peak above the arguments within
+    (``dry_summary``): the product FLOPs equal (``FlopCounterMode`` on
+    the card counts products only), the peak above the arguments within
     ``DRYRUN_MEM_BAND`` of the dry run's, the step time beside the roofline
     bound. After a warm-up, one run is counted, one measured and ``reps``
     timed (median); with ``reps`` 0 the counted run is the warm-up and the
@@ -4862,9 +4868,11 @@ def dryrun_card_cell(dev, failures, cell, dry, card,
     del out
     times = [timed()[0] for _ in range(reps)] or [ms]
     step_ms = float(np.median(times))
-    dry_step, dry_flops = dry["step_bytes"], dry["flops"]
+    dry_step, dry_flops = dry["step_bytes"], dry["product_flops"]
     lo, hi = DRYRUN_MEM_BAND
-    res = {"dry_flops": dry_flops, "card_flops": card_flops,
+    res = {"dry_product_flops": dry_flops, "card_flops": card_flops,
+           "dry_flops": dry["flops"],
+           "dry_transcendentals": dry["transcendentals"],
            "dry_argument_bytes": dry["argument_bytes"],
            "dry_peak_bytes": dry["peak_bytes"], "dry_step_bytes": dry_step,
            "card_peak_above_start": card_peak,
@@ -4872,7 +4880,9 @@ def dryrun_card_cell(dev, failures, cell, dry, card,
            "step_ms": step_ms, "bound_ms": dry["bound_ms"],
            "bound_by": dry["bound_by"], "share": dry["bound_ms"] / step_ms,
            "loss": loss, "card": card}
-    log(f"  {what} 1x1: FLOPs dry {dry_flops:.6g} card {card_flops:.6g}; "
+    log(f"  {what} 1x1: product FLOPs dry {dry_flops:.6g} card "
+        f"{card_flops:.6g} (dry run's whole count {dry['flops']:.6g} FLOPs, "
+        f"{dry['transcendentals']:.6g} transcendentals); "
         f"above the arguments ({dry['argument_bytes']} B): dry {dry_step} B "
         f"(temp + out - alias), card peak above start {card_peak} B, "
         f"card/dry {card_peak / dry_step:.4f}; dry peak {dry['peak_bytes']} "
@@ -4882,7 +4892,7 @@ def dryrun_card_cell(dev, failures, cell, dry, card,
         + ("" if loss is None else f"; loss {loss:.4f}") + f"; {card}")
     if card_flops != dry_flops:
         failures.append(f"dryrun: {what} card FLOPs {card_flops} != dry "
-                        f"run's {dry_flops}")
+                        f"run's product FLOPs {dry_flops}")
     if not lo * dry_step <= card_peak <= hi * dry_step:
         failures.append(f"dryrun: {what} card peak above start {card_peak} "
                         f"outside {DRYRUN_MEM_BAND} x the dry run's temp + "

@@ -36,7 +36,8 @@ from repro_torch.models import colberter as colberter_lib
 from repro_torch.models import gnn as gnn_lib
 from repro_torch.models import recsys as recsys_lib
 from repro_torch.models import transformer as tfm
-from repro_torch.models.layers import constrain, is_dtensor
+from repro_torch.models.layers import (constrain, is_dtensor,
+                                       partials_reduced)
 from repro_torch.train.optimizer import AdamW, named_params
 
 
@@ -97,12 +98,17 @@ def _ns(mesh, *axes):
 
 def _value_and_grads(loss_fn, params: dict, *inputs):
     """(loss, metrics, {name: grad}) of ``loss_fn(params, *inputs)``; the
-    parameters are made leaves that require grad."""
+    parameters are made leaves that require grad. On a mesh of several
+    devices a DTensor gradient that holds partial sums is all-reduced once,
+    here (as GSPMD reduces each gradient once), not again at every read of
+    it in the optimizer."""
     leaves = named_params(params)
     for t in leaves.values():
         t.requires_grad_(True)
     loss, metrics = loss_fn(params, *inputs)
     grads = torch.autograd.grad(loss, list(leaves.values()))
+    grads = [partials_reduced(g) if is_dtensor(g) and g.device_mesh.size() > 1
+             else g for g in grads]
     return loss.detach(), metrics, dict(zip(leaves, grads))
 
 
@@ -395,7 +401,9 @@ def retrieval_cell(cfg: ColberterConfig, shape: ShapeSpec, mesh) -> Cell:
         bow = maxsim_scores(q_bow, q_mask, batch["doc_bow"], d_mask,
                             score_dtype=cfg.score_dtype)
         agg = bow + batch["cls_scores"]
-        return topk_stable(agg, 32)
+        # the outputs are replicated (``out_sh``): GSPMD takes the top k of
+        # the whole scores on every device
+        return topk_stable(constrain(agg, ()), 32)
 
     b, k = shape.dims["batch"], shape.dims["k_docs"]
     enc = 2.0 * b * cfg.max_query_len * (12 * cfg.n_layers * cfg.d_model ** 2)

@@ -17,7 +17,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.models.layers import is_dtensor, sharded_rows
+from repro_torch.models.layers import (is_dtensor, sharded_lookups,
+                                       sharded_rows)
 from repro_torch.models.segment_ops import Segments
 
 # tables with fewer rows than this are neither padded nor sharded
@@ -59,11 +60,15 @@ def init_tables(generator: torch.Generator, table_sizes, embed_dim,
     return out
 
 
+def _rows_sharded(table) -> bool:
+    return is_dtensor(table) and any(p.is_shard(0) for p in table.placements)
+
+
 def take(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """``table[ids]`` whose backward sums the gradient rows of equal ids in
     their order (the same bits on every run). A DTensor table sharded by
     rows is read where it lies (``layers.sharded_rows``)."""
-    if is_dtensor(table) and any(p.is_shard(0) for p in table.placements):
+    if _rows_sharded(table):
         return sharded_rows(table, ids)
     return Segments(ids, table.shape[0]).gather(table)
 
@@ -71,9 +76,13 @@ def take(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 def lookup(tables: dict, ids: torch.Tensor,
            compute_dtype=torch.bfloat16) -> torch.Tensor:
     """ids: (B, n_fields) one id per field -> (B, n_fields, D) in
-    ``compute_dtype``, each row cast after its gather."""
-    return torch.stack([take(tables[f"table_{i}"], ids[:, i])
-                        .to(compute_dtype) for i in range(ids.shape[1])],
+    ``compute_dtype``, each row cast after its gather. The DTensor tables
+    sharded by rows are looked up together (``layers.sharded_lookups``)."""
+    fields = [(tables[f"table_{i}"], ids[:, i]) for i in range(ids.shape[1])]
+    on_mesh = [k for k, (t, _) in enumerate(fields) if _rows_sharded(t)]
+    got = dict(zip(on_mesh, sharded_lookups([fields[k] for k in on_mesh])))
+    return torch.stack([(got[k] if k in got else take(*fields[k]))
+                        .to(compute_dtype) for k in range(len(fields))],
                        dim=1)
 
 

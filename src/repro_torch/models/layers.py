@@ -127,16 +127,60 @@ def embed_rows(table, ids):
 
 
 def sharded_rows(table, ids):
-    """``table[ids]`` for a DTensor table (or ids), as GSPMD takes it: the
-    ids made whole over the mesh dims that shard the table's rows, each
-    shard looks up the ids that fall in its rows (zeros elsewhere), and the
-    partial rows are summed onto the ids' layout; a whole table is one
-    local lookup in the ids' layout, and a table sharded by columns gives
-    rows sharded so. Differentiable: a shard's gradient lands in its own
-    rows. (DTensor's own lookup rules take no dim sharded over several
-    mesh dims, and would gather the table.)"""
+    """``table[ids]`` for a DTensor table (or ids): ``sharded_lookups`` of
+    the one pair."""
+    return sharded_lookups([(table, ids)])[0]
+
+
+def sharded_lookups(pairs) -> list:
+    """``table[ids]`` for each (table, ids) of ``pairs`` (a DTensor table,
+    or ids), laid out as GSPMD partitions the reference's ``jnp.take``.
+    XLA's gather partitioner takes, lookup by lookup, the way whose new
+    tensors hold the fewest bytes (``_gather_table_first``):
+
+    - the table sliced where it lies: the ids made whole over the mesh dims
+      that shard the table's rows, each shard looks up the ids that fall in
+      its rows (zeros elsewhere), one all-reduce sums the whole partial rows
+      over those dims, and each device keeps its ids' part;
+    - the table gathered over the mesh dims that shard both its rows and
+      the ids, each device looking up its own ids; over the dims that shard
+      the rows alone, sliced where it lies as above (the shards first
+      permuted so that the gather leaves each device a contiguous block of
+      rows: GSPMD's collective-permute before its all-gather).
+
+    A whole table is one local lookup in the ids' layout, and a table
+    sharded by columns gives rows sharded so. The lookups go stage by stage
+    together (every table's gathers and partial rows, then every
+    all-reduce, then each device's part), so that what GSPMD's combined
+    collectives hold at once is live at once here too. Differentiable: a
+    shard's gradient lands in its own rows. (DTensor's own lookup rules
+    take no dim sharded over several mesh dims, and would gather the
+    table.)"""
+    runs = [_lookup(table, ids) for table, ids in pairs]
+    out: list = [None] * len(runs)
+    waves = [list(range(len(runs)))]
+    if any(_mesh_of(t, i).size() == 1 for t, i in pairs):
+        waves = [[k] for k in range(len(runs))]     # one device: in turn
+    for live in waves:
+        while live:
+            for k in live:
+                try:
+                    next(runs[k])
+                except StopIteration as done:
+                    out[k], runs[k] = done.value, None
+            live = [k for k in live if runs[k] is not None]
+    return out
+
+
+def _mesh_of(table, ids):
+    return (table if is_dtensor(table) else ids).device_mesh
+
+
+def _lookup(table, ids):
+    """One lookup of ``sharded_lookups``, a generator that yields between
+    its stages and returns the rows."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
-    mesh = (table if is_dtensor(table) else ids).device_mesh
+    mesh = _mesh_of(table, ids)
     whole_on_all = [Replicate()] * mesh.ndim
     if not is_dtensor(ids):
         ids = DTensor.from_local(ids, mesh, whole_on_all, run_check=False)
@@ -144,24 +188,208 @@ def sharded_rows(table, ids):
         table = DTensor.from_local(table, mesh, whole_on_all, run_check=False)
     rows_on = [i for i, p in enumerate(table.placements) if p.is_shard(0)]
     cols_on = [i for i, p in enumerate(table.placements) if p.is_shard(1)]
-    whole = ids.redistribute(mesh, [
-        Replicate() if i in rows_on or i in cols_on else p
+    both = ([i for i in rows_on if ids.placements[i].is_shard()]
+            if rows_on and _gather_table_first(table, ids, rows_on) else [])
+    sliced = [i for i in rows_on if i not in both]
+    mine = ids.redistribute(mesh, [
+        Replicate() if i in sliced or i in cols_on else p
         for i, p in enumerate(ids.placements)])
-    local, shard = whole.to_local(), table.to_local()
-    if rows_on:
+    local = mine.to_local()
+    if both and not sliced:
+        gathered = table.redistribute(mesh, [
+            Replicate() if i in both else p
+            for i, p in enumerate(table.placements)])
+        yield
+        got = F.embedding(local, gathered.to_local(grad_placements=[
+            Partial() if i in both else p
+            for i, p in enumerate(gathered.placements)]))
+    elif both:
+        block = _row_block(table.to_local(), mesh, rows_on, both)
+        coord, b = mesh.get_coordinate(), 0
+        for i in sliced:
+            b = b * mesh.size(i) + coord[i]
+        got = _masked_rows(block, local, b * block.shape[0], block.shape[0])
+    elif rows_on:
         start, n = _local_range(table.shape[0], table.placements, 0, mesh)
-        inside = (local >= start) & (local < start + n)
-        got = F.embedding((local - start).clamp(0, max(n - 1, 0)),
-                          shard) * inside[..., None]
+        got = _masked_rows(table.to_local(), local, start, n)
     else:
-        got = F.embedding(local, shard)
-    placements = [Partial() if i in rows_on else
+        got = F.embedding(local, table.to_local())
+    placements = [Partial() if i in sliced else
                   Shard(ids.dim()) if i in cols_on else p
-                  for i, p in enumerate(whole.placements)]
+                  for i, p in enumerate(mine.placements)]
     shape = tuple(ids.shape) + (table.shape[1],)
-    out = DTensor.from_local(got, mesh, placements, run_check=False,
-                             shape=shape, stride=_contiguous(shape))
-    return _laid_out_as_ids(out, ids)
+    rows = DTensor.from_local(got, mesh, placements, run_check=False,
+                              shape=shape, stride=_contiguous(shape))
+    if sliced:
+        yield
+        # the partial rows all-reduced whole, in one collective over the
+        # mesh dims that shard them (GSPMD's; a reduce-scatter onto the
+        # ids' layout would move half the bytes), then each device's part
+        summed = rows.redistribute(mesh, [Replicate() if p.is_partial()
+                                          else p for p in rows.placements])
+        yield
+        rows = summed
+    return rows.redistribute(mesh, [p if p.is_shard() else Replicate()
+                                    for p in ids.placements])
+
+
+def _masked_rows(shard, ids, start: int, n: int):
+    """The rows of ``ids`` that fall in ``shard`` (the table's rows
+    ``start`` .. ``start + n``), zeros for the others."""
+    inside = (ids >= start) & (ids < start + n)
+    return F.embedding((ids - start).clamp(0, max(n - 1, 0)),
+                       shard) * inside[..., None]
+
+
+def _gather_table_first(table, ids, rows_on) -> bool:
+    """Whether XLA's gather partitioner gathers the table over the mesh
+    dims that shard both its rows and the ids (index passthrough) rather
+    than slicing it where it lies (trivially sliced operand). It takes the
+    way of the lower memory cost, the bytes of the new tensors (a tie
+    slices): gathered, the whole table and the larger of its part over
+    those dims and the local rows with their ids; sliced, the partial rows
+    of the ids made whole over those dims, those ids, and the table's
+    shard. The table's rows must split evenly over ``rows_on``."""
+    mesh = table.device_mesh
+    both = [i for i in rows_on if ids.placements[i].is_shard()]
+    if (not both or mesh.size() == 1
+            or table.shape[0] % math.prod(mesh.size(i) for i in rows_on)):
+        return False
+    shard = table.to_local()
+    row = shard.shape[1] * shard.element_size()
+    per_id = row + ids.element_size()
+    n_local = ids.to_local().numel()
+    n_both = math.prod(mesh.size(i) for i in both)
+    whole_table = table.shape[0] * row
+    gathered = whole_table + max(whole_table // n_both, n_local * per_id)
+    sliced = n_local * n_both * per_id + shard.numel() * shard.element_size()
+    return gathered < sliced
+
+
+def _row_block(shard, mesh, rows_on, both):
+    """This device's block of a table's rows sharded over ``rows_on`` (its
+    ``shard`` is chunk ``ravel(coordinate over rows_on)``) once the table is
+    whole over ``both``: block ``b = ravel(coordinate over the other dims of
+    rows_on)``, the chunks ``b * |both| + k``. Chunk ``b * |both| + k`` first
+    moves to the device whose coordinate over ``both`` ravels to ``k`` (a
+    permute within ``rows_on``'s group), then an all-gather over ``both``
+    collects the block. Both collectives are differentiable (their
+    backward: the inverse permute, a reduce-scatter)."""
+    import torch.distributed._functional_collectives as funcol
+    rest = [i for i in rows_on if i not in both]
+    n_both = math.prod(mesh.size(i) for i in both)
+    me = dict(enumerate(mesh.get_coordinate()))
+    b_to, k_to = divmod(_ravel(mesh, me, rows_on), n_both)
+    dst = _ravel(mesh, {**_unravel(mesh, k_to, both),
+                        **_unravel(mesh, b_to, rest)}, rows_on)
+    src = _ravel(mesh, me, rest) * n_both + _ravel(mesh, me, both)
+    moved = _permute(shard, mesh, rows_on, src, dst)
+    return funcol.all_gather_tensor_autograd(moved, 0,
+                                             _group_of(mesh, both))
+
+
+def moved_shards(x, src, dst):
+    """A DTensor ``x`` sharded on dim 0 over the mesh dims ``src`` and whole
+    over ``dst``, laid out the other way round: sharded on dim 0 over
+    ``dst``, whole over ``src``. Where the two sets of dims hold as many
+    devices and lie together in the mesh, that is one permute (the device
+    at ``a`` over ``src`` and ``b`` over ``dst`` swaps its chunk with the
+    device at ``b`` over ``src`` and ``a`` over ``dst``: GSPMD's
+    collective-permute); elsewhere DTensor redistributes it.
+    Differentiable (the permute's backward is the inverse permute)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = x.device_mesh
+    want = [Shard(0) if k in dst else Replicate() if k in src else p
+            for k, p in enumerate(x.placements)]
+    dims = sorted(src + dst)
+    size = math.prod(mesh.size(k) for k in src)
+    if (size != math.prod(mesh.size(k) for k in dst)
+            or dims != list(range(dims[0], dims[-1] + 1))
+            or x.shape[0] % size):
+        return x.redistribute(mesh, want)
+    me = dict(enumerate(mesh.get_coordinate()))
+    peer = _ravel(mesh, {**me, **_unravel(mesh, _ravel(mesh, me, dst), src),
+                         **_unravel(mesh, _ravel(mesh, me, src), dst)}, dims)
+    moved = _permute(x.to_local(), mesh, dims, peer, peer)
+    return DTensor.from_local(moved, mesh, want, run_check=False,
+                              shape=x.shape, stride=x.stride())
+
+
+def _ravel(mesh, coord, dims) -> int:
+    """The flat index of ``coord`` (mesh dim -> index) over ``dims``, the
+    first dim major."""
+    r = 0
+    for i in dims:
+        r = r * mesh.size(i) + coord[i]
+    return r
+
+
+def _unravel(mesh, n: int, dims) -> dict:
+    """``_ravel``'s inverse: mesh dim -> index."""
+    out = {}
+    for i in reversed(dims):
+        n, out[i] = divmod(n, mesh.size(i))
+    return out
+
+
+def _permute(local, mesh, dims, src: int, dst: int):
+    """``local`` sent to rank ``dst`` of the group over mesh dims ``dims``
+    while this rank takes rank ``src``'s: a collective-permute (an
+    all-to-all whose every rank sends one block and receives one, as
+    ``funcol.permute_tensor`` issues it; differentiable)."""
+    import torch.distributed._functional_collectives as funcol
+    ins = [0] * math.prod(mesh.size(i) for i in dims)
+    outs = list(ins)
+    ins[dst] = outs[src] = local.shape[0]
+    return funcol.all_to_all_single_autograd(local.contiguous(), outs, ins,
+                                             _group_of(mesh, dims))
+
+
+def in_batch_scores(q, items):
+    """``q @ items.T`` for DTensors q (B, d) and items (B, d) laid out as
+    the batch (sharded on dim 0 over the batch's mesh dims, whole over the
+    others), as GSPMD lays out the reference's in-batch logits: the items
+    moved to the other mesh dims (``moved_shards``) and gathered whole
+    there, each device scoring its queries against every item (the (B, B)
+    scores sharded as q); in the backward each device takes its block of
+    columns alone (the queries' gradient all-reduced over the other dims,
+    the items' over the batch's, and moved back)."""
+    batch = [k for k, p in enumerate(q.placements) if p.is_shard(0)]
+    other = [k for k, p in enumerate(q.placements) if p.is_replicate()]
+    if not batch or not other or q.device_mesh.size() == 1:
+        return q @ items.T
+    return _InBatchScores.apply(q, moved_shards(items, batch, other))
+
+
+class _InBatchScores(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, q, block):
+        from torch.distributed.tensor import Replicate
+        ctx.save_for_backward(q, block)
+        whole = block.redistribute(block.device_mesh,
+                                   [Replicate()] * block.device_mesh.ndim)
+        return q @ whole.T
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import Shard
+        q, block = ctx.saved_tensors
+        mesh = q.device_mesh
+        cols = g.redistribute(mesh, [p if p.is_shard() else Shard(1)
+                                     for p in g.placements])
+        return partials_reduced(cols @ block), partials_reduced(cols.T @ q)
+
+
+def _group_of(mesh, dims):
+    """The process group over mesh dims ``dims`` (consecutive: a run of
+    two or more is one of the mesh's flattened dims)."""
+    from torch.utils._python_dispatch import _disable_current_modes
+    names = [mesh.mesh_dim_names[i] for i in dims]
+    if len(names) == 1:
+        return mesh.get_group(dims[0])
+    with _disable_current_modes():     # slicing the mesh runs tensor ops
+        return mesh["_".join(names)].get_group()
 
 
 def _contiguous(shape) -> tuple:
@@ -184,18 +412,6 @@ def _local_range(length: int, placements, dim: int,
             first = min(coord[i] * step, length)
             start, length = start + first, min(step, length - first)
     return start, length
-
-
-def _laid_out_as_ids(rows, ids):
-    """A DTensor lookup's rows (masked partial sums where the table is
-    sharded by rows) reduced at once onto the ids' own layout: sharded
-    where the ids are, whole elsewhere. Reduced later, two lookups of one
-    layout would share DTensor's mask buffer."""
-    if not is_dtensor(rows) or not is_dtensor(ids):
-        return rows
-    from torch.distributed.tensor import Replicate
-    placements = [p if p.is_shard() else Replicate() for p in ids.placements]
-    return rows.redistribute(rows.device_mesh, placements)
 
 
 def write_slot(cache, dim: int, pos: int, value) -> None:
@@ -301,11 +517,11 @@ def _logsumexp(x):
     vocab) reduces the max and the sum across its shards as partial values,
     where DTensor's own logsumexp would gather the whole dim; plain tensors
     run the same operations, so the dry run counts what a device runs."""
-    m = _reduced(x.amax(dim=-1, keepdim=True).detach())
-    return _reduced((x - m).exp().sum(dim=-1)).log() + m[..., 0]
+    m = partials_reduced(x.amax(dim=-1, keepdim=True).detach())
+    return partials_reduced((x - m).exp().sum(dim=-1)).log() + m[..., 0]
 
 
-def _reduced(x):
+def partials_reduced(x):
     """A DTensor's partial values reduced in full (all-reduced), its other
     placements kept: DTensor would otherwise reduce-scatter them onto some
     dim, a layout the gradient coming back then has to undo. A plain tensor

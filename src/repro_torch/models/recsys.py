@@ -21,7 +21,8 @@ from repro_torch.configs.base import RecsysConfig
 from repro_torch.core.maxsim import topk_stable
 from repro_torch.device import resolve_device
 from repro_torch.models import embedding as emb
-from repro_torch.models.layers import dense_init, mlp_apply, mlp_shapes
+from repro_torch.models.layers import (dense_init, in_batch_scores,
+                                       is_dtensor, mlp_apply, mlp_shapes)
 
 
 # ---------------------------------------------------------------------------
@@ -201,8 +202,13 @@ def loss_fn(cfg: RecsysConfig, params, batch):
     Returns (loss, {"ce" | "bce": loss})."""
     if cfg.variant == "two-tower":
         q, i = two_tower_embed(cfg, params, batch)
-        logits = (q @ i.T) * 20.0
-        loss = (torch.logsumexp(logits, dim=-1) - logits.diagonal()).mean()
+        if is_dtensor(q):       # the dry run: GSPMD's layout of the logits
+            logits = in_batch_scores(q, i) * 20.0
+            gold = (q * i).sum(dim=-1) * 20.0
+        else:
+            logits = (q @ i.T) * 20.0
+            gold = logits.diagonal()
+        loss = (torch.logsumexp(logits, dim=-1) - gold).mean()
         return loss, {"ce": loss}
     logit = forward(cfg, params, batch)
     y = batch["labels"].float()

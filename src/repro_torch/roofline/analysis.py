@@ -13,12 +13,22 @@ tensors, under ``StepRecorder``, a dispatch mode that sits below DTensor:
 it lets every DTensor op through to DTensor and sees the ops DTensor runs
 on the local shards, which are the ops one device runs.
 
-- FLOPs: each local op's count by the rules of ``torch.utils.flop_counter``
-  (the matrix products and attention ops; an op outside its table is
-  decomposed first, as ``FlopCounterMode`` does), so a step run on one
-  device under ``FlopCounterMode`` counts the same. A ``FlopCounterMode``
-  above DTensor would count the global op (a product sharded 32 ways on its
-  rows counts 32 times one device's work).
+- FLOPs: each local op counted as XLA's ``HloCostAnalysis`` counts it,
+  which is what the reference's ``cost_analysis()`` reports
+  (``op_cost``): the matrix products and attention ops by the rules of
+  ``torch.utils.flop_counter`` (an op outside its table is decomposed first,
+  as ``FlopCounterMode`` does); one FLOP per output element of an
+  elementwise op (add, mul, compare, select, convert, max, ...; an op that
+  XLA expands, such as the logistic or the tanh GELU, its expansion's
+  count); a reduction's input elements less its outputs; the
+  transcendentals (exp, log, tanh, logistic, sqrt, rsqrt, pow, ...) one per
+  output element in a field of their own, left out of the FLOPs; and 0 for
+  views, copies, gathers, scatters and index ops (a scatter-add its adds);
+  an all-reduce or a reduce-scatter one add per element of its result.
+  The products alone are kept as ``product_flops``: a step run on one device
+  under ``FlopCounterMode`` counts the same. A ``FlopCounterMode`` above
+  DTensor would count the global op (a product sharded 32 ways on its rows
+  counts 32 times one device's work).
 - Bytes: the local inputs' and outputs' bytes of every op that computes
   (views and allocations move none), op by op, unfused. XLA's ``bytes
   accessed`` counts a fused step, so this figure runs above the reference's.
@@ -129,6 +139,9 @@ class Roofline:
     mem_per_dev_gb: float
     collectives: dict
     counts: dict
+    product_flops_per_dev: float = 0.0
+    transcendentals_per_dev: float = 0.0
+    wire_by_kind: dict = field(default_factory=dict)
 
     def row(self) -> dict:
         return {
@@ -143,6 +156,9 @@ class Roofline:
             "bytes_per_dev": self.bytes_per_dev,
             "wire_bytes_per_dev": self.wire_bytes_per_dev,
             "counts": self.counts,
+            "product_flops_per_dev": self.product_flops_per_dev,
+            "transcendentals_per_dev": self.transcendentals_per_dev,
+            "wire_by_kind": self.wire_by_kind,
         }
 
 
@@ -172,6 +188,84 @@ _COLLECTIVES = {
 }
 
 
+# elementwise ops XLA counts as transcendentals, one per output element
+_TRANSCENDENTAL = frozenset({
+    "exp", "exp2", "expm1", "log", "log2", "log10", "log1p", "tanh",
+    "sqrt", "rsqrt", "pow", "erf", "erfc", "erfinv", "sin", "cos", "tan",
+    "asin", "acos", "atan", "atan2", "sinh", "cosh", "asinh", "acosh",
+    "atanh", "lgamma", "digamma"})
+# (FLOPs, transcendentals) per output element of the elementwise ops that
+# XLA expands (the logistic, the tanh GELU, the fused multiply-adds) or
+# that the port's autograd runs where jax's runs a select; every other
+# pointwise op is (1, 0) and a transcendental (0, 1)
+_PER_ELEMENT = {
+    "sigmoid": (3, 1), "silu": (4, 1), "gelu": (8, 1),
+    "sigmoid_backward": (3, 0), "tanh_backward": (4, 0),
+    "silu_backward": (9, 1), "gelu_backward": (20, 1),
+    "threshold_backward": (2, 0), "addcmul": (2, 0), "addcdiv": (3, 0),
+    "lerp": (3, 0), "clone": (0, 0)}
+# the scatters that accumulate: one add per element of their updates (the
+# tensor argument at this position)
+_SCATTER_ADDS = {"embedding_dense_backward": 0, "index_add": 3,
+                 "scatter_add": 3, "index_put": 2}
+_PRODUCTS_WITH_BIAS = {"addmm", "baddbmm", "addbmm", "addmv"}
+
+
+def _numel(x) -> int:
+    return x.numel() if isinstance(x, torch.Tensor) else 0
+
+
+def op_cost(func, args, kwargs, outs) -> tuple[int, int]:
+    """(FLOPs, transcendentals) of one local op that is not a product, as
+    XLA's ``HloCostAnalysis`` counts the HLO it lowers to (see the module's
+    docstring); (0, 0) for an op that moves data only."""
+    name = func._overloadpacket.__name__.rstrip("_")
+    ins = [a for a in args if isinstance(a, torch.Tensor)]
+    n_out = _numel(outs[0]) if outs else 0
+    if name in _PRODUCTS_WITH_BIAS:
+        return n_out, 0                    # the product's added operand
+    if name in ("_to_copy", "copy"):       # a convert, where types differ
+        src = ins[-1] if name == "copy" else ins[0]
+        return (n_out if outs and src.dtype != outs[0].dtype else 0), 0
+    if name in _SCATTER_ADDS:
+        if name == "index_put" and not (
+                kwargs.get("accumulate") or (len(args) > 3 and args[3])):
+            return 0, 0
+        pos = _SCATTER_ADDS[name]
+        return (_numel(args[pos]) if len(args) > pos else 0), 0
+    n_in = _numel(ins[0]) if ins else 0
+    if name in ("_softmax", "_log_softmax"):       # max, sub, exp, sum, div
+        rows = n_in // max(1, args[0].shape[args[1]]) if n_in else 0
+        logs = rows if name == "_log_softmax" else 0
+        return 4 * n_in - 2 * rows, n_in + logs
+    if name == "_softmax_backward_data":   # y * (g - sum(g * y))
+        rows = n_in // max(1, args[0].shape[args[2]]) if n_in else 0
+        return 4 * n_in - rows, 0
+    if name == "_log_softmax_backward_data":   # g - exp(y) * sum(g)
+        rows = n_in // max(1, args[0].shape[args[2]]) if n_in else 0
+        return 3 * n_in - rows, n_in
+    if name == "segment_reduce":
+        return max(0, n_in - n_out), 0
+    if torch.Tag.reduction in func.tags:
+        if name == "logsumexp":
+            return 3 * n_in + 2 * n_out, n_in + n_out
+        if name == "linalg_vector_norm":
+            return 2 * n_in - n_out, n_out
+        if name == "mean":
+            return n_in, 0
+        return max(0, n_in - n_out), 0
+    if torch.Tag.pointwise in func.tags:
+        if name in _PER_ELEMENT:
+            f, t = _PER_ELEMENT[name]
+            return f * n_out, t * n_out
+        if name == "pow" and isinstance(args[-1], int):
+            return n_out, 0                # an integer power: products
+        if name in _TRANSCENDENTAL:
+            return 0, n_out
+        return n_out, 0
+    return 0, 0
+
+
 def _tensors(tree) -> list[torch.Tensor]:
     """The tensors of a tree of lists, tuples and dicts, in order (no
     recursive closure: its reference cycle would keep them alive until the
@@ -197,6 +291,16 @@ def local_tensors(tree) -> list[torch.Tensor]:
 
 def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
+
+
+def _is_permute(args) -> bool:
+    """Whether an ``all_to_all_single``'s split sizes send every rank's
+    tensor to one rank and receive one rank's: a collective-permute
+    (``funcol.permute_tensor``'s form; its wire is the tensor's bytes)."""
+    outs, ins = args[1], args[2]
+    return (isinstance(outs, (list, tuple)) and isinstance(ins, (list, tuple))
+            and sum(1 for n in outs if n) <= 1
+            and sum(1 for n in ins if n) <= 1)
 
 
 def _group_size(name: str, args) -> int:
@@ -238,6 +342,8 @@ class StepRecorder(TorchDispatchMode):
         super().__init__()
         self.fake_mode = fake_mode
         self.flops = 0
+        self.product_flops = 0
+        self.transcendentals = 0
         self.bytes = 0
         self.coll = CollectiveStats()
         self._live: dict[int, tuple] = {}
@@ -307,11 +413,16 @@ class StepRecorder(TorchDispatchMode):
         if ns in ("_c10d_functional", "_dtensor"):
             name = func._overloadpacket.__name__
             kind = _COLLECTIVES.get(name)
+            if name == "all_to_all_single" and _is_permute(args):
+                kind = "collective-permute"
             if kind is not None:
                 wire = wire_bytes(kind, sum(map(_nbytes, outs)),
                                   _group_size(name, args))
                 if wire is not None:
                     self.coll.add(kind, wire)
+                    if kind in ("all-reduce", "reduce-scatter"):
+                        # HloCostAnalysis: one add per result element
+                        self.flops += sum(map(_numel, outs))
             for t in outs:
                 self._track(t)
             return out
@@ -319,7 +430,12 @@ class StepRecorder(TorchDispatchMode):
             return out
         packet = func._overloadpacket
         if packet in flop_registry:
-            self.flops += flop_registry[packet](*args, **kwargs, out_val=out)
+            n = flop_registry[packet](*args, **kwargs, out_val=out)
+            self.product_flops += n
+            self.flops += n
+        f, t = op_cost(func, args, kwargs, outs)
+        self.flops += f
+        self.transcendentals += t
         if not func.is_view and func not in _NO_BYTES:
             self.bytes += sum(map(_nbytes, ins)) + sum(map(_nbytes, outs))
         for t in outs:
@@ -329,7 +445,8 @@ class StepRecorder(TorchDispatchMode):
 
 @dataclass
 class StepRecord:
-    """What one recorded step counted, per device."""
+    """What one recorded step counted, per device: ``flops`` as XLA's cost
+    analysis counts them, ``product_flops`` the matrix products' alone."""
     flops: float
     bytes: float
     coll: CollectiveStats
@@ -337,6 +454,8 @@ class StepRecord:
     output_bytes: int
     temp_bytes: int
     alias_bytes: int
+    product_flops: float = 0.0
+    transcendentals: float = 0.0
 
     @property
     def peak_bytes(self) -> int:
@@ -371,7 +490,9 @@ def record_step(step_fn, args: tuple, *,
     return StepRecord(flops=float(rec.flops), bytes=float(rec.bytes),
                       coll=rec.coll, argument_bytes=sum(arg_st.values()),
                       output_bytes=sum(out_st.values()), temp_bytes=temp,
-                      alias_bytes=alias), out
+                      alias_bytes=alias,
+                      product_flops=float(rec.product_flops),
+                      transcendentals=float(rec.transcendentals)), out
 
 
 def register_replicated_ops() -> None:
@@ -406,9 +527,12 @@ _REGISTERED = False
 # ---------------------------------------------------------------------------
 
 def extract_raw(record: StepRecord) -> dict:
-    """Per-device (flops, bytes, wire bytes, per-kind breakdown)."""
+    """Per-device (flops, bytes, wire bytes, per-kind breakdown; the
+    products' FLOPs and the transcendentals beside them)."""
     return {
         "flops": float(record.flops),
+        "product_flops": float(record.product_flops),
+        "transcendentals": float(record.transcendentals),
         "bytes": float(record.bytes),
         "wire_bytes": record.coll.wire_bytes,
         "by_kind": dict(record.coll.by_kind),
@@ -422,8 +546,10 @@ def extrapolate_raw(raw1: dict, raw2: dict, n_layers: int) -> dict:
     embedding / loss / optimizer are the intercept."""
     L = n_layers
     out = {}
-    for k in ("flops", "bytes", "wire_bytes"):
-        out[k] = max(0.0, raw1[k] + (raw2[k] - raw1[k]) * (L - 1))
+    for k in ("flops", "product_flops", "transcendentals", "bytes",
+              "wire_bytes"):
+        if k in raw1:
+            out[k] = max(0.0, raw1[k] + (raw2[k] - raw1[k]) * (L - 1))
     kinds = set(raw1["by_kind"]) | set(raw2["by_kind"])
     out["by_kind"] = {k: max(0.0, raw1["by_kind"].get(k, 0.0)
                              + (raw2["by_kind"].get(k, 0.0)
@@ -459,7 +585,10 @@ def roofline_from_raw(raw: dict, *, arch: str, shape: str, mesh_name: str,
                     mem_per_dev_gb=mem_gb,
                     collectives={k: round(v / 2**20, 2)
                                  for k, v in raw["by_kind"].items()},
-                    counts=raw["counts"])
+                    counts=raw["counts"],
+                    product_flops_per_dev=raw.get("product_flops", 0.0),
+                    transcendentals_per_dev=raw.get("transcendentals", 0.0),
+                    wire_by_kind=dict(raw["by_kind"]))
 
 
 def analyze(record: StepRecord, *, arch: str, shape: str, mesh_name: str,

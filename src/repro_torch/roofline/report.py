@@ -1,6 +1,10 @@
 """Render the roofline tables from a dry-run manifest.
 
     PYTHONPATH=src python -m repro_torch.roofline.report dryrun_manifest_torch.json
+    PYTHONPATH=src python -m repro_torch.roofline.report dryrun_manifest_torch.json --both
+
+``--both`` prints one table of every cell on both meshes instead (16x16's
+terms, 2x16x16's peak, collective term and bottleneck).
 """
 from __future__ import annotations
 
@@ -71,10 +75,40 @@ def perf_rows(manifest: dict) -> str:
     return "\n".join(rows)
 
 
+def both_meshes_table(manifest: dict) -> str:
+    """One row a cell: its 16x16 record's peak, terms, bottleneck and
+    useful ratio, beside its 2x16x16 record's peak, collective term and
+    bottleneck."""
+    rows = ["| arch | shape | kind | peak GB | compute ms | memory ms | "
+            "collective ms | bottleneck | useful | 2x16x16 peak GB | "
+            "2x16x16 collective ms | 2x16x16 bottleneck |",
+            "|" + "---|" * 12]
+    for key in sorted(manifest):
+        v = manifest[key]
+        if "single" not in key or "#" in key or v.get("status") != "ok":
+            continue
+        arch, shape, _ = key.split("/")
+        r = v["roofline"]
+        m = manifest.get(f"{arch}/{shape}/multi-pod-2x16x16", {})
+        multi = (f"{m['memory_analysis']['peak_gb']:.2f} | "
+                 f"{m['roofline']['collective_ms']:.2f} | "
+                 f"{m['roofline']['bottleneck']}"
+                 if m.get("status") == "ok" else "- | - | -")
+        rows.append(
+            f"| {arch} | {shape} | {v['kind']} | "
+            f"{v['memory_analysis']['peak_gb']:.2f} | {r['compute_ms']:.2f} | "
+            f"{r['memory_ms']:.1f} | {r['collective_ms']:.2f} | "
+            f"{r['bottleneck']} | {r['useful_ratio']:.3f} | {multi} |")
+    return "\n".join(rows)
+
+
 def main():
     path = sys.argv[1] if len(sys.argv) > 1 else "dryrun_manifest_torch.json"
     with open(path) as f:
         manifest = json.load(f)
+    if "--both" in sys.argv[2:]:
+        print(both_meshes_table(manifest))
+        return
     ok = sum(1 for v in manifest.values() if v.get("status") == "ok")
     print(f"## {ok}/{len(manifest)} cells OK\n")
     print("### single-pod roofline\n")

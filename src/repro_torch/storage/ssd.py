@@ -56,6 +56,8 @@ class StorageSpec:
 
 # PM983 (paper's SSD): PCIe3 x4, ~3.0 GB/s seq read, ~540K 4K IOPS, ~90us lat.
 PM983_PCIE3 = StorageSpec("pm983-pcie3", 20e-6, 90e-6, 540_000, 3.0e9)
+# PCIe4-class drive: the paper projects 2x random bandwidth -> threshold 24.
+PM9A3_PCIE4 = StorageSpec("pm9a3-pcie4", 20e-6, 70e-6, 1_080_000, 6.2e9)
 # DDR4 DRAM "device": gather-bound; 7.2x faster than GDS for the paper's
 # 1000-doc working set (calibration anchor, paper §5.4 / Fig 8).
 DRAM = StorageSpec("ddr4-dram", 2e-6, 0.1e-6, 30_000_000, 18e9)

@@ -13,10 +13,16 @@ AdamW step's metrics and weights; ``retrieval_topk``'s ids equal, ties to
 the lower index. ``lookup`` and ``embedding_bag`` (sum and mean, empty bags
 included) against the reference and ``embedding_bag_ref``. Every field of
 the four configs, and ``param_shapes`` at full size (``meta`` tensors,
-stored pad rows included).
+stored pad rows included). On a 2x2 mesh of four gloo ranks, the dry
+run's mesh lookups in their three layouts and the in-batch scores against
+plain tensors, values and gradients.
 """
 import dataclasses
 import functools
+import json
+import os
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -37,6 +43,9 @@ from repro_torch.models import recsys
 from repro_torch.train.checkpoint import flatten, unflatten
 from repro_torch.train.optimizer import AdamW, named_params
 from repro_torch.train.trainer import make_train_step
+
+SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "src")
 
 ARCHS = ["fm", "dlrm-mlperf", "autoint", "two-tower-retrieval"]
 DTYPES = {"fp32": (jnp.float32, torch.float32, 2e-5),
@@ -434,3 +443,112 @@ def test_query_embed_is_the_query_tower(dtype):
     q, _ = recsys.two_tower_embed(cfg, tp, torch_batch(batch))
     assert got.dtype == torch.float32 and torch.equal(got, q)
     assert_rel(got, want, DTYPES[dtype][2])
+
+
+# -- lookups and in-batch scores on a mesh --------------------------------------
+
+_MESH_RANK = r"""
+import json, sys
+import numpy as np, torch, torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+from repro_torch.launch.mesh import _with_flattened_runs
+from repro_torch.models.layers import in_batch_scores, sharded_lookups
+from repro_torch.roofline.analysis import record_step
+rank, path = int(sys.argv[1]), sys.argv[2]
+dist.init_process_group("gloo", init_method=f"file://{path}/rdv",
+                        world_size=4, rank=rank)
+mesh = _with_flattened_runs(DeviceMesh(
+    "cpu", torch.arange(4).reshape(2, 2), mesh_dim_names=("data", "model")))
+g = np.load(f"{path}/data.npz")
+rows, whole = [Shard(0), Shard(0)], [Replicate(), Replicate()]
+by_data = [Shard(0), Replicate()]
+ids_layout = {"sliced": by_data, "gathered_on_data": by_data,
+              "gathered": rows}
+tables, pairs, weights = {}, [], []
+for case, layout in ids_layout.items():
+    t = distribute_tensor(torch.from_numpy(g["table"]), mesh, rows)
+    tables[case] = t.requires_grad_()
+    pairs.append((t, distribute_tensor(torch.from_numpy(g[f"ids_{case}"]),
+                                       mesh, layout)))
+    weights.append(distribute_tensor(torch.from_numpy(g[f"w_{case}"]),
+                                     mesh, layout))
+rec, got = record_step(sharded_lookups, (pairs,))
+sum((r * w).sum() for r, w in zip(got, weights)).backward()
+q = distribute_tensor(torch.from_numpy(g["q"]), mesh, by_data)
+items = distribute_tensor(torch.from_numpy(g["items"]), mesh, by_data)
+q.requires_grad_(), items.requires_grad_()
+scores = in_batch_scores(q, items)
+(scores * distribute_tensor(torch.from_numpy(g["ws"]), mesh, by_data)
+ ).sum().backward()
+out = {f"rows_{c}": r for c, r in zip(ids_layout, got)}
+out.update({f"grad_{c}": t.grad for c, t in tables.items()})
+out.update(scores=scores, q_grad=q.grad, items_grad=items.grad)
+for name, t in out.items():
+    np.save(f"{path}/{name}{rank}.npy", t.full_tensor().detach().numpy())
+if rank == 0:
+    print(json.dumps({"counts": rec.coll.counts,
+                      "placements": [[str(p) for p in r.placements]
+                                     for r in got]}))
+dist.destroy_process_group()
+"""
+
+
+def test_mesh_lookups_and_in_batch_scores_equal_plain(tmp_path):
+    """Four gloo ranks on a 2x2 (data, model) mesh, a 64 x 6 table split
+    by rows over both dims. ``layers.sharded_lookups`` takes each of its
+    three layouts (32 ids by data: the table sliced where it lies; 512 ids
+    by data: the table gathered over data, after a collective-permute, and
+    sliced over model; 512 ids over both dims: the table gathered), all in
+    one call: the rows equal ``table[ids]`` and lie as the ids do, and the
+    table's gradient equals the plain one. ``layers.in_batch_scores`` of 8
+    queries and items by data (the items permuted to model and gathered):
+    ``q @ items.T`` and its gradients."""
+    r = np.random.default_rng(11)
+    data = {"table": r.standard_normal((64, 6)),
+            "ids_sliced": r.integers(0, 64, 32),
+            "ids_gathered_on_data": r.integers(0, 64, 512),
+            "ids_gathered": r.integers(0, 64, 512),
+            "q": r.standard_normal((8, 4)), "items": r.standard_normal((8, 4)),
+            "ws": r.standard_normal((8, 8))}
+    for case in ("sliced", "gathered_on_data", "gathered"):
+        data[f"w_{case}"] = r.standard_normal((len(data[f"ids_{case}"]), 6))
+    data = {k: v.astype(np.float32) if v.dtype == np.float64 else v
+            for k, v in data.items()}
+    np.savez(tmp_path / "data.npz", **data)
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _MESH_RANK, str(rank), str(tmp_path)],
+        env={**os.environ, "PYTHONPATH": SRC},
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for rank in range(4)]
+    outs = [p.communicate(timeout=300) for p in procs]
+    for p, (_, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-3000:]
+    res = json.loads(outs[0][0].strip().splitlines()[-1])
+    # ids gathers (sliced), a permute and a gather (gathered on data), a
+    # table gather; the sliced ways' partial rows all-reduced
+    assert res["counts"] == {"all-gather": 3, "collective-permute": 1,
+                             "all-reduce": 2}
+    assert res["placements"] == [["S(0)", "R"], ["S(0)", "R"],
+                                 ["S(0)", "S(0)"]]
+    table = torch.from_numpy(data["table"])
+    for rank in range(4):
+        for case in ("sliced", "gathered_on_data", "gathered"):
+            t = table.clone().requires_grad_()
+            want = t[torch.from_numpy(data[f"ids_{case}"])]
+            (want * torch.from_numpy(data[f"w_{case}"])).sum().backward()
+            np.testing.assert_allclose(
+                np.load(tmp_path / f"rows_{case}{rank}.npy"),
+                want.detach().numpy(), rtol=0, atol=0, err_msg=case)
+            np.testing.assert_allclose(
+                np.load(tmp_path / f"grad_{case}{rank}.npy"),
+                t.grad.numpy(), rtol=1e-6, atol=1e-5, err_msg=case)
+        q = torch.from_numpy(data["q"]).requires_grad_()
+        items = torch.from_numpy(data["items"]).requires_grad_()
+        scores = q @ items.T
+        (scores * torch.from_numpy(data["ws"])).sum().backward()
+        for name, t in (("scores", scores), ("q_grad", q.grad),
+                        ("items_grad", items.grad)):
+            np.testing.assert_allclose(
+                np.load(tmp_path / f"{name}{rank}.npy"),
+                t.detach().numpy(), rtol=1e-6, atol=1e-6, err_msg=name)

@@ -7,6 +7,11 @@ package's, on the CPU.
   figure ``parse_collectives`` reads off synthetic HLO lines, at group
   sizes 2, 16 and 256.
 - ``extrapolate_raw`` bit for bit on seeded random raws.
+- The FLOP count (``StepRecorder``, ``op_cost``): on small functions, one
+  class of op a case (elementwise, reduction, transcendental, product, a
+  mix), the FLOPs and transcendentals of XLA's ``cost_analysis()`` of the
+  reference's jitted function, exactly; the products alone as
+  ``product_flops``.
 - ``report``: the same text from one synthetic manifest of ok, failed and
   tagged records.
 - The logical axes of every LM and RecSys arch and of the tables: equal
@@ -26,7 +31,9 @@ import sys
 from contextlib import redirect_stdout
 from types import SimpleNamespace
 
+import jax
 import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
@@ -117,6 +124,64 @@ def test_extrapolate_raw_bit_for_bit(seed):
             == ref_analysis.extrapolate_raw(raw1, raw2, n_layers))
 
 
+# -- the FLOP count ---------------------------------------------------------
+
+_rng = np.random.default_rng(0)
+_X, _Y = (_rng.standard_normal((64, 32)).astype(np.float32) for _ in "xy")
+_W = _rng.standard_normal((32, 16)).astype(np.float32)
+_B = _rng.standard_normal((4, 8, 16)).astype(np.float32)
+_C = _rng.standard_normal((4, 16, 8)).astype(np.float32)
+# (the reference's function, the port's, the inputs); each op's producer
+# is one XLA does not fuse twice (a fusion that recomputes its input
+# counts it again)
+FLOP_CASES = {
+    "elementwise": (
+        lambda a, b: jnp.where(a > b, a * b, a - b).astype(jnp.bfloat16),
+        lambda a, b: torch.where(a > b, a * b, a - b).to(torch.bfloat16),
+        (_X, _Y)),
+    "reduction": (
+        lambda a, b: (a.sum(axis=1), b.max(axis=0), a.mean(axis=0)),
+        lambda a, b: (a.sum(dim=1), b.amax(dim=0), a.mean(dim=0)),
+        (_X, _Y)),
+    "transcendental": (
+        lambda a, b: (jnp.exp(a), jnp.log(jnp.abs(b)), jnp.tanh(a),
+                      jax.lax.rsqrt(jnp.abs(b)), jax.nn.sigmoid(a)),
+        lambda a, b: (a.exp(), b.abs().log(), a.tanh(), b.abs().rsqrt(),
+                      torch.sigmoid(a)),
+        (_X, _Y)),
+    "product": (
+        lambda a, w, b, c: (a @ w, jnp.einsum("bij,bjk->bik", b, c)),
+        lambda a, w, b, c: (a @ w, torch.bmm(b, c)),
+        (_X, _W, _B, _C)),
+    "mix": (
+        lambda a, w: (jax.nn.relu(jax.nn.logsumexp(a @ w, axis=-1) * 20.0)
+                      .mean() + (a * jax.lax.rsqrt(
+                          (a * a).sum(axis=-1, keepdims=True) + 1e-6)).sum()),
+        lambda a, w: (torch.relu(torch.logsumexp(a @ w, dim=-1) * 20.0)
+                      .mean() + (a * torch.rsqrt(
+                          (a * a).sum(dim=-1, keepdim=True) + 1e-6)).sum()),
+        (_X, _W)),
+}
+
+
+@pytest.mark.parametrize("case", list(FLOP_CASES))
+def test_flops_equal_xla_cost_analysis(case):
+    ref_fn, port_fn, ins = FLOP_CASES[case]
+    cost = jax.jit(ref_fn).lower(*ins).compile().cost_analysis()
+    if isinstance(cost, (list, tuple)):
+        cost = cost[0]
+    rec, _ = analysis.record_step(
+        port_fn, tuple(torch.from_numpy(a) for a in ins))
+    assert rec.flops == cost.get("flops", 0.0) > 0
+    assert rec.transcendentals == cost.get("transcendentals", 0.0)
+    products = 2 * (64 * 32 * 16 + 4 * 8 * 16 * 8) if case == "product" \
+        else 2 * 64 * 32 * 16 if case == "mix" else 0
+    assert rec.product_flops == products
+    raw = analysis.extract_raw(rec)
+    assert raw["flops"] == rec.flops
+    assert raw["product_flops"] == products
+
+
 # -- report -----------------------------------------------------------------
 
 def _manifest() -> dict:
@@ -167,6 +232,24 @@ def test_report_main_prints_the_reference_text(tmp_path, monkeypatch):
         outs.append(buf.getvalue())
     assert outs[0] == outs[1] and "5/6 cells OK" not in outs[0]
     assert outs[0].startswith("## 4/6 cells OK")
+
+
+def test_report_both_meshes_table(tmp_path, monkeypatch):
+    """``--both``: one row a 16x16 record that is ok and untagged, its
+    2x16x16 record's peak, collective term and bottleneck beside it (dashes
+    where there is none)."""
+    path = tmp_path / "m.json"
+    path.write_text(json.dumps(_manifest()))
+    monkeypatch.setattr(sys, "argv", ["report", str(path), "--both"])
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        report.main()
+    rows = buf.getvalue().strip().splitlines()
+    assert rows == report.both_meshes_table(_manifest()).splitlines()
+    assert len(rows) == 4
+    assert rows[2] == ("| colberter | serve_q32 | serve | 2.37 | 0.03 | 1.8 "
+                       "| 0.00 | memory | 0.512 | 1.20 | 0.00 | memory |")
+    assert rows[3].endswith("| 0.512 | - | - | - |")
 
 
 # -- logical axes and optimizer shapes ----------------------------------------

@@ -2,18 +2,22 @@
 the JAX package's, on the CPU: ``BatchReadPlan``/``BatchReadResult``'s
 counters and ``wait_all``, the decoded layout gathers (``gather_docs``,
 ``gather_docs_into``, ``gather_docs_at``, ``_gather_fixed_at``) on ragged,
-fixed-stride and scaled layouts, and ``StorageTier.read_async``.
+fixed-stride and scaled layouts, ``StorageTier.read_async``, and the
+drive models of ``storage/ssd`` (the PCIe4 drive's fields and bills).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
 from _torch_parity import layout_arrays
 from repro.storage import layout as ref_layout
+from repro.storage import ssd as ref_ssd
 from repro.storage.batch_io import BatchReadPlan as RefPlan
 from repro.storage.io_engine import StorageTier as RefTier
 from repro_torch import convert
 from repro_torch.core.rerank import pack_tiles
-from repro_torch.storage import layout
+from repro_torch.storage import layout, ssd
 from repro_torch.storage.batch_io import BatchReadPlan
 from repro_torch.storage.io_engine import StorageTier
 
@@ -146,3 +150,35 @@ def test_read_async_matches_reference():
                                       want.bow[j, :want.lens[j]])
     assert tier.stats == rtier.stats
     tier.close(), rtier.close()
+
+
+PAGES = (1, 2, 10, 100, 1_000, 10_000)
+
+
+def test_pm9a3_pcie4_equals_reference():
+    """The PCIe4 drive (the reference's ``PM9A3_PCIE4``): the same fields,
+    and the same bills at 1 to 10,000 pages: a batched read at queue depths
+    1 and 64, on two drives in RAID-0, and through mmap and swap faults."""
+    got, want = ssd.PM9A3_PCIE4, ref_ssd.PM9A3_PCIE4
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert got.name == "pm9a3-pcie4"
+    for n in PAGES:
+        for qd in (1, 64):
+            assert got.read_time(n, qd=qd) == want.read_time(n, qd=qd)
+        assert got.raid0(2).read_time(n) == want.raid0(2).read_time(n)
+        for hit in (0.0, 0.5):
+            assert (ssd.mmap_read_time(got, n, hit)
+                    == ref_ssd.mmap_read_time(want, n, hit))
+            assert (ssd.swap_read_time(got, n, hit)
+                    == ref_ssd.swap_read_time(want, n, hit))
+    # the paper's projection: twice the PCIe3 drive's random IOPS
+    assert got.rand_iops == 2 * ssd.PM983_PCIE3.rand_iops
+
+
+def test_ssd_timing_monotone():
+    """The port's counterpart of the reference's test of the same name."""
+    for spec in (ssd.PM983_PCIE3, ssd.PM9A3_PCIE4, ssd.DRAM):
+        ts = [spec.read_time(n) for n in PAGES]
+        assert all(b >= a for a, b in zip(ts, ts[1:]))
+    assert ssd.DRAM.read_time(1000) < ssd.PM983_PCIE3.read_time(1000) / 3
+    assert ssd.PM9A3_PCIE4.read_time(1000) < ssd.PM983_PCIE3.read_time(1000)
