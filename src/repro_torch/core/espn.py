@@ -156,8 +156,10 @@ class ESPNRetriever:
 
     @tracer.setter
     def tracer(self, tr):
-        self.backend.tracer = tr
-        self.backend.tier.tracer = tr
+        self.attach_tracer(tr)
+
+    def attach_tracer(self, tracer) -> None:
+        self.backend.attach_tracer(tracer)
 
     def query_batch(self, q_cls: np.ndarray, q_bow: np.ndarray,
                     q_lens: np.ndarray) -> RetrievalResponse:

@@ -95,11 +95,12 @@ class ANNPrefetcher:
 
     def __init__(self, index: IVFIndex, tier: StorageTier, *,
                  prefetch_step: float = 0.10,
-                 cost_model: ANNCostModel | None = None):
+                 cost_model: ANNCostModel | None = None, tracer=None):
         self.index = index
         self.tier = tier
         self.prefetch_step = prefetch_step
         self.cost = cost_model or ANNCostModel()
+        self.tracer = tracer          # repro_torch.obs.Tracer | None (off)
 
     def delta(self, nprobe: int) -> int:
         return max(1, int(round(self.prefetch_step * nprobe)))
@@ -117,11 +118,19 @@ class ANNPrefetcher:
         the batch totals. Tombstoned docs (a mutable tier's ``alive``) are
         dropped before the lists form. ``fetch=False`` plans the lists and
         stats but reads nothing (no buffers, no I/O bill).
+
+        With a tracer, the host work is timed in ``cat="host"`` spans:
+        ``ivf_search`` (the search and its copy to the host), ``hit_masks``,
+        ``reuse_check`` and ``views`` (the per-query results).
         """
+        tr = self.tracer
         delta = self.delta(nprobe)
+        sp = tr.begin("ivf_search", cat="host") if tr is not None else None
         approx, final, _ = search_two_phase(self.index, q, nprobe, k, delta)
         a_ids = approx[1].cpu().numpy()
         f_scores, f_ids = (t.cpu().numpy() for t in final)
+        if tr is not None:
+            tr.end(sp)
         # tombstones: deleted docs become -1 padding BEFORE the prefetch and
         # miss lists form, so they are never fetched, never scored, and never
         # inserted into any cache
@@ -134,6 +143,8 @@ class ANNPrefetcher:
 
         B = q.shape[0]
         pref_lists, fins, hit_masks, miss_lists = [], [], [], []
+        if tr is not None:
+            sp = tr.begin("hit_masks", cat="host")
         for b in range(B):
             pref_ids = a_ids[b][a_ids[b] >= 0]
             fin_ids, fin_scores = valid_candidates(f_ids[b], f_scores[b])
@@ -142,6 +153,9 @@ class ANNPrefetcher:
             fins.append((fin_ids, fin_scores))
             hit_masks.append(hit_mask)
             miss_lists.append(fin_ids[~hit_mask])
+        if tr is not None:
+            tr.end(sp, n_candidates=sum(len(f) for f, _ in fins),
+                   n_hits=int(sum(int(m.sum()) for m in hit_masks)))
 
         pref_batch = miss_batch = None
         fetch_lists = miss_lists
@@ -151,12 +165,20 @@ class ANNPrefetcher:
             if pref_batch.coalesced:
                 # cross-query reuse: misses already in the batch's prefetch
                 # arena are served from memory, not re-read from storage
+                if tr is not None:
+                    sp = tr.begin("reuse_check", cat="host")
                 served_masks = [pref_batch.plan.contains(m)
                                 for m in miss_lists]
                 fetch_lists = [m[~mask]
                                for m, mask in zip(miss_lists, served_masks)]
+                if tr is not None:
+                    tr.end(sp, n_misses=sum(len(m) for m in miss_lists),
+                           n_served=int(sum(int(m.sum())
+                                            for m in served_masks)))
             miss_batch = self.tier.read_batch(fetch_lists, skip_empty=True)
 
+        if tr is not None:
+            sp = tr.begin("views", cat="host", n_queries=B)
         results = []
         for b in range(B):
             fin_ids, fin_scores = fins[b]
@@ -207,6 +229,8 @@ class ANNPrefetcher:
                 buffers=buffers, miss_buffers=miss_buffers,
                 miss_rows=miss_rows, wait_io=wait_io,
                 io_failed=io_failed))
+        if tr is not None:
+            tr.end(sp)
         return results
 
     # --- paper eq. (4) -----------------------------------------------------

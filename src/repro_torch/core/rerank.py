@@ -104,7 +104,7 @@ def degraded_rerank(result, *, alpha: float = 1.0,
 def rerank_query(q_bow, q_len, result, *, alpha: float = 1.0,
                  rerank_count: int | None = None, doc_bytes=None,
                  select: np.ndarray | None = None,
-                 degrade: bool = True) -> RerankOutput:
+                 degrade: bool = True, tracer=None) -> RerankOutput:
     """Score one QueryResult (from ANNPrefetcher.run_batch).
 
     rerank_count=None -> exact (re-rank every candidate, hits scored early,
@@ -118,6 +118,11 @@ def rerank_query(q_bow, q_len, result, *, alpha: float = 1.0,
     kernel: it is answered from candidate-stage scores with
     ``degraded=True`` (or raises ``DegradedQueryError`` when
     ``degrade=False``).
+
+    With a ``tracer``, the host work is timed in ``cat="host"`` spans:
+    ``bill`` (the byte bill), ``lookup`` (each selected candidate's arena
+    row) and ``score`` (the tiles, MaxSim, the copies back and the ranking);
+    the wait for the rows times itself (``io_wait``).
     """
     if result.io_failed:
         return degraded_rerank(result, alpha=alpha, select=select,
@@ -135,8 +140,16 @@ def rerank_query(q_bow, q_len, result, *, alpha: float = 1.0,
         # candidates arrive CLS-sorted (IVF top-k): top-rr get MaxSim
         sel = np.arange(rr)
 
-    bow_scores = np.zeros(k, np.float32)
     bytes_read = 0
+    if doc_bytes is not None:
+        sp = tracer.begin("bill", cat="host") if tracer is not None else None
+        bytes_read = int(sum(doc_bytes(int(ids[j])) for j in sel))
+        if tracer is not None:
+            tracer.end(sp)
+
+    if tracer is not None:
+        sp = tracer.begin("lookup", cat="host", n_docs=len(sel))
+    bow_scores = np.zeros(k, np.float32)
     # hits: scored from the prefetch buffers (early re-rank)
     pref_rows, pref_pos = [], []
     miss_rows, miss_pos = [], []
@@ -156,16 +169,21 @@ def rerank_query(q_bow, q_len, result, *, alpha: float = 1.0,
         elif i in miss_row_of:
             miss_rows.append(miss_row_of[i])
             miss_pos.append(j)
+    if tracer is not None:
+        tracer.end(sp)
+        sp = tracer.begin("score", cat="host",
+                          n_docs=len(pref_rows) + len(miss_rows))
     if pref_rows:
         bow_scores[pref_pos] = _maxsim_np(q_bow, q_len, result.buffers,
                                           pref_rows)
     if miss_rows:
         bow_scores[miss_pos] = _maxsim_np(q_bow, q_len, result.miss_buffers,
                                           miss_rows)
-    if doc_bytes is not None:
-        bytes_read = int(sum(doc_bytes(int(ids[j])) for j in sel))
 
     agg = alpha * result.cand_scores[:k] + bow_scores
     order = np.argsort(-agg, kind="stable")
-    return RerankOutput(doc_ids=ids[order], scores=agg[order], n_reranked=rr,
-                        bow_bytes_read=bytes_read)
+    out = RerankOutput(doc_ids=ids[order], scores=agg[order], n_reranked=rr,
+                       bow_bytes_read=bytes_read)
+    if tracer is not None:
+        tracer.end(sp)
+    return out

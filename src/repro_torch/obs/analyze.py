@@ -16,12 +16,24 @@ recorded an SLO violation, names the **dominant stage** that ate the slack:
 
 The same ``dominant_stage`` function feeds the autoscaler's audit log at
 serve time, so an actuation can cite the span evidence that triggered it.
+
+``host_breakdown`` reads the wall clock instead: how much of each
+``query_batch`` the host spent in each work span (the ``cat="host"`` spans
+and the tier's ``plan`` and ``read_batch``), and how much in none.
 """
 from __future__ import annotations
 
+import bisect
 import json
+from collections import defaultdict
 
 STAGES = ("queue", "critical_io", "rerank", "candidate_gen", "other")
+
+#: the spans that time host work inside a batch: the ``cat="host"`` spans
+#: of the backends, the prefetcher, ``rerank_query`` and a read's waits,
+#: and the storage tier's ``plan`` and ``read_batch``
+WORK_SPANS = ("ivf_search", "hit_masks", "reuse_check", "plan", "read_batch",
+              "views", "io_wait", "lookup", "score", "bill")
 
 
 def dominant_stage(stages_ms: dict, flags: dict | None = None) -> str:
@@ -106,3 +118,63 @@ def format_report(report: dict) -> str:
         lines.append(f"  rid={r['rid']} lat={r['latency_ms']}ms "
                      f"budget={r['budget_ms']}ms -> {r['dominant']}")
     return "\n".join(lines)
+
+
+def _union_s(intervals) -> float:
+    """Seconds covered by the union of ``(t0, t1)`` intervals."""
+    total, end = 0.0, None
+    for a, b in sorted(intervals):
+        if end is None or a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total
+
+
+def host_breakdown(source) -> dict:
+    """Where the wall time of a traced run's ``query_batch`` spans went.
+
+    ``source`` is a ``Tracer`` or its spans. Only the work spans of the
+    thread that ran each batch, and inside it, count. Returns
+    ``{n_batches, query_batch_s, work_s, spans, counters, untraced_s}``:
+    ``work_s`` the seconds under each work span name (nested spans of one
+    name counted once), ``spans`` how many of each there were,
+    ``counters`` the sums of each name's numeric ``args``, and
+    ``untraced_s`` the batches' seconds under no work span at all.
+    """
+    spans = source.spans() if hasattr(source, "spans") else list(source)
+    batches = [s for s in spans if s.name == "query_batch" and s.closed]
+    work = defaultdict(list)                  # tid -> work spans by t0
+    for s in spans:
+        if s.name in WORK_SPANS and s.closed:
+            work[s.tid].append(s)
+    starts = {}
+    for tid, ws in work.items():
+        ws.sort(key=lambda s: s.t0)
+        starts[tid] = [s.t0 for s in ws]
+    work_s = dict.fromkeys(WORK_SPANS, 0.0)
+    n_spans = dict.fromkeys(WORK_SPANS, 0)
+    counters: dict = {}
+    total = untraced = 0.0
+    for qb in batches:
+        ws = work.get(qb.tid, [])
+        lo = bisect.bisect_left(starts.get(qb.tid, []), qb.t0)
+        hi = bisect.bisect_right(starts.get(qb.tid, []), qb.t1)
+        inside = [s for s in ws[lo:hi] if s.t1 <= qb.t1]
+        by_name = defaultdict(list)
+        for s in inside:
+            by_name[s.name].append((s.t0, s.t1))
+            n_spans[s.name] += 1
+            c = counters.setdefault(s.name, {})
+            for k, v in s.args.items():
+                if isinstance(v, (int, float)) and not isinstance(v, bool):
+                    c[k] = c.get(k, 0) + v
+        for name, iv in by_name.items():
+            work_s[name] += _union_s(iv)
+        total += qb.wall_s
+        untraced += qb.wall_s - _union_s((s.t0, s.t1) for s in inside)
+    return {"n_batches": len(batches), "query_batch_s": total,
+            "work_s": work_s, "spans": n_spans, "counters": counters,
+            "untraced_s": untraced}

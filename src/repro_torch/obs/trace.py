@@ -10,7 +10,10 @@ query batch renders as a single tree: the serving engine opens ``request``/
 ``shard_read`` grandchildren with ``hedge``/``retry``/``repair``/
 ``failover`` leaves, and per-query attribution spans (``critical_io``,
 ``rerank``, ``hidden_io``, ``bit_filter``, ``degrade``) link back to the
-originating request through ``qid``.
+originating request through ``qid``. Beside that tree, ``cat="host"`` spans
+(wall time only) time the host work inside a batch: ``ivf_search``,
+``hit_masks``, ``reuse_check``, ``views``, ``io_wait``, ``lookup``,
+``score`` and ``bill``.
 
 The tracer is only ever consulted when non-None — all hot paths guard with
 ``if tracer is not None`` so a default build takes the exact pre-existing
@@ -53,10 +56,13 @@ class Span:
 class Tracer:
     """Collects spans from every layer of one pipeline; thread-safe.
 
-    ``begin``/``end`` (or the ``span()`` context manager) maintain the
-    per-thread parent stack; ``add`` records an already-measured interval
-    (parented to the current stack top unless overridden) — the storage
-    layers use it because their device clocks are computed, not awaited.
+    ``begin``/``end`` maintain the per-thread parent stack; ``add`` records
+    an already-measured interval (parented to the current stack top unless
+    overridden) — the storage layers use it because their device clocks
+    are computed, not awaited. Spans of ``cat="host"`` carry wall time
+    alone: the host work inside a batch (the IVF search, hit masks, the
+    reuse check, views, waits on staging, lookups, scoring, the bills),
+    which ``obs.analyze.host_breakdown`` reads.
     """
 
     def __init__(self, clock=time.monotonic):
@@ -67,6 +73,7 @@ class Tracer:
         self._open = 0
         self._local = threading.local()
         self._tids: dict[int, int] = {}
+        self._sims: dict = {}        # qid -> {span name: summed sim_s}
 
     # -- internals -----------------------------------------------------------
     def _stack(self) -> list:
@@ -83,11 +90,17 @@ class Tracer:
                 t = self._tids.setdefault(ident, len(self._tids) + 1)
         return t
 
+    def _bill_sim(self, span: Span, sim_s: float) -> None:
+        """Add ``sim_s`` to the span's query and name (under the lock)."""
+        sims = self._sims.setdefault(span.qid, {})
+        sims[span.name] = sims.get(span.name, 0.0) + sim_s
+
     def _register(self, span: Span, open_: bool) -> Span:
         with self._lock:
             span.sid = self._next_sid
             self._next_sid += 1
             self._spans.append(span)
+            self._bill_sim(span, span.sim_s)
             if open_:
                 self._open += 1
         return span
@@ -119,10 +132,8 @@ class Tracer:
                 stack.pop()
         with self._lock:
             self._open -= 1
+            self._bill_sim(span, span.sim_s)
         return span
-
-    def span(self, name: str, cat: str = "", qid=None, **args):
-        return _SpanCtx(self, name, cat, qid, args)
 
     def add(self, name: str, cat: str = "", qid=None, t0: float | None = None,
             t1: float | None = None, sim_s: float = 0.0,
@@ -140,10 +151,6 @@ class Tracer:
 
     def instant(self, name: str, cat: str = "", qid=None, **args) -> Span:
         return self.add(name, cat, qid, **args)
-
-    def current(self) -> Span | None:
-        stack = self._stack()
-        return stack[-1] if stack else None
 
     # -- query stitching -----------------------------------------------------
     # The serving engine knows request ids; the backend only knows batch
@@ -173,16 +180,18 @@ class Tracer:
             return self._open
 
     def query_sims(self, qid, names=None) -> dict[str, float]:
-        """Sum ``sim_s`` per span name over spans tagged with ``qid``."""
-        out: dict[str, float] = {}
-        for sp in self.spans():
-            if sp.qid == qid and (names is None or sp.name in names):
-                out[sp.name] = out.get(sp.name, 0.0) + sp.sim_s
-        return out
+        """Sum ``sim_s`` per span name over spans tagged with ``qid`` (kept
+        as the spans are recorded: one lookup, however many spans)."""
+        with self._lock:
+            sims = dict(self._sims.get(qid, {}))
+        if names is None:
+            return sims
+        return {n: v for n, v in sims.items() if n in names}
 
     def clear(self) -> None:
         with self._lock:
             self._spans.clear()
+            self._sims.clear()
             self._open = 0
 
     # -- export --------------------------------------------------------------
@@ -225,19 +234,3 @@ class Tracer:
             json.dump({"traceEvents": events, "displayTimeUnit": "ms"}, f)
         return len(events)
 
-
-class _SpanCtx:
-    __slots__ = ("tr", "name", "cat", "qid", "args", "span")
-
-    def __init__(self, tr: Tracer, name: str, cat: str, qid, args: dict):
-        self.tr, self.name, self.cat, self.qid = tr, name, cat, qid
-        self.args = args
-        self.span: Span | None = None
-
-    def __enter__(self) -> Span:
-        self.span = self.tr.begin(self.name, self.cat, self.qid, **self.args)
-        return self.span
-
-    def __exit__(self, *exc) -> None:
-        if self.span is not None and self.span.t1 is None:
-            self.tr.end(self.span)

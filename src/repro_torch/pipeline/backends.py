@@ -13,11 +13,13 @@ on the simulated device clock. All backends return the same
 
 A query whose storage read failed (fault injection, ``storage/faults.py``)
 is answered in degraded mode from its candidate-stage scores and launches
-no MaxSim. With a ``Tracer`` attached (``backend.tracer``), every batch
+no MaxSim. With a ``Tracer`` attached (``attach_tracer``), every batch
 records the reference's span tree: ``query_batch`` over ``encode``,
 ``candidate_gen``, ``read`` and the per-query ``bit_filter``,
-``hidden_io``/``critical_io``, ``rerank`` and ``degrade`` spans. With none,
-no tracing code runs.
+``hidden_io``/``critical_io``, ``rerank`` (its wall: the ``rerank_query``
+call) and ``degrade`` spans; beside them, ``cat="host"`` spans time the
+host work (``ivf_search``, ``views``, ``bill`` here; the prefetcher's,
+the tier's and ``rerank_query``'s own). With none, no tracing code runs.
 """
 from __future__ import annotations
 
@@ -100,6 +102,13 @@ class RetrievalBackend(abc.ABC):
         self.doc_bytes = doc_bytes or (lambda i: tier.layout.doc_bytes(i))
         self.tracer = tracer          # repro_torch.obs.Tracer | None (off)
 
+    def attach_tracer(self, tracer) -> None:
+        """Thread ``tracer`` through this backend and its storage tier (a
+        backend with more parts overrides this to reach them too); ``None``
+        detaches it."""
+        self.tracer = tracer
+        self.tier.tracer = tracer
+
     # ------------------------------------------------------------------
     def query_batch(self, q_cls: np.ndarray, q_bow: np.ndarray,
                     q_lens: np.ndarray) -> RetrievalResponse:
@@ -154,10 +163,25 @@ class RetrievalBackend(abc.ABC):
 
     # -- shared helpers -----------------------------------------------
     def _maxsim_time(self, n_docs: int, q_len: int) -> float:
+        tr = self.tracer
+        sp = tr.begin("bill", cat="host") if tr is not None else None
         layout = self.tier.layout
-        return self.compute.maxsim_time(n_docs, q_len,
-                                        float(layout.n_tokens.mean()),
-                                        layout.d_bow)
+        t = self.compute.maxsim_time(n_docs, q_len,
+                                     float(layout.n_tokens.mean()),
+                                     layout.d_bow)
+        if tr is not None:
+            tr.end(sp)
+        return t
+
+    def _dedup_bill(self, saved_of, *args) -> int:
+        """``saved_of(*args, self.doc_bytes)``, the bytes a batch's
+        duplicate requests did not move (with a tracer, a ``bill`` span)."""
+        tr = self.tracer
+        sp = tr.begin("bill", cat="host") if tr is not None else None
+        saved = saved_of(*args, self.doc_bytes)
+        if tr is not None:
+            tr.end(sp)
+        return saved
 
     def _ivf_candidates(self, q_cls, bd: LatencyBreakdown):
         """Single-phase IVF candidate generation: host (scores, ids)."""
@@ -165,8 +189,12 @@ class RetrievalBackend(abc.ABC):
         tr = self.tracer
         cspan = tr.begin("candidate_gen", cat="compute") \
             if tr is not None else None
+        if tr is not None:
+            sp = tr.begin("ivf_search", cat="host")
         scores, ids = search(self.index, q_cls, cfg.nprobe, cfg.k_candidates)
         scores, ids = scores.cpu().numpy(), ids.cpu().numpy()
+        if tr is not None:
+            tr.end(sp)
         bd.ann_s = self.cost.time(self.index, cfg.nprobe)
         if tr is not None:
             tr.end(cspan, sim_s=bd.ann_s)
@@ -174,15 +202,41 @@ class RetrievalBackend(abc.ABC):
 
     @staticmethod
     def _trace_query(tr, b: int, io_s: float, out: RerankOutput,
-                     maxsim_t: float, **io_args) -> None:
-        """Query ``b``'s critical-I/O span, then its rerank span, or a
-        ``degrade`` instant when it was answered from candidate scores."""
+                     maxsim_t: float, wall: tuple[float, float],
+                     **io_args) -> None:
+        """Query ``b``'s critical-I/O span, then its rerank span (``wall``:
+        its ``rerank_query`` call), or a ``degrade`` instant when it was
+        answered from candidate scores."""
         qid = tr.query_key(b)
         tr.add("critical_io", cat="io", qid=qid, sim_s=io_s, **io_args)
         if out.degraded:
             tr.instant("degrade", cat="fault", qid=qid)
         else:
-            tr.add("rerank", cat="compute", qid=qid, sim_s=maxsim_t)
+            tr.add("rerank", cat="compute", qid=qid, t0=wall[0], t1=wall[1],
+                   sim_s=maxsim_t)
+
+    def _rerank_one(self, q_bow, q_len: int, res: QueryResult, **kw):
+        """``rerank_query`` of one query and the wall interval of the call
+        (``(0.0, 0.0)`` without a tracer)."""
+        tr = self.tracer
+        t0 = tr.clock() if tr is not None else 0.0
+        out = rerank_query(q_bow, q_len, res, alpha=self.cfg.alpha,
+                           doc_bytes=self.doc_bytes,
+                           degrade=self.tier.degrade_reads, tracer=tr, **kw)
+        return out, (t0, tr.clock() if tr is not None else 0.0)
+
+    def _view(self, fin, fin_scores, batch, b: int,
+              bd: LatencyBreakdown) -> QueryResult:
+        """Query ``b``'s ``QueryResult`` over a coalesced read (with a
+        tracer, a ``views`` span)."""
+        tr = self.tracer
+        sp = tr.begin("views", cat="host", n_queries=1) \
+            if tr is not None else None
+        res = QueryResult.from_batch_view(fin, fin_scores, batch, b,
+                                          ann_s=bd.ann_s)
+        if tr is not None:
+            tr.end(sp)
+        return res
 
     def _rerank_candidates(self, q_bow, q_lens, scores, ids,
                            bd: LatencyBreakdown) -> list[RerankOutput]:
@@ -208,21 +262,18 @@ class RetrievalBackend(abc.ABC):
         bd.critical_io_s += batch.sim_seconds
         ranked = []
         for b, (fin, fin_scores, rr) in enumerate(prep):
-            res = QueryResult.from_batch_view(fin, fin_scores, batch, b,
-                                              ann_s=bd.ann_s)
-            out = rerank_query(q_bow[b], int(q_lens[b]), res,
-                               alpha=cfg.alpha, rerank_count=rr,
-                               doc_bytes=self.doc_bytes,
-                               degrade=self.tier.degrade_reads)
+            res = self._view(fin, fin_scores, batch, b, bd)
+            out, wall = self._rerank_one(q_bow[b], int(q_lens[b]), res,
+                                         rerank_count=rr)
             ranked.append(out)
             maxsim_t = 0.0
             if not out.degraded:       # a degraded query never ran MaxSim
                 maxsim_t = self._maxsim_time(rr, int(q_lens[b]))
                 bd.rerank_s += maxsim_t
             if tr is not None:
-                self._trace_query(tr, b, batch.io_s(b), out, maxsim_t)
+                self._trace_query(tr, b, batch.io_s(b), out, maxsim_t, wall)
             bd.bytes_read += out.bow_bytes_read
-        saved = batch.dedup_bytes_saved(self.doc_bytes)
+        saved = self._dedup_bill(batch.dedup_bytes_saved)
         bd.bytes_read -= saved
         bd.dedup_bytes_saved += saved
         bd.hit_rate = 0.0
@@ -238,7 +289,6 @@ class RetrievalBackend(abc.ABC):
         survivors and full-precision MaxSim as each query's arena rows land.
         Non-survivors keep their candidate-stage ordering (alpha*CLS for
         bitvec, FDE score for cascade)."""
-        cfg = self.cfg
         tr = self.tracer
         dev = self.index.device
         layout = self.tier.layout
@@ -282,20 +332,17 @@ class RetrievalBackend(abc.ABC):
         ranked = []
         for b, (fin, fin_scores, sel) in enumerate(prep):
             qlen = int(q_lens[b])
-            res = QueryResult.from_batch_view(fin, fin_scores, batch, b,
-                                              ann_s=bd.ann_s)
-            out = rerank_query(q_bow[b], qlen, res, alpha=cfg.alpha,
-                               select=sel, doc_bytes=self.doc_bytes,
-                               degrade=self.tier.degrade_reads)
+            res = self._view(fin, fin_scores, batch, b, bd)
+            out, wall = self._rerank_one(q_bow[b], qlen, res, select=sel)
             ranked.append(out)
             maxsim_t = 0.0
             if not out.degraded:
                 maxsim_t = self._maxsim_time(len(sel), qlen)
                 bd.rerank_s += maxsim_t
             if tr is not None:
-                self._trace_query(tr, b, batch.io_s(b), out, maxsim_t)
+                self._trace_query(tr, b, batch.io_s(b), out, maxsim_t, wall)
             bd.bytes_read += out.bow_bytes_read
-        saved = batch.dedup_bytes_saved(self.doc_bytes)
+        saved = self._dedup_bill(batch.dedup_bytes_saved)
         bd.bytes_read -= saved
         bd.dedup_bytes_saved += saved
         bd.hit_rate = 0.0
@@ -313,7 +360,12 @@ class ESPNBackend(RetrievalBackend):
         super().__init__(index, tier, cfg, **kw)
         self.prefetcher = ANNPrefetcher(index, tier,
                                         prefetch_step=cfg.prefetch_step,
-                                        cost_model=self.cost)
+                                        cost_model=self.cost,
+                                        tracer=self.tracer)
+
+    def attach_tracer(self, tracer) -> None:
+        super().attach_tracer(tracer)
+        self.prefetcher.tracer = tracer
 
     def _retrieve(self, q_cls, q_bow, q_lens, bd):
         cfg = self.cfg
@@ -329,10 +381,8 @@ class ESPNBackend(RetrievalBackend):
             tr.end(cspan, sim_s=bd.ann_s)
         ranked, hit_rates, hidden, critical = [], [], 0.0, 0.0
         for b, res in enumerate(results):
-            out = rerank_query(q_bow[b], int(q_lens[b]), res,
-                               alpha=cfg.alpha, rerank_count=cfg.rerank_count,
-                               doc_bytes=self.doc_bytes,
-                               degrade=self.tier.degrade_reads)
+            out, wall = self._rerank_one(q_bow[b], int(q_lens[b]), res,
+                                         rerank_count=cfg.rerank_count)
             ranked.append(out)
             early_t = self._maxsim_time(res.stats.n_hits, int(q_lens[b]))
             miss_t = self._maxsim_time(res.stats.n_misses, int(q_lens[b]))
@@ -346,7 +396,7 @@ class ESPNBackend(RetrievalBackend):
                 tr.add("hidden_io", cat="io", qid=tr.query_key(b),
                        sim_s=min(hidden_work, res.stats.budget_s))
                 self._trace_query(tr, b, leaked + res.stats.miss_io_s, out,
-                                  miss_t,
+                                  miss_t, wall,
                                   hit_rate=round(res.stats.hit_rate, 4))
             hit_rates.append(res.stats.hit_rate)
             bd.bytes_read += out.bow_bytes_read
@@ -356,9 +406,10 @@ class ESPNBackend(RetrievalBackend):
         if self.tier.coalesce:
             # batch engine billed each doc once; surface the duplicate
             # consumptions the serial path would have re-billed
-            saved = consumption_dedup_saved(
+            saved = self._dedup_bill(
+                consumption_dedup_saved,
                 [res.doc_ids[:out.n_reranked]
-                 for res, out in zip(results, ranked)], self.doc_bytes)
+                 for res, out in zip(results, ranked)])
             bd.bytes_read -= saved
             bd.dedup_bytes_saved += saved
         return ranked

@@ -237,15 +237,11 @@ class Pipeline:
                                faults=faults, device=index.device)
         backend = backend_cls(index, tier, cfg.retrieval.to_espn_config(),
                               cost_model=cost_model, compute=compute)
-        if cfg.obs.enabled():
-            # one tracer threaded through the whole stack: backend spans
-            # and storage spans (plan/read_batch + fault children) stitch
-            # per query
-            tracer = Tracer()
-            backend.tracer = tracer
-            tier.tracer = tracer
-        return cls(cfg, corpus=corpus, index=index, layout=layout, tier=tier,
+        pipe = cls(cfg, corpus=corpus, index=index, layout=layout, tier=tier,
                    backend=backend)
+        if cfg.obs.enabled():
+            pipe.attach_tracer(Tracer())
+        return pipe
 
     # -- queries ------------------------------------------------------------
     def search(self, q_cls: np.ndarray | None = None,
@@ -282,6 +278,13 @@ class Pipeline:
         """The stack's tracer (None unless ``cfg.obs`` enabled tracing or a
         server attached one)."""
         return self.backend.tracer
+
+    def attach_tracer(self, tracer: Tracer | None) -> None:
+        """Thread one tracer through the whole stack (the backend, its
+        prefetcher and the storage tier), so that backend spans and storage
+        spans (plan/read_batch + fault children) stitch per query; ``None``
+        detaches it."""
+        self.backend.attach_tracer(tracer)
 
     def export_trace(self, path: str) -> int:
         """Write the accumulated spans as Chrome/Perfetto trace-event JSON

@@ -281,9 +281,7 @@ class RetrievalServer:
             # propagate down the stack: backend spans (query_batch, rerank,
             # candidate_gen) and storage spans (plan, shard_read, faults)
             # land in the SAME tracer and stitch under the request spans
-            retriever.tracer = tracer
-            if tier is not None:
-                tier.tracer = tracer
+            retriever.attach_tracer(tracer)
         tier_stats = getattr(tier, "stats", {})
         self._mut_base = {k: tier_stats.get(k, 0) for k in _MUT_KEYS}
         if tier is not None and hasattr(tier, "memory_resident_bytes"):

@@ -212,6 +212,8 @@ class BatchReadResult:
                                                 # fault retry budget
         self.span = None                        # the read's trace span (set
                                                 # by a traced tier)
+        self.tracer = None                      # a traced tier's Tracer:
+                                                # waits on staging are timed
 
     # -- fault surface -------------------------------------------------------
     def query_failed(self, b: int) -> bool:
@@ -251,15 +253,28 @@ class BatchReadResult:
                    if r is not None)
 
     # -- synchronization -----------------------------------------------------
-    def _land(self, ri: int) -> None:
-        """Wait for run ``ri``'s staging, then issue its one host->device
-        copy (on the caller's thread: the staging threads touch no CUDA)."""
-        if self._landed[ri]:
+    def _run_rows(self, ri: int) -> tuple[int, int]:
+        """The pool rows ``[a, b)`` run ``ri`` stages."""
+        return self.plan.pool_range(*self.plan.runs[ri])
+
+    def _land(self, runs) -> None:
+        """Wait for each of ``runs``' staging, then issue its one
+        host->device copy (on the caller's thread: the staging threads
+        touch no CUDA). With a tracer, the runs not landed yet are waited
+        on and copied under one ``io_wait`` span (their count and bytes)."""
+        todo = [int(ri) for ri in runs if not self._landed[ri]]
+        if not todo:
             return
-        self._futures[ri].result()
-        upload(self.arena, self._staging,
-               *self.plan.pool_range(*self.plan.runs[ri]))
-        self._landed[ri] = True
+        tr = self.tracer
+        sp = tr.begin("io_wait", cat="host") if tr is not None else None
+        for ri in todo:
+            self._futures[ri].result()
+            upload(self.arena, self._staging, *self._run_rows(ri))
+            self._landed[ri] = True
+        if tr is not None:
+            rows = sum(b - a for a, b in map(self._run_rows, todo))
+            tr.end(sp, n_runs=len(todo), bytes=rows
+                   * self._staging.shape[1] * self._staging.element_size())
 
     def ensure_query(self, b: int) -> None:
         """Block until every run holding query ``b``'s rows has landed."""
@@ -267,8 +282,7 @@ class BatchReadResult:
             return
         if self.query_failed(b):
             raise RuntimeError(f"query {b}'s read failed: it has no rows")
-        for ri in self.plan.query_runs[b]:
-            self._land(int(ri))
+        self._land(self.plan.query_runs[b])
 
     def ensure_rows(self, rows) -> None:
         """Block until the runs covering arbitrary arena ``rows`` have
@@ -278,15 +292,13 @@ class BatchReadResult:
         if not self.coalesced or len(rows) == 0:
             return
         run_starts = np.array([r0 for r0, _ in self.plan.runs], np.int64)
-        for ri in np.unique(np.searchsorted(run_starts, rows,
-                                            side="right") - 1):
-            self._land(int(ri))
+        self._land(np.unique(np.searchsorted(run_starts, rows,
+                                             side="right") - 1))
 
     def wait_all(self) -> None:
         """Block until every run has been staged and copied to the arena's
         device."""
-        for ri in range(len(self._futures)):
-            self._land(ri)
+        self._land(range(len(self._futures)))
 
     # -- per-query views -----------------------------------------------------
     def view(self, b: int) -> tuple[DeviceArena | None, dict, float]:

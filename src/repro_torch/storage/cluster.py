@@ -191,21 +191,14 @@ class ClusterBatchReadResult(BatchReadResult):
             and bool(self._failed_rows.any())
 
     # -- synchronization -----------------------------------------------------
-    def _land(self, ri: int) -> None:
-        """Wait for run ``ri``'s staging, then issue its one host->device
-        copy (on the caller's thread)."""
-        if self._landed[ri]:
-            return
-        self._futures[ri].result()
-        upload(self.arena, self._staging, *self._run_ranges[ri])
-        self._landed[ri] = True
+    def _run_rows(self, ri: int) -> tuple[int, int]:
+        return self._run_ranges[ri]
 
     def _wait_rows(self, rows: np.ndarray) -> None:
         if self._run_of_row is None or len(rows) == 0:
             return
-        for ri in np.unique(self._run_of_row[np.asarray(rows, np.int64)]):
-            if ri >= 0:
-                self._land(int(ri))
+        runs = np.unique(self._run_of_row[np.asarray(rows, np.int64)])
+        self._land(runs[runs >= 0])
 
     def ensure_query(self, b: int) -> None:
         self._wait_rows(self.plan.query_rows[b])
@@ -1020,6 +1013,7 @@ class StorageCluster:
                               n_blocks=io_blocks, cache_hits=cache_hits,
                               hedged=hedged, hedge_wins=wins,
                               failovers=failovers)
+            res.tracer = tr
         return res
 
     def read_bits(self, ids, t_max: int | None = None):

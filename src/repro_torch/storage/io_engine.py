@@ -369,6 +369,7 @@ class StorageTier:
                               staging=staging, futures=futures)
         if tr is not None:
             res.span = _rb_span(sim, n_blocks)
+            res.tracer = tr
         return res
 
     def read_bits(self, ids, t_max: int | None = None):

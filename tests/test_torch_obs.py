@@ -5,6 +5,7 @@ categories, parents, query ids and simulated seconds; wall times differ by
 nature) in every single-tier mode, faulted or not; tracing changes no id,
 score or bill; and the Perfetto export loads in both packages' analyzers.
 """
+import dataclasses
 import json
 
 import numpy as np
@@ -19,10 +20,14 @@ from repro.pipeline import Pipeline as RefPipeline
 from repro.serve.engine import ServeStats as RefServeStats
 from repro.storage import faults as ref_faults
 from repro_torch import convert
-from repro_torch.obs import MetricsRegistry, StreamingHistogram, analyze_trace
-from repro_torch.obs.analyze import dominant_stage
+from repro_torch.core.espn import ESPNRetriever
+from repro_torch.core.ivf import search_two_phase, valid_candidates
+from repro_torch.obs import (MetricsRegistry, Span, StreamingHistogram,
+                             Tracer, analyze_trace)
+from repro_torch.obs.analyze import (WORK_SPANS, dominant_stage,
+                                     host_breakdown)
 from repro_torch.pipeline import Pipeline
-from repro_torch.serve.engine import ServeStats
+from repro_torch.serve.engine import RetrievalServer, ServeStats
 from repro_torch.storage import faults
 
 MODES = ("espn", "gds", "mmap", "swap", "dram", "bitvec", "fde", "cascade",
@@ -144,11 +149,34 @@ def tree(spans):
              {k: s.args[k] for k in keep if k in s.args}) for s in spans]
 
 
+def without_host(spans):
+    """The spans less the port's ``cat="host"`` ones (wall time of host
+    work, which the reference does not trace), each child of a dropped span
+    re-parented to its nearest kept ancestor."""
+    by_sid = {s.sid: s for s in spans}
+
+    def kept(sid):
+        while sid is not None and by_sid[sid].cat == "host":
+            sid = by_sid[sid].parent
+        return sid
+    return [dataclasses.replace(s, parent=kept(s.parent)) for s in spans
+            if s.cat != "host"]
+
+
+def assert_nested(spans):
+    """Every span's wall interval lies inside its parent's."""
+    by_sid = {s.sid: s for s in spans}
+    for s in spans:
+        if s.parent is not None:
+            par = by_sid[s.parent]
+            assert par.t0 <= s.t0 and s.t1 <= par.t1, (s.name, par.name)
+
+
 @pytest.mark.parametrize("fault_kw", [None, FAULTS], ids=["plain", "faulted"])
 @pytest.mark.parametrize("mode", MODES)
 def test_span_tree_equals_the_reference(mode, fault_kw):
     r, p, r_spans, p_spans = traced_both(mode, fault_kw)
-    assert tree(p_spans) == tree(r_spans)
+    assert tree(without_host(p_spans)) == tree(r_spans)
     assert p.breakdown.as_dict() == r.breakdown.as_dict()
     # the per-query spans reconcile with the batch breakdown
     bd = p.breakdown
@@ -157,10 +185,7 @@ def test_span_tree_equals_the_reference(mode, fault_kw):
     assert sum(s.sim_s for s in p_spans if s.name in ("rerank",
                                                      "bit_filter")) == \
         pytest.approx(bd.rerank_s, abs=1e-12)
-    for s in p_spans:                     # wall intervals nest
-        if s.parent is not None:
-            par = next(x for x in p_spans if x.sid == s.parent)
-            assert par.t0 <= s.t0 and s.t1 <= par.t1
+    assert_nested(p_spans)
     if fault_kw is None:
         assert not any(s.cat == "fault" for s in p_spans)
 
@@ -188,6 +213,198 @@ def test_tracing_is_bitwise_invisible(mode):
         assert x.degraded == y.degraded
     assert a.breakdown.as_dict() == b.breakdown.as_dict()
     assert a_stats == b_stats
+
+
+# -- host spans -------------------------------------------------------------------
+
+def port_pipeline(mode, trace=True):
+    c, index, layout = artifacts()
+    _, cfg = configs(mode)
+    cfg.obs.trace = trace
+    return Pipeline.from_artifacts(
+        cfg, index=convert.ivf_index_from_numpy(index_arrays(index), "cpu"),
+        layout=convert.layout_from_numpy(layout_arrays(layout)),
+        device="cpu")
+
+
+def traced_port(mode):
+    """One traced batch through the port: the response, the spans and
+    every coalesced read the tier made."""
+    c, _, _ = artifacts()
+    with port_pipeline(mode) as pipe:
+        reads = []
+        read_batch = pipe.tier.read_batch
+
+        def kept(*a, **kw):
+            res = read_batch(*a, **kw)
+            reads.append(res)
+            return res
+        pipe.tier.read_batch = kept
+        resp = pipe.search(c.queries_cls, c.queries_bow, c.query_lens)
+        assert pipe.tracer.open_count() == 0
+        return pipe, resp, pipe.tracer.spans(), reads
+
+
+def prefetch_recount(pipe, q_cls):
+    """The prefetcher's hit masks and reuse check counted anew: the
+    two-phase search's lists, each query's misses, and the misses that any
+    query's prefetch list (the prefetch read's arena) holds."""
+    cfg = pipe.cfg.retrieval
+    pf = pipe.backend.prefetcher
+    approx, final, _ = search_two_phase(pipe.index, q_cls, cfg.nprobe,
+                                        cfg.k_candidates,
+                                        pf.delta(cfg.nprobe))
+    a_ids = approx[1].numpy()
+    f_scores, f_ids = (t.numpy() for t in final)
+    prefs = [a[a >= 0] for a in a_ids]
+    arena = set(np.concatenate(prefs).tolist())
+    n = dict(n_candidates=0, n_hits=0, n_misses=0, n_served=0)
+    for b, pref in enumerate(prefs):
+        fin, _ = valid_candidates(f_ids[b], f_scores[b])
+        hit = np.isin(fin, pref)
+        n["n_candidates"] += len(fin)
+        n["n_hits"] += int(hit.sum())
+        n["n_misses"] += int((~hit).sum())
+        n["n_served"] += sum(int(i) in arena for i in fin[~hit])
+    return n
+
+
+@pytest.mark.parametrize("mode", ["espn", "gds"])
+def test_host_spans_time_the_batch(mode):
+    """Each host span opens inside the batch's ``query_batch``, on its
+    thread, as often as the table of spans says, with its counters; the
+    per-query ``rerank`` span is the wall of the ``rerank_query`` call."""
+    c, _, _ = artifacts()
+    pipe, resp, spans, reads = traced_port(mode)
+    assert_nested(spans)
+    (qb,) = [s for s in spans if s.name == "query_batch"]
+    host = [s for s in spans if s.cat == "host"]
+    assert {s.name for s in host} <= set(WORK_SPANS)
+    for s in host + [s for s in spans if s.name in ("plan", "read_batch")]:
+        assert qb.t0 <= s.t0 <= s.t1 <= qb.t1 and s.tid == qb.tid, s.name
+    named = {n: [s for s in host if s.name == n] for n in WORK_SPANS}
+    B = len(c.query_lens)
+    assert len(named["ivf_search"]) == 1
+    (cand,) = [s for s in spans if s.name == "candidate_gen"]
+    assert named["ivf_search"][0].parent == cand.sid
+    if mode == "espn":
+        for n in ("hit_masks", "reuse_check", "views"):
+            assert len(named[n]) == 1, n
+            assert named[n][0].parent == cand.sid
+        assert named["views"][0].args["n_queries"] == B
+        got = {**named["hit_masks"][0].args, **named["reuse_check"][0].args}
+        assert got == prefetch_recount(pipe, c.queries_cls)
+    else:
+        assert not named["hit_masks"] and not named["reuse_check"]
+        assert [s.args["n_queries"] for s in named["views"]] == [1] * B
+    # one wall rerank span a scored query, holding its byte bill, its
+    # lookup and its scoring (every reranked doc scored)
+    scored = [b for b, out in enumerate(resp.ranked) if not out.degraded]
+    reranks = [s for s in spans if s.name == "rerank"]
+    assert [s.qid for s in reranks] == scored
+    assert len(named["score"]) == len(scored)
+    for s in reranks:
+        assert s.t1 > s.t0 and s.sim_s > 0
+        within = [h for h in host if s.t0 <= h.t0 and h.t1 <= s.t1]
+        names = [h.name for h in within if h.name != "io_wait"]
+        assert names == ["bill", "lookup", "score"]
+        assert within[-1].args["n_docs"] == resp.ranked[s.qid].n_reranked
+    # every staged run waited on and copied once, under an io_wait span
+    runs = sum(len(r.plan.runs) for r in reads if r.coalesced)
+    staged = sum(r._staging.numel() * r._staging.element_size()
+                 for r in reads if r.coalesced and r._staging is not None)
+    assert sum(s.args["n_runs"] for s in named["io_wait"]) == runs > 0
+    assert sum(s.args["bytes"] for s in named["io_wait"]) == staged > 0
+    assert named["bill"]
+    hb = host_breakdown(spans)
+    assert hb["n_batches"] == 1 and hb["query_batch_s"] == qb.wall_s
+    assert 0.0 <= hb["untraced_s"] <= hb["query_batch_s"]
+    for n in WORK_SPANS:
+        assert hb["spans"][n] == len(named[n]) or n in ("plan", "read_batch")
+        assert 0.0 <= hb["work_s"][n] <= qb.wall_s
+    assert hb["spans"]["read_batch"] == len(reads)
+    if mode == "espn":
+        assert hb["counters"]["reuse_check"]["n_served"] == \
+            prefetch_recount(pipe, c.queries_cls)["n_served"]
+
+
+def test_host_breakdown_counts_the_batches_own_thread():
+    """``host_breakdown`` takes each batch's own thread's work spans, counts
+    nested spans of one name once, and leaves what no work span covers
+    as untraced."""
+    tr = Tracer(clock=iter([0.0, 1.0, 1.5, 2.0, 3.0, 4.0, 5.0,
+                            6.0]).__next__)
+    qb = tr.begin("query_batch")
+    a = tr.begin("views", cat="host", n_queries=4)
+    b = tr.begin("views", cat="host", n_queries=1)
+    tr.end(b)
+    tr.end(a)
+    tr.end(tr.begin("bill", cat="host"))
+    tr.end(qb)
+    other = Span(-1, None, "score", "host", None, 0.5, 5.0, tid=qb.tid + 1)
+    spans = tr.spans() + [other]
+    hb = host_breakdown(spans)
+    assert hb["n_batches"] == 1 and hb["query_batch_s"] == 6.0
+    assert hb["work_s"]["views"] == 2.0 and hb["work_s"]["bill"] == 1.0
+    assert hb["work_s"]["score"] == 0.0
+    assert hb["spans"]["views"] == 2
+    assert hb["counters"]["views"] == {"n_queries": 5}
+    assert hb["untraced_s"] == 3.0
+
+
+def test_attach_tracer_reaches_the_whole_stack():
+    """One ``attach_tracer`` call reaches the backend, the prefetcher and
+    the storage tier (and a traced read's waits); ``None`` detaches all
+    three. The server and ``ESPNRetriever`` attach through it."""
+    c, _, _ = artifacts()
+    q = (c.queries_cls[:4], c.queries_bow[:4], c.query_lens[:4])
+    with port_pipeline("espn", trace=False) as pipe:
+        stack = (pipe.backend, pipe.backend.prefetcher, pipe.tier)
+        assert pipe.tracer is None
+        tr = Tracer()
+        pipe.attach_tracer(tr)
+        assert all(x.tracer is tr for x in stack) and pipe.tracer is tr
+        pipe.search(*q)
+        names = {s.name for s in tr.spans()}
+        assert {"query_batch", "plan", "hit_masks", "io_wait"} <= names
+        pipe.attach_tracer(None)
+        assert all(x.tracer is None for x in stack) and pipe.tracer is None
+        n = len(tr.spans())
+        pipe.search(*q)
+        assert len(tr.spans()) == n
+        srv = RetrievalServer(pipe.backend, tracer=Tracer())
+        try:
+            assert all(x.tracer is srv.tracer for x in stack)
+        finally:
+            srv.shutdown()
+        ret = ESPNRetriever(pipe.index, pipe.tier,
+                            pipe.cfg.retrieval.to_espn_config())
+        ret.tracer = tr
+        assert ret.backend.prefetcher.tracer is tr is pipe.tier.tracer
+        ret.attach_tracer(None)
+        assert ret.tracer is ret.backend.prefetcher.tracer is None
+
+
+def test_query_sims_are_the_spans_sums():
+    """``query_sims`` (kept as spans are recorded) equals a scan of the
+    spans, by query and name."""
+    _, _, spans, _ = traced_port("espn")
+    tr = Tracer()
+    for s in spans:
+        if s.closed:
+            tr.add(s.name, s.cat, s.qid, t0=s.t0, t1=s.t1, sim_s=s.sim_s)
+    sp = tr.begin("request", qid=0)
+    tr.end(sp, sim_s=0.25)
+    for qid in {s.qid for s in tr.spans()}:
+        want = {}
+        for s in tr.spans():
+            if s.qid == qid:
+                want[s.name] = want.get(s.name, 0.0) + s.sim_s
+        assert tr.query_sims(qid) == pytest.approx(want, abs=0, rel=1e-12)
+        assert tr.query_sims(qid, names=("rerank",)) == {
+            k: v for k, v in want.items() if k == "rerank"}
+    assert tr.query_sims(0)["request"] == 0.25
+    assert tr.query_sims("none") == {}
 
 
 # -- exports --------------------------------------------------------------------
